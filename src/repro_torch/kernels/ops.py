@@ -1,0 +1,85 @@
+"""Model-layer wrappers around the kernels (``repro/kernels/ops.py`` without
+the mesh branches).
+
+Each adapts the model's ``[T, H, dh]`` tensors to its kernel's head-major
+layout (GQA rows token-major: row = t·G + g, query head h = k·G + g) and
+back, in the caller's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_varlen as FV
+from repro_torch.kernels import logit_argmax as LA
+from repro_torch.kernels import select_pack as SP
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def fused_logit_argmax(h, w, *, softcap: float = 0.0, w_layout: str = "dv",
+                       valid=None):
+    """h [T, D]; w [D, V] ("dv") or [V, D] ("vd", tied table) ->
+    (ids [T] int32, conf [T] f32). Paper C1, fused. Invalid rows of a
+    token-bucketed stream decode to (0, 0.0)."""
+    T = h.shape[0]
+    vld = (torch.ones((T,), dtype=torch.bool, device=h.device)
+           if valid is None else valid.contiguous())
+    ids, _, s = LA.fused_logit_argmax_call(
+        h.contiguous(), w, vld, softcap=softcap, w_layout=w_layout)
+    conf = 1.0 / s.clamp_min(1e-30)
+    if valid is not None:
+        ids = torch.where(valid, ids, torch.zeros_like(ids))
+        conf = torch.where(valid, conf, torch.zeros_like(conf))
+    return ids, conf
+
+
+def flash_varlen_attention(q, k, v, *, seg_ids, positions, kv_valid,
+                           window: int = 0, is_local: bool = False,
+                           softcap: float = 0.0, causal: bool = False):
+    """Ragged attention over a token-packed stream. q [T, H, dh];
+    k/v [T, K, dh]; seg_ids/positions [T]; kv_valid [T] -> [T, H, dh]."""
+    T, H, dh = q.shape
+    K = k.shape[1]
+    G = H // K
+    qr = q.reshape(T, K, G, dh).permute(1, 0, 2, 3).reshape(K, T * G, dh)
+    out = FV.flash_varlen_call(
+        qr.contiguous(), k.permute(1, 0, 2).contiguous(),
+        v.permute(1, 0, 2).contiguous(), _i32(positions), _i32(seg_ids),
+        kv_valid.contiguous(), is_local, softcap=softcap, causal=causal,
+        window=window)
+    out = out.reshape(K, T, G, dh).permute(1, 0, 2, 3).reshape(T, H, dh)
+    return out.to(q.dtype)
+
+
+def flash_varlen_cross_attention(q, k, v, *, q_seg, q_pos, kv_seg, kv_pos,
+                                 kv_valid, window: int = 0,
+                                 is_local: bool = False, softcap: float = 0.0,
+                                 causal: bool = False):
+    """Packed-Reuse cross attention. q [Tq, H, dh] packed block queries;
+    k/v [K, Tkv, dh] head-major KV stream; q_seg/q_pos [Tq]; kv_seg [Tkv];
+    kv_pos/kv_valid [K, Tkv] -> [Tq, H, dh]."""
+    Tq, H, dh = q.shape
+    K = k.shape[0]
+    G = H // K
+    qr = q.reshape(Tq, K, G, dh).permute(1, 0, 2, 3).reshape(K, Tq * G, dh)
+    out = FV.flash_varlen_cross_call(
+        qr.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos),
+        _i32(kv_pos), _i32(q_seg), _i32(kv_seg), kv_valid.contiguous(),
+        is_local, softcap=softcap, causal=causal, window=window)
+    out = out.reshape(K, Tq, G, dh).permute(1, 0, 2, 3).reshape(Tq, H, dh)
+    return out.to(q.dtype)
+
+
+def head_score_varlen(q_block, k_flat, seg_ids):
+    """q_block [R, Sb, H, dh]; k_flat [T, K, dh]; seg_ids [T] ->
+    [R, K, T] f32 raw scores (-inf off-segment)."""
+    R, Sb, H, dh = q_block.shape
+    K = k_flat.shape[1]
+    G = H // K
+    qr = (q_block.reshape(R, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
+          .reshape(R, K, Sb * G, dh))
+    return SP.head_score_varlen_call(
+        qr.contiguous(), k_flat.permute(1, 0, 2).contiguous(),
+        _i32(seg_ids))

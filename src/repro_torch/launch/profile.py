@@ -1,0 +1,96 @@
+"""Where the serving time goes on the card: ``run_serve`` under
+``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile [--n 8] [--out F]
+
+Serves the full llada-8b (random bfloat16 weights from a seed) through the
+dllm-serve profile with the kernels, the same configuration chip_smoke.py
+drives, once to warm and once under the profiler (CPU + CUDA activity).
+Prints one JSON object: the device seconds summed over the profiled run's
+kernels and copies; the device's idle share against that run's wall time
+and against the unprofiled warm run's (the profiler slows the host, not
+the device); and device time by group — the port's four kernels, matrix
+products, device<->host copies, everything else — and by kernel name. The
+profiled window spans all of ``run_serve``, engine construction (weights
+drawn on the device) and warm-up included.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch.serve import run_serve
+
+SERVE_KW = dict(max_seq_len=256, block_size=8, max_slots=12,
+                max_num_batched_tokens=1024, max_num_logits=128)
+GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",)),
+          ("head_score_varlen", ("head_score_kernel",)),
+          ("fused_logit_argmax", ("logit_partial_kernel",
+                                  "logit_merge_kernel")),
+          ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
+          ("memcpy", ("Memcpy", "Memset")))
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def profile_serve(n: int, seed: int = 0) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the profile measures the card; no CUDA device")
+    kw = dict(use_reduced=False, kernels=True, clock="wall", seed=seed,
+              size_by_profiler=False, device="cuda", **SERVE_KW)
+    warm = run_serve("llada-8b", "dllm-serve", "livebench", 50.0, n, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_serve("llada-8b", "dllm-serve", "livebench", 50.0, n, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.self_device_time_total > 0:
+            by_name[e.key] = (e.self_device_time_total / 1e3, e.count)
+    groups = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        groups[group_of(name)] += ms
+    busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return dict(
+        card=torch.cuda.get_device_name(0), n_requests=n,
+        iterations=res["iterations"], committed_tokens=res["committed_tokens"],
+        profiled_wall_s=wall, device_busy_s=busy_s,
+        device_idle_share=1.0 - busy_s / wall,
+        unprofiled_wall_clock_s=warm["wall_clock_s"],
+        unprofiled_wall_tok_s=warm["wall_tok_s"],
+        unprofiled_idle_share=1.0 - busy_s / warm["wall_clock_s"],
+        host_plan_s=res["host_plan_s"], host_fill_s=res["host_fill_s"],
+        sync_wait_s=res["sync_wait_s"],
+        groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        top_kernels=[dict(name=k[:120], ms=v[0], count=v[1]) for k, v in top])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=8)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    res = profile_serve(args.n)
+    print(json.dumps(res))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

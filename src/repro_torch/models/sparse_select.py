@@ -1,0 +1,96 @@
+"""Head-centric sparse KV selection over the packed Refresh stream (paper
+§4.5 eq.6, contribution C3) — the varlen path of
+``repro.models.sparse_select``.
+
+Scoring runs on the flat stream in place (the ``head_score_varlen`` kernel);
+only the per-request score windows are gathered for the top-k, and the pack
+gathers exactly the ``retain`` winners from the flat K/V into the dense
+head-major ``PackedKV`` layout the slot pool stores.
+
+Sentinels, as in the reference: off-segment raw scores and the max-pool's
+edge padding are ``-inf``; excluded positions (the active block, and rows
+past the request's length) are ``-1e30``. Among equal scores the lower
+position wins, which is ``jax.lax.top_k``'s order (``torch.topk`` promises
+none), so a request with fewer candidates than ``retain`` packs the same
+positions in both packages.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+class PackedKV(NamedTuple):
+    k: torch.Tensor        # [B, K, R, dh]  post-RoPE keys, densely packed
+    v: torch.Tensor        # [B, K, R, dh]
+    pos: torch.Tensor      # [B, K, R] int32  original token positions
+    valid: torch.Tensor    # [B, K, R] bool
+
+
+def _local_maxpool(raw: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Local max-pooling with window w along the last axis; edges pad with
+    -inf so invalid or foreign neighbours never leak in."""
+    w = kernel_size
+    if w > 1:
+        inf = float("-inf")
+        pads = [raw]
+        for off in range(1, w // 2 + 1):
+            pads.append(F.pad(raw[..., off:], (0, off), value=inf))
+            pads.append(F.pad(raw[..., :-off], (off, 0), value=inf))
+        raw = torch.stack(pads).amax(dim=0)
+    return raw
+
+
+def head_scores_varlen(q_block, k_flat, seg_ids, kernel_size: int):
+    """[R, K, T] f32: request r's eq.(6) scores at its own stream positions,
+    -inf elsewhere, masked BEFORE the max-pool so a request's retained set
+    cannot depend on what it is packed with."""
+    raw = ops.head_score_varlen(q_block, k_flat, seg_ids)
+    return _local_maxpool(raw, kernel_size)
+
+
+def select_indices(scores, retain: int, *, mode: str, exclude):
+    """Top-``retain`` token indices per KV head, [B, K, retain] int32 in
+    ascending position order. scores [B, K, S]; exclude [B, S] bool."""
+    scores = scores.masked_fill(exclude[:, None, :], -1e30)
+    if mode == "uniform":
+        # Sparse-dLLM eq.(5): aggregate across heads -> one shared index set
+        scores = scores.sum(dim=1, keepdim=True).expand_as(scores)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return torch.sort(order[..., :retain], dim=-1).values.to(torch.int32)
+
+
+def select_and_pack_varlen(q_block, k_flat, v_flat, seg_ids, cu_seqlens,
+                           gather_rows, valid_sel, *, retain: int,
+                           kernel_size: int, mode: str, exclude) -> PackedKV:
+    """C3 select/pack reading the flat token-packed stream in place.
+
+    q_block [R, Sb, H, dh]; k_flat/v_flat [T, K, dh]; seg_ids [T];
+    cu_seqlens [R]; gather_rows/valid_sel/exclude [R, S_sel]."""
+    R, S_sel = gather_rows.shape
+    T, K = k_flat.shape[0], k_flat.shape[1]
+    if mode == "none":
+        # dense retention: position-ordered packing, no scoring
+        scores = torch.zeros((R, K, S_sel), device=k_flat.device)
+        scores = scores - torch.arange(
+            S_sel, dtype=torch.float32, device=k_flat.device) * 1e-6
+        idx = select_indices(scores, retain, mode="uniform", exclude=exclude)
+    else:
+        raw = head_scores_varlen(q_block, k_flat, seg_ids, kernel_size)
+        rows = gather_rows[:, None, :].expand(R, K, S_sel).long()
+        scores = torch.gather(raw, 2, rows)                  # [R, K, S_sel]
+        idx = select_indices(scores, retain, mode=mode, exclude=exclude)
+    flat_rows = (cu_seqlens[:, None, None] + idx).clamp(0, T - 1).long()
+    kh = k_flat.permute(1, 0, 2)                             # [K, T, dh]
+    vh = v_flat.permute(1, 0, 2)
+    heads = torch.arange(K, device=k_flat.device)[None, :, None]
+    pk = kh[heads, flat_rows]                                # [R, K, retain, dh]
+    pv = vh[heads, flat_rows]
+    il = idx.long()
+    val = torch.gather(valid_sel[:, None, :].expand(R, K, S_sel), 2, il)
+    excl = torch.gather(exclude[:, None, :].expand(R, K, S_sel), 2, il)
+    return PackedKV(pk, pv, idx, val & ~excl)

@@ -1,0 +1,153 @@
+"""Each Hopper kernel against its plain PyTorch version on the card.
+
+Needs a CUDA device, ``nvcc`` and the kernels built from
+``src/repro_torch/kernels/csrc``; every test takes the ``cuda`` fixture,
+which skips with a reason when ``torch.cuda.is_available()`` is False. This
+file imports nothing of JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 inputs run in full float32 on both sides (TF32 off), so
+only the order of sums differs: 1e-4 on outputs of magnitude ~1. bfloat16
+inputs: the kernel rounds the attention probabilities to bfloat16 before
+the P·V product, as the reference kernels do, and sums in another order:
+2e-2. Argmax ids must match where the top two logits are apart.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_varlen as FV
+from repro_torch.kernels import logit_argmax as LA
+from repro_torch.kernels import select_pack as SP
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _stream(lens, pad, dev):
+    seg = np.concatenate([np.full(n, j) for j, n in enumerate(lens)]
+                         + [np.full(pad, FV.PAD_SEG)]).astype(np.int32)
+    pos = np.concatenate([np.arange(n) for n in lens]
+                         + [np.zeros(pad)]).astype(np.int32)
+    valid = seg != FV.PAD_SEG
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(seg), t(pos), t(valid)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128)])
+@pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
+                                   dict(causal=True),
+                                   dict(window=5, is_local=True)])
+def test_flash_varlen_matches_plain(cuda, dtype, tol, G, dh, flags):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    seg, pos, valid = _stream([70, 9, 133, 1], pad=43, dev=cuda)
+    T, K = seg.shape[0], 2
+    q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((K, T, dh), generator=g, device=cuda).to(dtype)
+    kw = dict(softcap=flags.get("softcap", 0.0),
+              causal=flags.get("causal", False), window=flags.get("window", 0))
+    loc = flags.get("is_local", False)
+    out = FV.flash_varlen_call(q, k, v, pos, seg, valid, loc, **kw)
+    ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T), seg,
+                                    valid.expand(K, T), loc, **kw)
+    rows = valid.repeat_interleave(G)
+    torch.cuda.synchronize()
+    assert (out[:, rows] - ref[:, rows]).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_varlen_cross_matches_plain(cuda, dtype, tol, G):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    R, Sb, Cr, K, dh = 5, 8, 120, 4, 128
+    Tq, Tkv = R * Sb, R * (Cr + Sb)
+    q = torch.randn((K, Tq * G, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(dtype)
+    ar = torch.arange(R, dtype=torch.int32, device=cuda)
+    q_seg, kv_seg = ar.repeat_interleave(Sb), ar.repeat_interleave(Cr + Sb)
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=cuda).repeat(R) + 200
+    kv_pos = torch.randint(0, 300, (K, Tkv), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_valid = torch.rand((K, Tkv), generator=g, device=cuda) < 0.6
+    # each request's live block, at the block's positions, is valid
+    kv_valid.view(K, R, Cr + Sb)[:, :, Cr:] = True
+    kv_pos.view(K, R, Cr + Sb)[:, :, Cr:] = q_pos.view(R, Sb)
+    for kw in (dict(), dict(causal=True), dict(softcap=10.0)):
+        out = FV.flash_varlen_cross_call(q, k, v, q_pos, kv_pos, q_seg,
+                                         kv_seg, kv_valid, **kw)
+        ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos,
+                                        kv_seg, kv_valid, False, **kw)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("Rq,dh", [(8, 128), (40, 16)])
+def test_head_score_matches_plain(cuda, dtype, tol, Rq, dh):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    seg, _, _ = _stream([70, 9, 133, 1, 64], pad=43, dev=cuda)
+    R, K, T = 8, 3, seg.shape[0]                  # requests 5..7 own nothing
+    q = torch.randn((R, K, Rq, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(dtype)
+    out = SP.head_score_varlen_call(q, k, seg)
+    ref = SP.head_score_varlen_plain(q, k, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    # products of bf16 values are exact in float32; only sum order differs
+    scale = ref[fin].abs().max().item()
+    assert (out[fin] - ref[fin]).abs().max().item() < tol * max(1.0, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["dv", "vd"])
+@pytest.mark.parametrize("T,D,V,softcap", [(100, 64, 1000, 0.0),
+                                           (257, 96, 5003, 15.0)])
+def test_logit_argmax_matches_plain(cuda, dtype, layout, T, D, V, softcap):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn((T, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((D, V), generator=g, device=cuda) * 0.2).to(dtype)
+    w[:, 17] = w[:, V - 3]                     # an exact tie in every row
+    if layout == "vd":
+        w = w.t().contiguous()
+    valid = torch.ones(T, dtype=torch.bool, device=cuda)
+    valid[128:256] = False                     # an all-padding T tile
+    idx, m, s = LA.fused_logit_argmax_call(h, w, valid, softcap=softcap,
+                                           w_layout=layout)
+    ri, rm, rs = LA.fused_logit_argmax_plain(h, w, softcap=softcap,
+                                             w_layout=layout)
+    torch.cuda.synchronize()
+    assert (idx[~valid] == 0).all() and torch.isinf(m[~valid]).all()
+    z = (h.float() @ (w.float() if layout == "dv" else w.float().t()))
+    if softcap:
+        z = softcap * torch.tanh(z / softcap)
+    top2 = z.topk(2, dim=1).values
+    clear = valid & ((top2[:, 0] - top2[:, 1]) > 1e-3)
+    assert torch.equal(idx[clear], ri[clear])
+    tie = valid & (ri == 17)                   # the lowest tied index wins
+    assert torch.equal(idx[tie], ri[tie])
+    torch.testing.assert_close(m[valid], rm[valid], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s[valid], rs[valid], rtol=1e-3, atol=1e-3)
+
+
+def test_launches_are_counted(cuda):
+    build.reset_counters()
+    h = torch.zeros((4, 16), device=cuda)
+    LA.fused_logit_argmax_call(h, torch.zeros((16, 256), device=cuda),
+                               torch.ones(4, dtype=torch.bool, device=cuda))
+    c = build.COUNTERS["fused_logit_argmax"]
+    assert (c.launches, c.plain_calls) == (1, 0)
