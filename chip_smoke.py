@@ -5,21 +5,26 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: torch / CUDA / nvcc versions and the card, as nvidia-smi
      reports its name and power limit;
-  2. build: the four kernels from src/repro_torch/kernels/csrc with nvcc
+  2. build: the five kernels from src/repro_torch/kernels/csrc with nvcc
      for sm_90a (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the card, at a small
-     float32 shape with every mask flag, and at the main path's full-width
-     bfloat16 shapes (llada-8b; Refresh streams up to the token bucket of
-     max_num_batched_tokens, one max_num_logits chunk for the logit stage),
+     float32 shape with every mask flag, and at the main paths' full-width
+     shapes (llada-8b, bfloat16: Refresh streams up to the token bucket of
+     max_num_batched_tokens, one max_num_logits chunk for the logit stage;
+     zamba2-7b, bfloat16: the shared block's causal attention at head_dim
+     112; the float32 SSD scan at zamba2-7b's and mamba2-130m's widths),
      with the kernel's time, the plain version's, one PyTorch library
-     call's (a yardstick the port never calls) and the least time the card
-     could take (bound_ms);
-  4. a small end-to-end check: one iteration of the reduced model on the
-     card against the same iteration on the CPU (the plain versions);
-  5. serve: run_serve of the full llada-8b (random weights from a seed,
-     bfloat16) through the dllm-serve profile with the kernels, on the wall
-     clock; every request must finish, every kernel must have launched, and
-     no plain version may have run;
+     call's where one computes the same function (a yardstick the port
+     never calls) and the least time the card could take (bound_ms);
+  4. a small end-to-end check: three iterations of reduced llada-8b and of
+     reduced zamba2-7b on the card against the same iterations on the CPU
+     (the plain versions);
+  5. serve: run_serve of the full llada-8b, the full zamba2-7b and the full
+     mamba2-130m (random bfloat16 weights from a seed) through the
+     dllm-serve profile with the kernels, on the wall clock, each with the
+     launch counts zeroed just before it and read just after; every request
+     must finish, every kernel of the arch's path must have launched, and no
+     plain version may have run;
   6. the kernels line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -94,26 +99,28 @@ def stream(lens, pad, dev):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_flash_varlen(dev, g, cfg, serve, results):
+def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
     from repro_torch.kernels import flash_varlen as FV
-    # small float32, GQA G=2, every mask flag, ragged tile edges
-    seg, pos, valid = stream([70, 9, 133, 1], 43, dev)
-    T, K, G, dh = seg.shape[0], 2, 2, 64
-    q = torch.randn((K, T * G, dh), generator=g, device=dev)
-    k = torch.randn((K, T, dh), generator=g, device=dev)
-    v = torch.randn((K, T, dh), generator=g, device=dev)
-    rows = valid.repeat_interleave(G)
-    for kw, loc in ((dict(), False), (dict(softcap=20.0), False),
-                    (dict(causal=True), False), (dict(window=5), True)):
-        out = FV.flash_varlen_call(q, k, v, pos, seg, valid, loc, **kw)
-        ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T),
-                                        seg, valid.expand(K, T), loc, **kw)
-        err = (out[:, rows] - ref[:, rows]).abs().max().item()
-        log(f"  flash_varlen f32 {kw or 'plain'} local={loc}: "
-            f"max_abs_err={err:.3g} (tol 1e-4)")
-        assert err < 1e-4, err
+    if small:
+        # small float32, GQA G=2, every mask flag, ragged tile edges
+        seg, pos, valid = stream([70, 9, 133, 1], 43, dev)
+        T, K, G, dh = seg.shape[0], 2, 2, 64
+        q = torch.randn((K, T * G, dh), generator=g, device=dev)
+        k = torch.randn((K, T, dh), generator=g, device=dev)
+        v = torch.randn((K, T, dh), generator=g, device=dev)
+        rows = valid.repeat_interleave(G)
+        for kw, loc in ((dict(), False), (dict(softcap=20.0), False),
+                        (dict(causal=True), False), (dict(window=5), True)):
+            out = FV.flash_varlen_call(q, k, v, pos, seg, valid, loc, **kw)
+            ref = FV.varlen_attention_plain(q, k, v, pos, seg,
+                                            pos.expand(K, T), seg,
+                                            valid.expand(K, T), loc, **kw)
+            err = (out[:, rows] - ref[:, rows]).abs().max().item()
+            log(f"  flash_varlen f32 {kw or 'plain'} local={loc}: "
+                f"max_abs_err={err:.3g} (tol 1e-4)")
+            assert err < 1e-4, err
     # the main path's full Refresh stream: 4 refresh slots x max_seq_len
-    # filling the max_num_batched_tokens bucket, bf16, llada-8b heads
+    # filling the max_num_batched_tokens bucket, bf16, the arch's heads
     lens = [256, 250, 240, 230]
     T = serve.max_num_batched_tokens
     seg, pos, valid = stream(lens, T - sum(lens), dev)
@@ -123,32 +130,35 @@ def check_flash_varlen(dev, g, cfg, serve, results):
     k = torch.randn((K, T, dh), generator=g, device=dev, dtype=bf)
     v = torch.randn((K, T, dh), generator=g, device=dev, dtype=bf)
     kvp, kvv = pos.expand(K, T), valid.expand(K, T)
-    out = FV.flash_varlen_call(q, k, v, pos, seg, valid)
-    ref = FV.varlen_attention_plain(q, k, v, pos, seg, kvp, seg, kvv, False)
+    call = lambda: FV.flash_varlen_call(q, k, v, pos, seg, valid,  # noqa
+                                        causal=causal)
+    plain = lambda: FV.varlen_attention_plain(  # noqa: E731
+        q, k, v, pos, seg, kvp, seg, kvv, False, causal=causal)
+    out, ref = call(), plain()
     rows = valid.repeat_interleave(G)
     err = (out[:, rows] - ref[:, rows]).abs().max().item()
-    log(f"  flash_varlen bf16 T={T} K={K} dh={dh}: max_abs_err={err:.3g} "
-        f"(tol 2e-2)")
+    log(f"  flash_varlen bf16 {cfg.name} T={T} K={K} dh={dh} causal="
+        f"{causal}: max_abs_err={err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
     assert G == 1, "the SDPA yardstick below takes one query head per KV head"
     mask = (seg[:, None] == seg[None, :]) & valid[None, :]
+    if causal:
+        mask = mask & (pos[:, None] >= pos[None, :])
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ops = 4.0 * sum(n * n for n in lens) * cfg.n_heads * dh
-    b, by = bound(ops, nbytes(q, k, v, seg, pos, valid) + K * T * G * dh * 4,
-                  bf)
-    results["flash_varlen"] = dict(
+    pairs = sum(n * (n + 1) // 2 if causal else n * n for n in lens)
+    b, by = bound(4.0 * pairs * cfg.n_heads * dh,
+                  nbytes(q, k, v, seg, pos, valid) + K * T * G * dh * 4, bf)
+    return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:97",
-        max_abs_err=err,
-        ms=time_ms(lambda: FV.flash_varlen_call(q, k, v, pos, seg, valid)),
-        plain_ms=time_ms(lambda: FV.varlen_attention_plain(
-            q, k, v, pos, seg, kvp, seg, kvv, False), iters=5),
+        max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: sdpa(q[None], k[None], v[None],
                                         attn_mask=mask)))
 
 
-def check_flash_varlen_cross(dev, g, cfg, serve, retain, results):
+def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
+                             small=True):
     from repro_torch.kernels import flash_varlen as FV
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -169,48 +179,53 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, results):
         kv_pos.view(K, R, Cr + Sb)[:, :, Cr:] = q_pos.view(R, Sb)
         return q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid
 
-    args = case(5, 8, 40, 2, 2, 64, torch.float32)
-    for kw in (dict(), dict(softcap=20.0), dict(causal=True),
-               dict(window=30)):
-        loc = "window" in kw
-        out = FV.flash_varlen_cross_call(*args, loc, **kw)
+    if small:
+        args = case(5, 8, 40, 2, 2, 64, torch.float32)
         q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
-        ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos,
-                                        kv_seg, kv_valid, loc, **kw)
-        err = (out - ref).abs().max().item()
-        log(f"  flash_varlen_cross f32 {kw or 'plain'}: max_abs_err="
-            f"{err:.3g} (tol 1e-4)")
-        assert err < 1e-4, err
+        for kw in (dict(), dict(softcap=20.0), dict(causal=True),
+                   dict(window=30)):
+            loc = "window" in kw
+            out = FV.flash_varlen_cross_call(*args, loc, **kw)
+            ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos,
+                                            kv_seg, kv_valid, loc, **kw)
+            err = (out - ref).abs().max().item()
+            log(f"  flash_varlen_cross f32 {kw or 'plain'}: max_abs_err="
+                f"{err:.3g} (tol 1e-4)")
+            assert err < 1e-4, err
     # the main path's largest Reuse stream: every slot decoding a block
     R, Sb = serve.max_slots, serve.block_size
     K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
     G = cfg.n_heads // K
     args = case(R, Sb, retain, K, G, dh, bf)
     q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
-    out = FV.flash_varlen_cross_call(*args)
-    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
-                                    kv_valid, False)
+    call = lambda: FV.flash_varlen_cross_call(*args,  # noqa: E731
+                                              causal=causal)
+    plain = lambda: FV.varlen_attention_plain(  # noqa: E731
+        q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid, False, causal=causal)
+    out, ref = call(), plain()
     err = (out - ref).abs().max().item()
-    log(f"  flash_varlen_cross bf16 R={R} Tq={R * Sb} Tkv={k.shape[1]}: "
-        f"max_abs_err={err:.3g} (tol 2e-2)")
+    log(f"  flash_varlen_cross bf16 {cfg.name} R={R} Tq={R * Sb} "
+        f"Tkv={k.shape[1]} dh={dh} causal={causal}: max_abs_err={err:.3g} "
+        f"(tol 2e-2)")
     assert err < 2e-2, err
-    mask = ((q_seg[:, None] == kv_seg[None, :])[None]
-            & kv_valid[:, None, :])[None]                 # [1, K, Tq, Tkv]
-    ops = 4.0 * R * Sb * (retain + Sb) * cfg.n_heads * dh
+    mask = (q_seg[:, None] == kv_seg[None, :])[None] & kv_valid[:, None, :]
+    if causal:
+        mask = mask & (q_pos[None, :, None] >= kv_pos[:, None, :])
+        # the causal mask removes pairs: count the ones this data keeps
+        ops = 4.0 * int(mask.sum()) * G * dh
+    else:
+        ops = 4.0 * R * Sb * (retain + Sb) * cfg.n_heads * dh
     b, by = bound(ops, nbytes(*args) + q.numel() * 4, bf)
-    results["flash_varlen_cross"] = dict(
+    return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:220",
-        max_abs_err=err,
-        ms=time_ms(lambda: FV.flash_varlen_cross_call(*args)),
-        plain_ms=time_ms(lambda: FV.varlen_attention_plain(
-            q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid, False), iters=5),
+        max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: sdpa(q[None], k[None], v[None],
-                                        attn_mask=mask)))
+                                        attn_mask=mask[None])))
 
 
-def check_head_score(dev, g, cfg, serve, results):
+def check_head_score(dev, g, cfg, serve, small=True):
     from repro_torch.kernels import select_pack as SP
 
     def case(lens, pad, R, K, Rq, dh, dtype):
@@ -225,11 +240,12 @@ def check_head_score(dev, g, cfg, serve, results):
         fin = torch.isfinite(ref)
         return (out[fin] - ref[fin]).abs().max().item()
 
-    args = case([70, 9, 133, 1, 64], 43, 8, 3, 16, 64, torch.float32)
-    err = err_of(SP.head_score_varlen_call(*args),
-                 SP.head_score_varlen_plain(*args))
-    log(f"  head_score_varlen f32: max_abs_err={err:.3g} (tol 1e-3)")
-    assert err < 1e-3, err
+    if small:
+        args = case([70, 9, 133, 1, 64], 43, 8, 3, 16, 64, torch.float32)
+        err = err_of(SP.head_score_varlen_call(*args),
+                     SP.head_score_varlen_plain(*args))
+        log(f"  head_score_varlen f32: max_abs_err={err:.3g} (tol 1e-3)")
+        assert err < 1e-3, err
     lens = [256, 250, 240, 230]
     T = serve.max_num_batched_tokens
     K, dh, Sb = cfg.n_kv_heads, cfg.resolved_head_dim, serve.block_size
@@ -238,8 +254,8 @@ def check_head_score(dev, g, cfg, serve, results):
     q, k, seg = args
     err = err_of(SP.head_score_varlen_call(*args),
                  SP.head_score_varlen_plain(*args))
-    log(f"  head_score_varlen bf16 R={len(lens)} T={T}: max_abs_err="
-        f"{err:.3g} (tol 1e-2: |scores| ~ 30, float32 sums)")
+    log(f"  head_score_varlen bf16 {cfg.name} R={len(lens)} T={T} dh={dh}: "
+        f"max_abs_err={err:.3g} (tol 1e-2: |scores| ~ 30, float32 sums)")
     assert err < 1e-2, err
     R = len(lens)
     own = seg[None, :] == torch.arange(R, device=dev, dtype=torch.int32)[:, None]
@@ -250,7 +266,7 @@ def check_head_score(dev, g, cfg, serve, results):
 
     ops = 2.0 * sum(lens) * Sb * cfg.n_heads * dh
     b, by = bound(ops, nbytes(q, k, seg) + R * K * T * 4, torch.bfloat16)
-    results["head_score_varlen"] = dict(
+    return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/head_score.cu",
         replaces="src/repro/kernels/select_pack.py:82",
         max_abs_err=err,
@@ -259,7 +275,7 @@ def check_head_score(dev, g, cfg, serve, results):
         bound_ms=b, bound_by=by, library_ms=time_ms(library))
 
 
-def check_logit_argmax(dev, g, cfg, serve, results):
+def check_logit_argmax(dev, g, cfg, serve, tied):
     from repro_torch.kernels import logit_argmax as LA
 
     def compare(h, w, valid, layout, softcap, tol):
@@ -301,13 +317,22 @@ def check_logit_argmax(dev, g, cfg, serve, results):
     err, n = compare(h, w, valid, "dv", 0.0, 2e-3)
     log(f"  fused_logit_argmax bf16 T={T} D={D} V={V}: max_err={err:.3g} "
         f"(tol 2e-3), {n}/{T} ids compared")
+    # the tied [V, D] head of the attention-free arch, V not a multiple of
+    # the 128-wide vocabulary tile
+    Dt, Vt = tied.d_model, tied.vocab_size
+    ht = torch.randn((T, Dt), generator=g, device=dev, dtype=bf)
+    wt = torch.empty((Vt, Dt), device=dev, dtype=bf).normal_(0, 0.02,
+                                                             generator=g)
+    err_t, n = compare(ht, wt, valid, "vd", 0.0, 2e-3)
+    log(f"  fused_logit_argmax bf16 vd {tied.name} T={T} D={Dt} V={Vt}: "
+        f"max_err={err_t:.3g} (tol 2e-3), {n}/{T} ids compared")
 
     def library():
         z = (h @ w).float()
         return z.argmax(dim=1), torch.logsumexp(z, dim=1)
 
     b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
-    results["fused_logit_argmax"] = dict(
+    return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/logit_argmax.cu",
         replaces="src/repro/kernels/logit_argmax.py:80",
         max_abs_err=err,
@@ -316,23 +341,85 @@ def check_logit_argmax(dev, g, cfg, serve, results):
         bound_ms=b, bound_by=by, library_ms=time_ms(library))
 
 
+def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
+    """float32 on both sides: the kernel's token recurrence against the
+    plain version's chunked form; tolerance 1e-4 relative to the largest
+    output (the two sum the same terms in other orders)."""
+    from repro_torch.kernels import ssm_scan as SS
+
+    def case(lens, pad, H, P, N, block_starts):
+        seg, pos, _ = stream(lens, pad, dev)
+        T = seg.shape[0]
+        xdt = torch.randn((T, H, P), generator=g, device=dev)
+        # dt·A of a Mamba2 layer at init: A = -1, dt = softplus(.) > 0
+        dA = -0.01 - torch.rand((T, H), generator=g, device=dev)
+        Bm = torch.randn((T, N), generator=g, device=dev)
+        Cm = torch.randn((T, N), generator=g, device=dev)
+        cu = [sum(lens[:j]) for j in range(len(lens))]
+        cap = [c + b - 1 if b > 0 else -1 for c, b in zip(cu, block_starts)]
+        return (xdt, dA, Bm, Cm, (pos == 0).float(),
+                torch.tensor(cap, dtype=torch.int32, device=dev))
+
+    def compare(args, chunk):
+        got = SS.ssm_segment_scan_call(*args, chunk=chunk)
+        want = SS.ssm_segment_scan_plain(*args, chunk=chunk)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(1.0, max(b.abs().max().item() for b in want))
+        assert err < 1e-4 * scale, (err, scale)
+        zero = args[5] < 0
+        assert not got[1][zero].any(), "a -1 capture is not zero"
+        return err, scale
+
+    # small: resets inside chunks and on their edges, captures at -1, at
+    # chunk edges and inside chunks, at every chunking of the plain version
+    args = case([40, 9, 33, 1], 13, 3, 8, 16, [24, 0, 8, 0])
+    for chunk in (8, 16, 32, 96):
+        err, scale = compare(args, chunk)
+        log(f"  ssm_segment_scan f32 T=96 chunk={chunk}: max_abs_err="
+            f"{err:.3g} (tol 1e-4 x {scale:.3g})")
+    out = {}
+    lens = [256, 250, 240, 230]
+    T = serve.max_num_batched_tokens
+    for cfg in (zamba, mamba):
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        args = case(lens, T - sum(lens), H, P, N, [200, 96, 232, 8])
+        err, scale = compare(args, 64)
+        log(f"  ssm_segment_scan f32 {cfg.name} T={T} H={H} P={P} N={N} R=4: "
+            f"max_abs_err={err:.3g} (tol 1e-4 x {scale:.3g})")
+        R = args[5].shape[0]
+        b, by = bound(4.0 * T * H * P * N,
+                      nbytes(*args) + 4 * (T * H * P + (R + 1) * H * P * N),
+                      torch.float32)
+        out[cfg.name] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+            replaces="src/repro/kernels/ssm_scan.py:128", max_abs_err=err,
+            ms=time_ms(lambda: SS.ssm_segment_scan_call(*args)),
+            plain_ms=time_ms(lambda: SS.ssm_segment_scan_plain(*args),
+                             iters=3),
+            bound_ms=b, bound_by=by, library_ms=None)
+    main_row = out.pop(zamba.name)
+    return dict(main_row, **out)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a small end-to-end check against the CPU
 # ---------------------------------------------------------------------------
 
-def check_reduced_iteration(dev):
-    """One engine iteration of the reduced model (float32) on the card and on
-    the CPU from the same weights and requests: committed ids exact, the
-    pool's retained positions exact, hidden-derived keys within 1e-4."""
+def check_reduced_iteration(dev, arch):
+    """Three engine iterations of the reduced arch (float32) on the card and
+    on the CPU from the same weights and requests: committed ids exact, the
+    pool's retained positions exact, retained keys, recurrent states and
+    conv histories within 1e-4."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import ServeConfig
     from repro_torch.core.baselines import system_profiles
     from repro_torch.core.engine import Engine
-    from repro_torch.params import init_params
+    from repro_torch.models.hybrid import HybridCache
+    from repro_torch.params import copy_to, init_params
 
-    cfg = reduced(get_config("llada-8b"))
+    cfg = reduced(get_config(arch))
     serve = dataclasses.replace(system_profiles(ServeConfig(
         max_num_batched_tokens=512, max_num_logits=64, block_size=8,
         steps_per_block=8, max_seq_len=128, max_slots=6, pipeline=False))
@@ -340,12 +427,7 @@ def check_reduced_iteration(dev):
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     engines = []
     for d in ("cpu", dev):
-        p = params if d == "cpu" else type(params)({
-            "embed": type(params)({n: t.to(d) for n, t in
-                                   params["embed"].items()}),
-            "final_norm": params["final_norm"].to(d),
-            "stack": type(params)({n: t.to(d) for n, t in
-                                   params["stack"].items()})})
+        p = params if d == "cpu" else copy_to(params, d)
         e = Engine(cfg, serve, params=p, clock="modeled", device=d)
         rng = np.random.default_rng(0)
         reqs = [e.submit(rng.integers(0, cfg.vocab_size - 1, n), gen_len=24,
@@ -357,13 +439,66 @@ def check_reduced_iteration(dev):
     for a, b in zip(rc, rg):
         assert np.array_equal(a.tokens, b.tokens), f"request {a.rid}"
     pc, pg = ec.pool.cache, eg.pool.cache
-    assert torch.equal(pc.pos[:, :4], pg.pos[:, :4].cpu())
-    ok = pc.valid[:, :4]
-    assert torch.equal(ok, pg.valid[:, :4].cpu())
-    err = (pc.k[:, :4][ok] - pg.k[:, :4].cpu()[ok]).abs().max().item()
+    hybrid = isinstance(pc, HybridCache)
+    kc, kg = (pc.kv, pg.kv) if hybrid else (pc, pg)
+    assert torch.equal(kc.pos[:, :4], kg.pos[:, :4].cpu())
+    ok = kc.valid[:, :4]
+    assert torch.equal(ok, kg.valid[:, :4].cpu())
+    err = (kc.k[:, :4][ok] - kg.k[:, :4].cpu()[ok]).abs().max().item()
+    if hybrid:
+        for a, b in ((pc.ssm_state, pg.ssm_state), (pc.conv, pg.conv)):
+            err = max(err, (a[:, :4] - b[:, :4].cpu()).abs().max().item())
     assert err < 1e-4, err
-    log(f"  reduced llada-8b, 3 iterations: ids equal, retained positions "
-        f"equal, key max_abs_err={err:.3g} (tol 1e-4)")
+    log(f"  reduced {arch}, 3 iterations: ids equal, retained positions "
+        f"equal, cache max_abs_err={err:.3g} (tol 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve the full models through the kernels
+# ---------------------------------------------------------------------------
+
+PATH_KERNELS = {
+    "llada-8b": ("flash_varlen", "flash_varlen_cross", "head_score_varlen",
+                 "fused_logit_argmax"),
+    "zamba2-7b": ("ssm_segment_scan", "flash_varlen", "flash_varlen_cross",
+                  "head_score_varlen", "fused_logit_argmax"),
+    "mamba2-130m": ("ssm_segment_scan", "fused_logit_argmax"),
+}
+
+
+def serve_full(arch, n_req, serve_kw, card):
+    """run_serve of the full arch with the launch counts zeroed just before
+    and read just after; returns the counts."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import run_serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    res = run_serve(arch, "dllm-serve", "livebench", 50.0, n_req,
+                    use_reduced=False, kernels=True, clock="wall",
+                    size_by_profiler=False, device="cuda", **serve_kw)
+    counts = {n: (c.launches, c.plain_calls)
+              for n, c in build.COUNTERS.items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    keep = ("n_finished", "n_submitted", "committed_tokens", "iterations",
+            "refresh_steps", "reuse_steps", "wall_clock_s", "wall_tok_s",
+            "p50_latency", "p99_latency", "host_plan_s", "host_fill_s",
+            "sync_wait_s", "warmup_s", "refresh_tokens_real",
+            "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec")
+    log(json.dumps(dict(phase="serve", arch=arch, **{k: res[k] for k in keep},
+                        max_memory_allocated=peak, launches=counts)))
+    with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{arch}.json"),
+              "w") as f:
+        json.dump(dict(res, arch=arch, max_memory_allocated=peak,
+                       launches=counts, card=card), f, indent=2)
+    assert res["n_finished"] == n_req, (arch, res["n_finished"])
+    for name in PATH_KERNELS[arch]:
+        assert counts[name][0] > 0, f"{arch}: {name} never launched"
+    for name, (_, plain) in counts.items():
+        assert plain == 0, f"{arch}: {plain} plain-version calls of {name}"
+    return {n: launches for n, (launches, _) in counts.items()}
 
 
 def main() -> int:
@@ -374,7 +509,6 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import build
-    from repro_torch.launch.serve import run_serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -406,65 +540,65 @@ def main() -> int:
 
     # 3. each kernel against its plain version
     t0 = time.perf_counter()
-    cfg = get_config("llada-8b")
+    llada, zamba = get_config("llada-8b"), get_config("zamba2-7b")
+    mamba = get_config("mamba2-130m")
     serve_kw = dict(max_seq_len=256, block_size=8, max_slots=12,
                     max_num_batched_tokens=1024, max_num_logits=128)
     serve = ServeConfig(**serve_kw)
     retain = min(serve.retained_len, serve.max_seq_len - serve.block_size)
     g = torch.Generator(device=dev).manual_seed(0)
-    results = {}
-    check_flash_varlen(dev, g, cfg, serve, results)
-    check_flash_varlen_cross(dev, g, cfg, serve, retain, results)
-    check_head_score(dev, g, cfg, serve, results)
-    check_logit_argmax(dev, g, cfg, serve, results)
+    results = {
+        "flash_varlen": check_flash_varlen(dev, g, llada, serve),
+        "flash_varlen_cross": check_flash_varlen_cross(dev, g, llada, serve,
+                                                       retain),
+        "head_score_varlen": check_head_score(dev, g, llada, serve),
+        "fused_logit_argmax": check_logit_argmax(dev, g, llada, serve, mamba),
+        "ssm_segment_scan": check_ssm_segment_scan(dev, g, zamba, mamba,
+                                                   serve),
+    }
+    # the shared block of zamba2-7b: causal, head_dim 112
+    results["flash_varlen"]["zamba2-7b"] = check_flash_varlen(
+        dev, g, zamba, serve, causal=True, small=False)
+    results["flash_varlen_cross"]["zamba2-7b"] = check_flash_varlen_cross(
+        dev, g, zamba, serve, retain, causal=True, small=False)
+    results["head_score_varlen"]["zamba2-7b"] = check_head_score(
+        dev, g, zamba, serve, small=False)
     torch.cuda.synchronize()
     for name, r in results.items():
-        log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+        for shape, x in [("", r)] + [(f" {k}", v) for k, v in r.items()
+                                      if isinstance(v, dict)]:
+            lib = ("none" if x["library_ms"] is None
+                   else f"{x['library_ms']:.4f}")
+            log(f"  {name}{shape}: kernel_ms={x['ms']:.4f} "
+                f"plain_ms={x['plain_ms']:.4f} library_ms={lib} "
+                f"bound_ms={x['bound_ms']:.4f} ({x['bound_by']})")
     log(f"phase kernels: {time.perf_counter() - t0:.3f} s")
 
-    # 4. small end-to-end check
+    # 4. small end-to-end checks
     t0 = time.perf_counter()
-    check_reduced_iteration(dev)
+    for arch in ("llada-8b", "zamba2-7b"):
+        check_reduced_iteration(dev, arch)
     log(f"phase reduced-check: {time.perf_counter() - t0:.3f} s")
 
-    # 5. serve the full model through the kernels
-    t0 = time.perf_counter()
+    # 5. serve the full models through the kernels, each path counted alone
     del g
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    n_req = 8
-    build.reset_counters()
-    res = run_serve("llada-8b", "dllm-serve", "livebench", 50.0, n_req,
-                    use_reduced=False, kernels=True, clock="wall",
-                    size_by_profiler=False, device="cuda", **serve_kw)
-    counts = {n: (c.launches, c.plain_calls)
-              for n, c in build.COUNTERS.items()}
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    keep = ("n_finished", "n_submitted", "committed_tokens", "iterations",
-            "refresh_steps", "reuse_steps", "wall_clock_s", "wall_tok_s",
-            "p50_latency", "p99_latency", "host_plan_s", "host_fill_s",
-            "sync_wait_s", "warmup_s", "refresh_tokens_real",
-            "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec")
-    log(json.dumps(dict(phase="serve", **{k: res[k] for k in keep},
-                        max_memory_allocated=peak, launches=counts)))
-    with open(os.path.join(OUT_DIR, "chip_smoke_serve.json"), "w") as f:
-        json.dump(dict(res, max_memory_allocated=peak, launches=counts,
-                       card=card), f, indent=2)
-    assert res["n_finished"] == n_req, res["n_finished"]
-    for name in results:
-        launches, plain = counts[name]
-        assert launches > 0, f"{name} never launched on the main path"
-        assert plain == 0, f"{name}: {plain} plain-version calls in serve"
-        results[name]["launches"] = launches
-    log(f"phase serve: {time.perf_counter() - t0:.3f} s")
+    launches = {name: {} for name in results}
+    for arch, n_req in (("llada-8b", 8), ("zamba2-7b", 8),
+                        ("mamba2-130m", 4)):
+        t0 = time.perf_counter()
+        counts = serve_full(arch, n_req, serve_kw, card)
+        for name in PATH_KERNELS[arch]:
+            launches[name][arch] = counts[name]
+        log(f"phase serve {arch}: {time.perf_counter() - t0:.3f} s")
+    for name, r in results.items():
+        r["launches"] = sum(launches[name].values())
+        r["launches_by_path"] = launches[name]
 
-    kernels = [dict(name=n, **{k: r[k] for k in (
-        "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        for n, r in results.items()]
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [dict(name=n, **{k: r[k] for k in keys},
+                    **{k: v for k, v in r.items() if k not in keys})
+               for n, r in results.items()]
     log(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

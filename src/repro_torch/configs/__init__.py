@@ -7,9 +7,13 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ServeConfig, reduced
 from repro_torch.configs.llada_8b import CONFIG as _llada_8b
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba2_130m
+from repro_torch.configs.zamba2_7b import CONFIG as _zamba2_7b
 
 ARCHS = {
     "llada-8b": _llada_8b,
+    "mamba2-130m": _mamba2_130m,
+    "zamba2-7b": _zamba2_7b,
 }
 
 

@@ -44,7 +44,7 @@ from repro_torch.core.budgeting import (admission_block_reason,
                                         can_pack_tokens,
                                         pow2_bucket as _bucket,
                                         token_bucket_round)
-from repro_torch.core.kv_pool import KVPool
+from repro_torch.core.kv_pool import KVPool, tree_map
 from repro_torch.core.request import Outcome, Request, State
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.kernels import build as kbuild
@@ -309,8 +309,7 @@ class Engine:
             self._dev(i32(1)), self._dev(i32(1, min(tp, S))),
             self._dev(i32(1)), self.ctx)
         self.pool.write([self.pool.scratch_slot],
-                        type(out.cache)(*[torch.zeros_like(t)
-                                          for t in out.cache]))
+                        tree_map(torch.zeros_like, out.cache))
         rp = self._reuse_bucket(1)
         BB.serve_reuse_packed(
             self.params, self.cfg, self._dev(i32(rp * Sb)),

@@ -1,9 +1,11 @@
 """Slot-granular static KV pool (paper §4.5 "Static Allocation and
 Contiguous Storage").
 
-One device-resident ``PackedKV`` whose second axis is the request slot:
-``k/v [L, slots+1, K, retain, dh]``, ``pos/valid [L, slots+1, K, retain]``.
-The extra slot, at index ``max_slots``, is scratch for padding rows. Refresh
+One device-resident cache tree whose second axis, in every leaf, is the
+request slot: a ``PackedKV`` (``k/v [L, slots+1, K, retain, dh]``,
+``pos/valid [L, slots+1, K, retain]``), an ``SSMCache`` or a
+``HybridCache`` (named tuples of tensors, nested). The extra slot, at index
+``max_slots``, is scratch for padding rows. Refresh
 writes a freshly packed cache into its requests' slots in place
 (``index_copy_``, the form the reference's donated scatter takes here);
 Reuse gathers the slots of its sub-batch. Both stay on the device.
@@ -17,12 +19,24 @@ Content-addressed sharing and int8 slot storage are not ported yet
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.models.sparse_select import PackedKV
+
+def tree_leaves(cache) -> List[torch.Tensor]:
+    """The tensors of a cache tree (nested named tuples), in field order."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for field in cache for t in tree_leaves(field)]
+
+
+def tree_map(fn: Callable, cache):
+    """The same cache tree with ``fn`` applied to every tensor."""
+    if isinstance(cache, torch.Tensor):
+        return fn(cache)
+    return type(cache)(*[tree_map(fn, field) for field in cache])
 
 
 class KVPool:
@@ -36,7 +50,7 @@ class KVPool:
         self.max_slots = max_slots
         self.scratch_slot = max_slots
         self.device = torch.device(device)
-        self.cache = None          # PackedKV, slot axis = 1
+        self.cache = None          # cache tree, slot axis = 1
         self._free = set(range(max_slots))
         self._gen = np.zeros(max_slots + 1, np.int64)
 
@@ -66,26 +80,27 @@ class KVPool:
         return int(self._gen[slot])
 
     # -- content -----------------------------------------------------------
-    def ensure(self, cache_example: PackedKV) -> None:
+    def ensure(self, cache_example) -> None:
         """Allocate the pool from the first Refresh output's shapes."""
         if self.cache is not None:
             return
         n = self.max_slots + 1
-        self.cache = PackedKV(*[
-            torch.zeros((c.shape[0], n) + tuple(c.shape[2:]), dtype=c.dtype,
-                        device=self.device) for c in cache_example])
+        self.cache = tree_map(
+            lambda c: torch.zeros((c.shape[0], n) + tuple(c.shape[2:]),
+                                  dtype=c.dtype, device=self.device),
+            cache_example)
 
     def _index(self, slots: Sequence[int]) -> torch.Tensor:
         return torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
 
-    def write(self, slots: Sequence[int], cache: PackedKV) -> None:
+    def write(self, slots: Sequence[int], cache) -> None:
         """Scatter ``cache`` (slot axis 1) into ``slots``, in place.
         Repeated scratch-slot entries (padding rows) race, harmlessly."""
         self.ensure(cache)
         idx = self._index(slots)
-        for dst, src in zip(self.cache, cache):
+        for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
             dst.index_copy_(1, idx, src)
 
-    def gather(self, slots: Sequence[int]) -> PackedKV:
+    def gather(self, slots: Sequence[int]):
         idx = self._index(slots)
-        return PackedKV(*[t.index_select(1, idx) for t in self.cache])
+        return tree_map(lambda t: t.index_select(1, idx), self.cache)

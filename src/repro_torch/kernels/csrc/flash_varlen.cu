@@ -274,6 +274,7 @@ cudaError_t dispatch_dh(const Params& p, int K, int dh, cudaStream_t s) {
     case 16: return launch<T, 16>(p, K, s);
     case 32: return launch<T, 32>(p, K, s);
     case 64: return launch<T, 64>(p, K, s);
+    case 112: return launch<T, 112>(p, K, s);   // zamba2-7b: 7 x 16
     case 128: return launch<T, 128>(p, K, s);
     default: return cudaErrorInvalidValue;
   }

@@ -31,7 +31,7 @@ PAD_SEG = 1 << 30
 
 SELF = build.counter("flash_varlen")
 CROSS = build.counter("flash_varlen_cross")
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid,

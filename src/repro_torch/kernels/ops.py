@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
+from repro_torch.kernels import ssm_scan as SS
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +84,24 @@ def head_score_varlen(q_block, k_flat, seg_ids):
     return SP.head_score_varlen_call(
         qr.contiguous(), k_flat.permute(1, 0, 2).contiguous(),
         _i32(seg_ids))
+
+
+def ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap_rows, *, chunk: int = 64):
+    """Segment-reset SSD scan over a packed stream (the model contract of
+    ``repro/kernels/ops.py::ssm_segment_scan``).
+
+    xh [T, H, P]; dt [T, H] (post-softplus); A [H] (negative); Bm/Cm
+    [T, N]; reset [T] bool (True on each request's first token); cap_rows
+    [R] flat row AFTER which request r's state is captured (-1: zero).
+    Returns (y [T, H, P] f32, captured [R, H, P, N] f32)."""
+    T = xh.shape[0]
+    ct = min(chunk, T)
+    while T % ct:
+        ct //= 2
+    dtf = dt.float()
+    xdt = (xh.float() * dtf[..., None]).contiguous()
+    dA = (dtf * A.float()[None, :]).contiguous()
+    y, cap, _ = SS.ssm_segment_scan_call(
+        xdt, dA, Bm.float().contiguous(), Cm.float().contiguous(),
+        reset.float().contiguous(), _i32(cap_rows), chunk=ct)
+    return y, cap

@@ -1,15 +1,19 @@
 """Where the serving time goes on the card: ``run_serve`` under
 ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--n 8] [--out F]
+    PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b]
+        [--n 8] [--out F]
 
-Serves the full llada-8b (random bfloat16 weights from a seed) through the
-dllm-serve profile with the kernels, the same configuration chip_smoke.py
-drives, once to warm and once under the profiler (CPU + CUDA activity).
+Serves the full arch (default llada-8b; random bfloat16 weights from a
+seed) through the dllm-serve profile with the kernels, the configuration
+chip_smoke.py drives, once to warm and once under the profiler (CUDA
+activity only: the script reads device events alone, and CPU events would
+double the events of a run that enqueues thousands of small ops per
+iteration).
 Prints one JSON object: the device seconds summed over the profiled run's
 kernels and copies; the device's idle share against that run's wall time
 and against the unprofiled warm run's (the profiler slows the host, not
-the device); and device time by group — the port's four kernels, matrix
+the device); and device time by group — the port's kernels, matrix
 products, device<->host copies, everything else — and by kernel name. The
 profiled window spans all of ``run_serve``, engine construction (weights
 drawn on the device) and warm-up included.
@@ -32,6 +36,7 @@ GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",)),
           ("head_score_varlen", ("head_score_kernel",)),
           ("fused_logit_argmax", ("logit_partial_kernel",
                                   "logit_merge_kernel")),
+          ("ssm_segment_scan", ("ssm_scan_kernel",)),
           ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
           ("memcpy", ("Memcpy", "Memset")))
 
@@ -43,17 +48,16 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def profile_serve(n: int, seed: int = 0) -> dict:
+def profile_serve(arch: str, n: int, seed: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the profile measures the card; no CUDA device")
     kw = dict(use_reduced=False, kernels=True, clock="wall", seed=seed,
               size_by_profiler=False, device="cuda", **SERVE_KW)
-    warm = run_serve("llada-8b", "dllm-serve", "livebench", 50.0, n, **kw)
+    warm = run_serve(arch, "dllm-serve", "livebench", 50.0, n, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_serve("llada-8b", "dllm-serve", "livebench", 50.0, n, **kw)
+        res = run_serve(arch, "dllm-serve", "livebench", 50.0, n, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -67,7 +71,7 @@ def profile_serve(n: int, seed: int = 0) -> dict:
     busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return dict(
-        card=torch.cuda.get_device_name(0), n_requests=n,
+        arch=arch, card=torch.cuda.get_device_name(0), n_requests=n,
         iterations=res["iterations"], committed_tokens=res["committed_tokens"],
         profiled_wall_s=wall, device_busy_s=busy_s,
         device_idle_share=1.0 - busy_s / wall,
@@ -82,10 +86,11 @@ def profile_serve(n: int, seed: int = 0) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llada-8b")
     ap.add_argument("--n", type=int, default=8)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    res = profile_serve(args.n)
+    res = profile_serve(args.arch, args.n)
     print(json.dumps(res))
     if args.out:
         with open(args.out, "w") as f:

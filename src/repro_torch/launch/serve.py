@@ -9,6 +9,9 @@ On the CPU, the kernels' plain versions at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
       --system dllm-serve --kernels --device cpu
 
+``--arch`` takes any arch of ``repro_torch.configs.ARCHS``: llada-8b,
+zamba2-7b (hybrid) and mamba2-130m (ssm).
+
 Keys whose feature the port does not have yet carry the reference's "off"
 value: ``compile_counts={}``, ``compiles_*=0``, ``mesh_devices=1``,
 ``plan_*=None``.
@@ -24,7 +27,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.baselines import system_profiles
 from repro_torch.core.engine import Engine
@@ -169,7 +172,7 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llada-8b")
+    ap.add_argument("--arch", default="llada-8b", choices=list_archs())
     ap.add_argument("--system", default="dllm-serve",
                     choices=["dllm-serve", "sparse-dllm", "fast-dllm",
                              "dllm-cache"])

@@ -3,11 +3,18 @@ from the reference's parameter tree.
 
 The layout is the reference's (``repro.models.backbone.init_params``):
 ``embed.table [V, D]``, ``embed.lm_head [D, V]`` (absent when tied),
-``final_norm [D]`` and the stacked ``stack.{attn_norm, mlp_norm [L, D];
-wq [L, D, H, dh]; wk, wv [L, D, K, dh]; wo [L, H, dh, D]; w_gate, w_up
-[L, D, F]; w_down [L, F, D]}``. Modules index like the reference's dicts
-(``params["stack"]["wq"]``), so the model code reads the same in both
-packages.
+``final_norm [D]`` and ``stack``, which is per family
+
+* dense: ``{attn_norm, mlp_norm [L, D]; wq [L, D, H, dh]; wk, wv
+  [L, D, K, dh]; wo [L, H, dh, D]; w_gate, w_up [L, D, F]; w_down
+  [L, F, D]}``;
+* ssm: the Mamba2 stack ``{norm [L, D]; w_z [L, D, Din]; w_xbc [L, D, ch];
+  w_dt [L, D, Hs]; dt_bias [L, Hs]; conv_w [L, ck, ch]; conv_b [L, ch];
+  A_log, D_skip [L, Hs]; gate_norm [L, Din]; out_proj [L, Din, D]}``;
+* hybrid: ``{mamba: <the ssm stack>, shared: <one dense layer, unstacked>}``.
+
+Modules index like the reference's dicts (``params["stack"]["wq"]``), so
+the model code reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -42,73 +49,100 @@ class Group(nn.Module):
         return self.named_parameters(recurse=False)
 
 
-def shapes(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
-    """Parameter shapes of a dense-family arch, by group."""
-    if cfg.family != "dense" or cfg.frontend_dim:
-        raise NotImplementedError(
-            f"parameters of family {cfg.family!r} are not ported yet "
-            f"(ROADMAP Queue A)")
-    nl, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    H, K, dh, V = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, \
-        cfg.vocab_size
-    embed = {"table": (V, D)}
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = (D, V)
+def _attn_stack(cfg: ModelConfig, nl: int) -> Dict[str, tuple]:
+    D, F = cfg.d_model, cfg.d_ff
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     stack = {"attn_norm": (nl, D), "mlp_norm": (nl, D),
              "wq": (nl, D, H, dh), "wk": (nl, D, K, dh), "wv": (nl, D, K, dh),
              "wo": (nl, H, dh, D)}
     if cfg.qkv_bias:
         stack.update(bq=(nl, H, dh), bk=(nl, K, dh), bv=(nl, K, dh))
     stack.update(w_gate=(nl, D, F), w_up=(nl, D, F), w_down=(nl, F, D))
-    return {"embed": embed, "final_norm": (D,), "stack": stack}
+    return stack
 
 
-def _is_zero_init(name: str) -> bool:
-    return name.endswith("norm") or name in ("bq", "bk", "bv")
+def _ssm_stack(cfg: ModelConfig, nl: int) -> Dict[str, tuple]:
+    D, Din, Hs = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    ch = Din + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"norm": (nl, D), "w_z": (nl, D, Din), "w_xbc": (nl, D, ch),
+            "w_dt": (nl, D, Hs), "dt_bias": (nl, Hs),
+            "conv_w": (nl, cfg.ssm_conv_kernel, ch), "conv_b": (nl, ch),
+            "A_log": (nl, Hs), "D_skip": (nl, Hs), "gate_norm": (nl, Din),
+            "out_proj": (nl, Din, D)}
+
+
+def shapes(cfg: ModelConfig) -> Dict[str, object]:
+    """Parameter shapes of an arch, as a tree of dicts with shape leaves."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"parameters of family {cfg.family!r} are not ported yet "
+            f"(ROADMAP Queue A)")
+    embed = {"table": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    if cfg.family == "dense":
+        stack = _attn_stack(cfg, cfg.n_layers)
+    elif cfg.family == "ssm":
+        stack = _ssm_stack(cfg, cfg.n_layers)
+    else:
+        shared = {n: s[1:] for n, s in _attn_stack(cfg, 1).items()}
+        stack = {"mamba": _ssm_stack(cfg, cfg.n_layers), "shared": shared}
+    return {"embed": embed, "final_norm": (cfg.d_model,), "stack": stack}
+
+
+_ZERO_INIT = ("bq", "bk", "bv", "dt_bias", "conv_b", "A_log")
+
+
+def _init(t: torch.Tensor, name: str, generator) -> torch.Tensor:
+    """The reference's init law: zero norms and biases, ``A_log = 0`` (so
+    A = -1), ``D_skip = 1``, N(0, 0.2) conv taps, N(0, 0.02) elsewhere."""
+    if name.endswith("norm") or name in _ZERO_INIT:
+        return t.zero_()
+    if name == "D_skip":
+        return t.fill_(1.0)
+    return t.normal_(0.0, 0.2 if name == "conv_w" else 0.02,
+                     generator=generator)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Group:
-    """Random weights N(0, 0.02) and zero norms/biases, drawn directly on
+    """Random weights by the reference's init law, drawn directly on
     ``device`` in ``cfg.dtype`` (a full-size model is never staged in host
     float32). ``generator`` must live on ``device``."""
     dtype = DTYPES[cfg.dtype]
 
-    def make(name, shape):
-        t = torch.empty(shape, dtype=dtype, device=device)
-        if _is_zero_init(name):
-            return t.zero_()
-        return t.normal_(0.0, 0.02, generator=generator)
+    def make(tree):
+        return Group({n: make(s) if isinstance(s, dict) else _init(
+            torch.empty(s, dtype=dtype, device=device), n, generator)
+            for n, s in tree.items()})
 
-    tree = shapes(cfg)
-    return Group({
-        "embed": Group({n: make(n, s) for n, s in tree["embed"].items()}),
-        "final_norm": make("final_norm", tree["final_norm"]),
-        "stack": Group({n: make(n, s) for n, s in tree["stack"].items()}),
-    })
+    return make(shapes(cfg))
 
 
 def from_jax(tree, cfg: ModelConfig, device, dtype=None) -> Group:
     """The reference's parameter tree, as numpy arrays, onto ``device``
-    (``dtype`` defaults to ``cfg.dtype``). Names and shapes are checked."""
+    (``dtype`` defaults to ``cfg.dtype``). Names and shapes are checked at
+    every level of the tree."""
     dtype = dtype or DTYPES[cfg.dtype]
-    want = shapes(cfg)
 
-    def conv(x, shape, name):
-        a = np.asarray(x)
-        if a.shape != tuple(shape):
-            raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+    def conv(node, want, path):
+        if isinstance(want, dict):
+            if set(node) != set(want):
+                raise ValueError(f"{path or 'params'}: names {sorted(node)}, "
+                                 f"expected {sorted(want)}")
+            return Group({n: conv(node[n], w, f"{path}.{n}" if path else n)
+                          for n, w in want.items()})
+        a = np.asarray(node)
+        if a.shape != tuple(want):
+            raise ValueError(f"{path}: shape {a.shape}, expected {want}")
         return torch.from_numpy(a.astype(np.float32)).to(device=device,
                                                          dtype=dtype)
 
-    groups = {}
-    for g in ("embed", "stack"):
-        if set(tree[g]) != set(want[g]):
-            raise ValueError(f"{g}: names {sorted(tree[g])}, expected "
-                             f"{sorted(want[g])}")
-        groups[g] = Group({n: conv(tree[g][n], s, f"{g}.{n}")
-                           for n, s in want[g].items()})
-    return Group({"embed": groups["embed"],
-                  "final_norm": conv(tree["final_norm"], want["final_norm"],
-                                     "final_norm"),
-                  "stack": groups["stack"]})
+    return conv(tree, shapes(cfg), "")
+
+
+def copy_to(tree: Group, device) -> Group:
+    """A copy of a parameter tree on ``device``, nested groups included."""
+    out = {n: copy_to(m, device) for n, m in tree.named_children()}
+    out.update({n: t.detach().to(device) for n, t in tree.items()})
+    return Group(out)

@@ -11,7 +11,9 @@ Tolerances: float32 inputs run in full float32 on both sides (TF32 off), so
 only the order of sums differs: 1e-4 on outputs of magnitude ~1. bfloat16
 inputs: the kernel rounds the attention probabilities to bfloat16 before
 the P·V product, as the reference kernels do, and sums in another order:
-2e-2. Argmax ids must match where the top two logits are apart.
+2e-2. Argmax ids must match where the top two logits are apart. The SSD
+scan is float32 on both sides, a token recurrence against the chunked form:
+1e-4 relative to the largest output.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
+from repro_torch.kernels import ssm_scan as SS
 
 
 @pytest.fixture
@@ -44,7 +47,7 @@ def _stream(lens, pad, dev):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128)])
+@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128), (1, 112)])
 @pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
                                    dict(causal=True),
                                    dict(window=5, is_local=True)])
@@ -95,8 +98,35 @@ def test_flash_varlen_cross_matches_plain(cuda, dtype, tol, G):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [112])
+def test_flash_varlen_cross_causal_dh112_matches_plain(cuda, dtype, tol, dh):
+    """zamba2-7b's shared block: MHA (G=1), head_dim 112, causal."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    R, Sb, Cr, K = 6, 8, 96, 4
+    Tq, Tkv = R * Sb, R * (Cr + Sb)
+    q = torch.randn((K, Tq, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(dtype)
+    ar = torch.arange(R, dtype=torch.int32, device=cuda)
+    q_seg, kv_seg = ar.repeat_interleave(Sb), ar.repeat_interleave(Cr + Sb)
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=cuda).repeat(R) + 100
+    kv_pos = torch.randint(0, 200, (K, Tkv), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_valid = torch.rand((K, Tkv), generator=g, device=cuda) < 0.7
+    kv_valid.view(K, R, Cr + Sb)[:, :, Cr:] = True
+    kv_pos.view(K, R, Cr + Sb)[:, :, Cr:] = q_pos.view(R, Sb)
+    out = FV.flash_varlen_cross_call(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+                                     kv_valid, causal=True)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False, causal=True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)])
-@pytest.mark.parametrize("Rq,dh", [(8, 128), (40, 16)])
+@pytest.mark.parametrize("Rq,dh", [(8, 128), (40, 16), (8, 112)])
 def test_head_score_matches_plain(cuda, dtype, tol, Rq, dh):
     g = torch.Generator(device=cuda).manual_seed(2)
     seg, _, _ = _stream([70, 9, 133, 1, 64], pad=43, dev=cuda)
@@ -142,6 +172,31 @@ def test_logit_argmax_matches_plain(cuda, dtype, layout, T, D, V, softcap):
     assert torch.equal(idx[tie], ri[tie])
     torch.testing.assert_close(m[valid], rm[valid], rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(s[valid], rs[valid], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("T,H,P,N", [(96, 3, 8, 16), (320, 5, 64, 64),
+                                     (256, 4, 64, 128), (64, 2, 16, 32)])
+def test_ssm_segment_scan_matches_plain(cuda, T, H, P, N):
+    """Resets inside chunks and on chunk edges; captures at -1, at a chunk
+    edge, inside a chunk, at the last row and past the stream (zero)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xdt = torch.randn((T, H, P), generator=g, device=cuda)
+    dA = -0.01 - torch.rand((T, H), generator=g, device=cuda)
+    Bm = torch.randn((T, N), generator=g, device=cuda)
+    Cm = torch.randn((T, N), generator=g, device=cuda)
+    reset = torch.zeros(T, device=cuda)
+    reset[[0, 5, 32, 33, T - 1]] = 1.0
+    cap_rows = torch.tensor([-1, 4, 31, 32, T - 1, T + 5, 17],
+                            dtype=torch.int32, device=cuda)
+    got = SS.ssm_segment_scan_call(xdt, dA, Bm, Cm, reset, cap_rows)
+    for chunk in (16, 32):
+        want = SS.ssm_segment_scan_plain(xdt, dA, Bm, Cm, reset, cap_rows,
+                                         chunk)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            scale = max(1.0, b.abs().max().item())
+            assert (a - b).abs().max().item() < 1e-4 * scale
+    assert not got[1][0].any() and not got[1][5].any()
 
 
 def test_launches_are_counted(cuda):
