@@ -5,26 +5,32 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: torch / CUDA / nvcc versions and the card, as nvidia-smi
      reports its name and power limit;
-  2. build: the five kernels from src/repro_torch/kernels/csrc with nvcc
-     for sm_90a (one nvcc per source, all started together);
+  2. build: the kernels from src/repro_torch/kernels/csrc with nvcc for
+     sm_90a (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the card, at a small
      float32 shape with every mask flag, and at the main paths' full-width
      shapes (llada-8b, bfloat16: Refresh streams up to the token bucket of
      max_num_batched_tokens, one max_num_logits chunk for the logit stage;
      zamba2-7b, bfloat16: the shared block's causal attention at head_dim
-     112; the float32 SSD scan at zamba2-7b's and mamba2-130m's widths),
-     with the kernel's time, the plain version's, one PyTorch library
+     112; the float32 SSD scan at zamba2-7b's and mamba2-130m's widths;
+     the padded path's kernels at llada-8b's padded Reuse, padded prefill
+     and padded Refresh scoring), with the kernel's time, the plain
+     version's, one PyTorch library
      call's where one computes the same function (a yardstick the port
      never calls) and the least time the card could take (bound_ms);
   4. a small end-to-end check: three iterations of reduced llada-8b and of
-     reduced zamba2-7b on the card against the same iterations on the CPU
-     (the plain versions);
+     reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
+     sparse-dllm (the padded path), on the card against the same iterations
+     on the CPU (the plain versions);
   5. serve: run_serve of the full llada-8b, the full zamba2-7b and the full
      mamba2-130m (random bfloat16 weights from a seed) through the
-     dllm-serve profile with the kernels, on the wall clock, each with the
-     launch counts zeroed just before it and read just after; every request
-     must finish, every kernel of the arch's path must have launched, and no
-     plain version may have run;
+     dllm-serve profile, and of the full llada-8b through the three
+     baselines fast-dllm, dllm-cache and sparse-dllm (the padded path), with
+     the kernels, on the wall clock; then one padded prefill of the full
+     llada-8b through the flash_refresh kernel, held against the same call
+     without it. Each path runs with the launch counts zeroed just before
+     it and read just after; every request must finish, every kernel of the
+     path must have launched, and no plain version may have run;
   6. the kernels line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -401,15 +407,173 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
     return dict(main_row, **out)
 
 
+def check_packed_flash_attention(dev, g, cfg, retains):
+    """Row 6 at small float32 shapes with every flag (GQA rows reading mask
+    row r // G, a one-row mask, softcap, a fully masked head, ragged KV
+    tiles), then at llada-8b's padded Reuse in bfloat16: B = 16 (the pow2
+    bucket of 12 slots), K = 32, Sb = 8, the retained T of each baseline
+    and the engine's one-row mask. Tolerances: m to 1e-4; s and o relative
+    to the row sums, 1e-4 (float32) and 2e-2 (bfloat16: P rounded before
+    P·V)."""
+    from repro_torch.kernels import flash_attention as FA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def case(B, K, R, T, Sm, dh, dtype, p_keep):
+        q = torch.randn((B, K, R, dh), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, K, T, dh), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, K, T, dh), generator=g, device=dev).to(dtype)
+        mask = torch.rand((B, K, Sm, T), generator=g, device=dev) < p_keep
+        return q, k, v, mask
+
+    def err_of(args, softcap, tol):
+        o, m, s = FA.packed_flash_attention_call(*args, softcap=softcap)
+        ro, rm, rs = FA.packed_attention_plain(*args, softcap=softcap)
+        err = max((m - rm).abs().max().item(),
+                  ((s - rs).abs() / rs).max().item(),
+                  ((o - ro).abs() / rs[..., None]).max().item())
+        assert err < tol, err
+        return err, (m, s)
+
+    for G, Sm in ((2, 8), (1, 1), (4, 8)):
+        args = case(3, 2, 8 * G, 200, Sm, 64, torch.float32, 0.6)
+        args[3][1, 0] = False
+        for softcap in (0.0, 30.0):
+            err, (m, s) = err_of(args, softcap, 1e-4)
+            assert (m[1, 0] == -1e30).all() and (s[1, 0] == 200).all()
+            log(f"  packed_flash_attention f32 G={G} Sm={Sm} T=200 softcap="
+                f"{softcap}: max_err={err:.3g} (tol 1e-4 rel.)")
+    out = {}
+    K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
+    B, Sb = 16, 8
+    R = Sb * cfg.n_heads // K
+    by_T = {}
+    for name, T in retains:
+        by_T.setdefault(T, []).append(name)
+    for T, names in by_T.items():
+        name = ", ".join(names)
+        args = case(B, K, R, T, 1, dh, bf, 0.97)
+        q, k, v, mask = args
+        err, _ = err_of(args, 0.0, 2e-2)
+        log(f"  packed_flash_attention bf16 {cfg.name} B={B} K={K} R={R} "
+            f"T={T} ({name}): max_err={err:.3g} (tol 2e-2 rel.)")
+        full = mask.expand(B, K, R, T)
+        pairs = int(mask.sum()) * R
+        b, by = bound(4.0 * pairs * dh,
+                      nbytes(q, k, v, mask) + B * K * R * (dh + 2) * 4, bf)
+        out[f"T={T}"] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/packed_flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:70",
+            max_abs_err=err,
+            ms=time_ms(lambda: FA.packed_flash_attention_call(*args)),
+            plain_ms=time_ms(lambda: FA.packed_attention_plain(*args),
+                             iters=5),
+            bound_ms=b, bound_by=by,
+            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=full)))
+    main_row = out.pop(f"T={next(iter(by_T))}")
+    return dict(main_row, **out)
+
+
+def check_flash_refresh(dev, g, cfg):
+    """Row 7 at small float32 shapes with every flag (GQA, causal, window
+    on and off a local layer, softcap, kv_valid holes, a batch row with no
+    valid key, a ragged last tile), then at the padded prefill of llada-8b
+    in bfloat16: B = 2, S = 2048, K = 32, dh = 128. Tolerances 1e-4
+    (float32) and 2e-2 (bfloat16)."""
+    from repro_torch.kernels import flash_refresh as FR
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def case(B, K, S, G, dh, dtype):
+        q = torch.randn((B, K, S * G, dh), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, K, S, dh), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, K, S, dh), generator=g, device=dev).to(dtype)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+        return q, k, v, pos
+
+    q, k, v, pos = case(3, 2, 150, 2, 64, torch.float32)
+    valid = torch.rand((3, 150), generator=g, device=dev) < 0.8
+    valid[2] = False
+    for kw, loc in ((dict(), False), (dict(softcap=20.0), False),
+                    (dict(causal=True), False), (dict(window=5), True),
+                    (dict(window=5), False)):
+        out = FR.flash_refresh_call(q, k, v, pos, pos, valid, loc, **kw)
+        ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, loc, **kw)
+        err = (out - ref).abs().max().item()
+        log(f"  flash_refresh f32 G=2 S=150 {kw or 'plain'} local={loc}: "
+            f"max_abs_err={err:.3g} (tol 1e-4)")
+        assert err < 1e-4, err
+    B, S, K, dh = 2, 2048, cfg.n_kv_heads, cfg.resolved_head_dim
+    G, bf = cfg.n_heads // K, torch.bfloat16
+    q, k, v, pos = case(B, K, S, G, dh, bf)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    call = lambda: FR.flash_refresh_call(q, k, v, pos, pos, valid)  # noqa
+    plain = lambda: FR.refresh_attention_plain(  # noqa: E731
+        q, k, v, pos, pos, valid, False)
+    err = (call() - plain()).abs().max().item()
+    log(f"  flash_refresh bf16 {cfg.name} B={B} S={S} K={K} dh={dh}: "
+        f"max_abs_err={err:.3g} (tol 2e-2)")
+    assert err < 2e-2, err
+    assert G == 1, "the SDPA yardstick takes one query head per KV head"
+    mask = valid[:, None, None, :].expand(B, 1, S, S)
+    b, by = bound(4.0 * B * cfg.n_heads * S * S * dh,
+                  nbytes(q, k, v, pos, pos, valid) + q.numel() * 4, bf)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_refresh.cu",
+        replaces="src/repro/kernels/flash_refresh.py:89", max_abs_err=err,
+        ms=time_ms(call, iters=10), plain_ms=time_ms(plain, iters=3),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10))
+
+
+def check_head_score_padded(dev, g, cfg, serve):
+    """Row 8 against its plain version: float32 GQA (Rq = 40, dh = 16, a
+    ragged key tile), then llada-8b's padded Refresh in bfloat16: B = 4
+    refresh slots, S = max_seq_len = 256, Rq = Sb = 8, dh = 128.
+    Tolerances: 1e-4 and 1e-3 relative to the largest score (float32 sums
+    of exact products in another order)."""
+    from repro_torch.kernels import select_pack as SP
+
+    def compare(B, K, Rq, S, dh, dtype, tol):
+        q = torch.randn((B, K, Rq, dh), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, K, S, dh), generator=g, device=dev).to(dtype)
+        out, ref = SP.head_score_call(q, k), SP.head_score_plain(q, k)
+        scale = max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        assert err < tol * scale, (err, scale)
+        return q, k, err, scale
+
+    _, _, err, scale = compare(3, 3, 40, 100, 16, torch.float32, 1e-4)
+    log(f"  head_score f32 B=3 Rq=40 S=100 dh=16: max_abs_err={err:.3g} "
+        f"(tol 1e-4 x {scale:.3g})")
+    B, S, K, dh = 4, serve.max_seq_len, cfg.n_kv_heads, cfg.resolved_head_dim
+    Rq = serve.block_size * cfg.n_heads // K
+    q, k, err, scale = compare(B, K, Rq, S, dh, torch.bfloat16, 1e-3)
+    log(f"  head_score bf16 {cfg.name} B={B} S={S} Rq={Rq} dh={dh}: "
+        f"max_abs_err={err:.3g} (tol 1e-3 x {scale:.3g})")
+    b, by = bound(2.0 * B * K * Rq * S * dh, nbytes(q, k) + B * K * S * 4,
+                  torch.bfloat16)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/head_score.cu",
+        replaces="src/repro/kernels/select_pack.py:56", max_abs_err=err,
+        ms=time_ms(lambda: SP.head_score_call(q, k)),
+        plain_ms=time_ms(lambda: SP.head_score_plain(q, k), iters=5),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.matmul(
+            q, k.transpose(2, 3)).amax(dim=2)),
+        note="no path reaches it in the reference: its padded scoring "
+             "(models/sparse_select.head_scores) is plain jnp")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a small end-to-end check against the CPU
 # ---------------------------------------------------------------------------
 
-def check_reduced_iteration(dev, arch):
-    """Three engine iterations of the reduced arch (float32) on the card and
-    on the CPU from the same weights and requests: committed ids exact, the
-    pool's retained positions exact, retained keys, recurrent states and
-    conv histories within 1e-4."""
+def check_reduced_iteration(dev, arch, system="dllm-serve"):
+    """Three engine iterations of the reduced arch (float32) under a
+    system's profile with the kernels, on the card and on the CPU from the
+    same weights and requests: committed ids exact, the pool's retained
+    positions exact, retained keys, recurrent states and conv histories
+    within 1e-4."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config, reduced
@@ -423,7 +587,7 @@ def check_reduced_iteration(dev, arch):
     serve = dataclasses.replace(system_profiles(ServeConfig(
         max_num_batched_tokens=512, max_num_logits=64, block_size=8,
         steps_per_block=8, max_seq_len=128, max_slots=6, pipeline=False))
-        ["dllm-serve"], use_flash_kernel=True, logit_mode="fused")
+        [system], use_flash_kernel=True, logit_mode="fused")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     engines = []
     for d in ("cpu", dev):
@@ -449,33 +613,38 @@ def check_reduced_iteration(dev, arch):
         for a, b in ((pc.ssm_state, pg.ssm_state), (pc.conv, pg.conv)):
             err = max(err, (a[:, :4] - b[:, :4].cpu()).abs().max().item())
     assert err < 1e-4, err
-    log(f"  reduced {arch}, 3 iterations: ids equal, retained positions "
-        f"equal, cache max_abs_err={err:.3g} (tol 1e-4)")
+    log(f"  reduced {arch} {system}, 3 iterations: ids equal, retained "
+        f"positions equal, cache max_abs_err={err:.3g} (tol 1e-4)")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: serve the full models through the kernels
 # ---------------------------------------------------------------------------
 
+BASELINE_KERNELS = ("packed_flash_attention", "fused_logit_argmax")
 PATH_KERNELS = {
-    "llada-8b": ("flash_varlen", "flash_varlen_cross", "head_score_varlen",
-                 "fused_logit_argmax"),
-    "zamba2-7b": ("ssm_segment_scan", "flash_varlen", "flash_varlen_cross",
-                  "head_score_varlen", "fused_logit_argmax"),
-    "mamba2-130m": ("ssm_segment_scan", "fused_logit_argmax"),
+    ("llada-8b", "dllm-serve"): ("flash_varlen", "flash_varlen_cross",
+                                 "head_score_varlen", "fused_logit_argmax"),
+    ("zamba2-7b", "dllm-serve"): ("ssm_segment_scan", "flash_varlen",
+                                  "flash_varlen_cross", "head_score_varlen",
+                                  "fused_logit_argmax"),
+    ("mamba2-130m", "dllm-serve"): ("ssm_segment_scan", "fused_logit_argmax"),
+    ("llada-8b", "fast-dllm"): BASELINE_KERNELS,
+    ("llada-8b", "dllm-cache"): BASELINE_KERNELS,
+    ("llada-8b", "sparse-dllm"): BASELINE_KERNELS,
 }
 
 
-def serve_full(arch, n_req, serve_kw, card):
-    """run_serve of the full arch with the launch counts zeroed just before
-    and read just after; returns the counts."""
+def serve_full(arch, system, n_req, serve_kw, card):
+    """run_serve of the full arch under a system with the launch counts
+    zeroed just before and read just after; returns the counts."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import run_serve
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_counters()
-    res = run_serve(arch, "dllm-serve", "livebench", 50.0, n_req,
+    res = run_serve(arch, system, "livebench", 50.0, n_req,
                     use_reduced=False, kernels=True, clock="wall",
                     size_by_profiler=False, device="cuda", **serve_kw)
     counts = {n: (c.launches, c.plain_calls)
@@ -486,19 +655,111 @@ def serve_full(arch, n_req, serve_kw, card):
             "refresh_steps", "reuse_steps", "wall_clock_s", "wall_tok_s",
             "p50_latency", "p99_latency", "host_plan_s", "host_fill_s",
             "sync_wait_s", "warmup_s", "refresh_tokens_real",
-            "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec")
-    log(json.dumps(dict(phase="serve", arch=arch, **{k: res[k] for k in keep},
+            "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec",
+            "refresh_waste", "reuse_waste", "padded_refresh_calls",
+            "padded_reuse_calls")
+    log(json.dumps(dict(phase="serve", arch=arch, system=system,
+                        **{k: res[k] for k in keep},
                         max_memory_allocated=peak, launches=counts)))
-    with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{arch}.json"),
+    tag = arch if system == "dllm-serve" else f"{arch}_{system}"
+    with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{tag}.json"),
               "w") as f:
         json.dump(dict(res, arch=arch, max_memory_allocated=peak,
                        launches=counts, card=card), f, indent=2)
-    assert res["n_finished"] == n_req, (arch, res["n_finished"])
-    for name in PATH_KERNELS[arch]:
-        assert counts[name][0] > 0, f"{arch}: {name} never launched"
+    assert res["n_finished"] == n_req, (arch, system, res["n_finished"])
+    for name in PATH_KERNELS[(arch, system)]:
+        assert counts[name][0] > 0, f"{arch} {system}: {name} never launched"
     for name, (_, plain) in counts.items():
-        assert plain == 0, f"{arch}: {plain} plain-version calls of {name}"
+        assert plain == 0, f"{arch} {system}: {plain} plain-version calls " \
+            f"of {name}"
     return {n: launches for n, (launches, _) in counts.items()}
+
+
+def prefill_full(dev, serve):
+    """One padded prefill of the full llada-8b (random bfloat16 weights):
+    serve_refresh of B = 2 sequences of S = 2048 with use_flash_refresh
+    (the flash_refresh kernel in every layer), then decode_tokens of the
+    active blocks in the fused mode. Counted alone. The fused decode's ids
+    must equal the argmax of the same hidden rows' float32 logits where
+    their top two are 2e-3 apart (the logit kernel's tolerance above).
+
+    Held against the same call without the kernel (the q-chunked plain
+    attention), two ways. At one layer of llada-8b's full width in
+    float32 (its own random weights) both compute every score in float32:
+    the final-normed block hidden must agree within 1e-3 (sums in other
+    orders, TF32 off). Through the 32 bfloat16 layers the kernel keeps its
+    scores in float32 where the plain attention, like the reference's jnp
+    path, rounds them to bfloat16, so the two drift apart layer by layer:
+    the drift is reported and held under 1.0 and 0.15 on average
+    (magnitude ~1)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import backbone as BB
+    from repro_torch.models import lm_head as LM
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    cfg = get_config("llada-8b")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = BB.init_params(cfg, gen, dev)
+    B, S, Sb = 2, 2048, serve.block_size
+    tokens = torch.randint(0, cfg.vocab_size - 1, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    valid[1, 1500:] = False
+    bstart = torch.tensor([1024, 1480], dtype=torch.int32, device=dev)
+    ctx = T.ServeContext(block_size=Sb, retain=S // 2, kernel_size=3,
+                         selection=serve.selection, q_chunk=1024,
+                         use_flash_kernel=True, use_flash_refresh=True,
+                         max_seq_len=S)
+    plain = dataclasses.replace(ctx, use_flash_refresh=False)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    out = BB.serve_refresh(params, cfg, tokens, bstart, ctx,
+                           token_valid=valid)
+    ids, _ = LM.decode_tokens(params["embed"], cfg,
+                              out.block_hidden.reshape(B * Sb, -1),
+                              max_num_logits=serve.max_num_logits,
+                              mode="fused")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {n: (c.launches, c.plain_calls)
+              for n, c in build.COUNTERS.items()}
+    assert counts["flash_refresh"][0] == cfg.n_layers, counts
+    assert counts["fused_logit_argmax"][0] > 0, counts
+    for name, (_, n_plain) in counts.items():
+        assert n_plain == 0, f"prefill: {n_plain} plain-version calls of " \
+            f"{name}"
+    z = LM.logits_monolithic(params["embed"], cfg,
+                             out.block_hidden.reshape(B * Sb, -1))
+    top2 = z.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2e-3
+    same = torch.equal(ids[clear], z.argmax(dim=1).to(ids.dtype)[clear])
+
+    ref = BB.serve_refresh(params, cfg, tokens, bstart, plain,
+                           token_valid=valid).block_hidden.float()
+    d = (out.block_hidden.float() - ref).abs()
+    full = (d.max().item(), d.mean().item())
+    del params, out, ref
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    p32 = BB.init_params(c32, gen, dev)
+    a, b = (BB.serve_refresh(p32, c32, tokens, bstart, c, token_valid=valid)
+            .block_hidden for c in (ctx, plain))
+    one = (a - b).abs().max().item()
+    del p32, a, b
+    log(json.dumps(dict(
+        phase="prefill", arch=cfg.name, B=B, S=S, seconds=secs,
+        f32_one_layer_max_abs_err=one, bf16_max_abs_err=full[0],
+        bf16_mean_abs_err=full[1],
+        ids_compared=int(clear.sum()), ids_equal=same,
+        launches={n: c for n, (c, _) in counts.items() if c})))
+    assert one < 1e-3, one
+    assert full[0] < 1.0 and full[1] < 0.15, full
+    assert same, "the fused decode's ids differ from the logits' argmax"
+    return {n: c for n, (c, _) in counts.items()}
 
 
 def main() -> int:
@@ -508,6 +769,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.baselines import system_profiles
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -546,6 +808,10 @@ def main() -> int:
                     max_num_batched_tokens=1024, max_num_logits=128)
     serve = ServeConfig(**serve_kw)
     retain = min(serve.retained_len, serve.max_seq_len - serve.block_size)
+    # the baselines' padded Reuse cache lengths (retention 1.0 and 0.5)
+    base_retain = [(s, min(p.retained_len, p.max_seq_len - p.block_size))
+                   for s, p in system_profiles(serve).items()
+                   if p.scheduler == "request"]
     g = torch.Generator(device=dev).manual_seed(0)
     results = {
         "flash_varlen": check_flash_varlen(dev, g, llada, serve),
@@ -555,6 +821,10 @@ def main() -> int:
         "fused_logit_argmax": check_logit_argmax(dev, g, llada, serve, mamba),
         "ssm_segment_scan": check_ssm_segment_scan(dev, g, zamba, mamba,
                                                    serve),
+        "packed_flash_attention": check_packed_flash_attention(
+            dev, g, llada, base_retain),
+        "flash_refresh": check_flash_refresh(dev, g, llada),
+        "head_score": check_head_score_padded(dev, g, llada, serve),
     }
     # the shared block of zamba2-7b: causal, head_dim 112
     results["flash_varlen"]["zamba2-7b"] = check_flash_varlen(
@@ -576,20 +846,32 @@ def main() -> int:
 
     # 4. small end-to-end checks
     t0 = time.perf_counter()
-    for arch in ("llada-8b", "zamba2-7b"):
-        check_reduced_iteration(dev, arch)
+    for arch, system in (("llada-8b", "dllm-serve"),
+                         ("zamba2-7b", "dllm-serve"),
+                         ("llada-8b", "sparse-dllm")):
+        check_reduced_iteration(dev, arch, system)
     log(f"phase reduced-check: {time.perf_counter() - t0:.3f} s")
 
     # 5. serve the full models through the kernels, each path counted alone
     del g
     launches = {name: {} for name in results}
-    for arch, n_req in (("llada-8b", 8), ("zamba2-7b", 8),
-                        ("mamba2-130m", 4)):
+    for arch, system, n_req in (("llada-8b", "dllm-serve", 8),
+                                ("zamba2-7b", "dllm-serve", 8),
+                                ("mamba2-130m", "dllm-serve", 4),
+                                ("llada-8b", "fast-dllm", 8),
+                                ("llada-8b", "dllm-cache", 8),
+                                ("llada-8b", "sparse-dllm", 8)):
         t0 = time.perf_counter()
-        counts = serve_full(arch, n_req, serve_kw, card)
-        for name in PATH_KERNELS[arch]:
-            launches[name][arch] = counts[name]
-        log(f"phase serve {arch}: {time.perf_counter() - t0:.3f} s")
+        counts = serve_full(arch, system, n_req, serve_kw, card)
+        for name in PATH_KERNELS[(arch, system)]:
+            launches[name][f"{arch} {system}"] = counts[name]
+        log(f"phase serve {arch} {system}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    counts = prefill_full(dev, serve)
+    launches["flash_refresh"]["llada-8b padded prefill"] = \
+        counts["flash_refresh"]
+    log(f"phase prefill llada-8b: {time.perf_counter() - t0:.3f} s")
+    launches["head_score"] = {}
     for name, r in results.items():
         r["launches"] = sum(launches[name].values())
         r["launches_by_path"] = launches[name]

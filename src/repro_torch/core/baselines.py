@@ -1,7 +1,8 @@
-"""Serving systems (paper §6.1) as ServeConfig profiles, as in
-``repro.core.baselines``. The engine serves only the ``dllm-serve`` profile
-so far; the other three need the request-level scheduler and the padded
-path (ROADMAP Queue A)."""
+"""Serving systems (paper §6.1) and the §6.6 ablation as ServeConfig
+profiles, as in ``repro.core.baselines``. Every system runs through the same
+Engine, so differences come only from the policies the paper varies:
+scheduler granularity, KV selection, refresh cadence, logit handling, and
+padded versus token-packed execution (``varlen_pack``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,3 +27,17 @@ def system_profiles(base: ServeConfig) -> Dict[str, ServeConfig]:
                         retention_ratio=0.5, refresh_interval=8,
                         logit_mode="chunked", varlen_pack=True),
     }
+
+
+def ablation_profiles(base: ServeConfig) -> Dict[str, ServeConfig]:
+    """§6.6 cumulative toggles on top of the Sparse-dLLM baseline."""
+    r = dataclasses.replace
+    baseline = r(base, scheduler="request", selection="uniform",
+                 retention_ratio=0.5, refresh_interval=8,
+                 logit_mode="monolithic")
+    # custom engine: head-centric packed KV + varlen flattening (§6.6)
+    engine = r(baseline, selection="head", varlen_pack=True)
+    sched = r(engine, scheduler="phase")                  # + smart scheduler
+    budget = r(sched, logit_mode="chunked")               # + logit budgeting
+    return {"baseline": baseline, "+engine": engine,
+            "+scheduler": sched, "+budgeting": budget}

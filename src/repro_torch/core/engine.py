@@ -1,5 +1,5 @@
-"""dLLM-Serve execution engine: continuous batching over Refresh/Reuse phases,
-token-packed, on one device.
+"""dLLM-Serve execution engine: continuous batching over Refresh/Reuse phases
+on one device, token-packed or padded.
 
 One engine iteration (§4.1 workflow), as in ``repro.core.engine``:
   1. the scheduler builds an :class:`IterationPlan` under the query-token
@@ -15,10 +15,22 @@ One engine iteration (§4.1 workflow), as in ``repro.core.engine``:
      applied host-side and the request state machines advance.
 
 Stage streams are filled in numpy and copied to the device once per stream;
-the pool write and gather stay on the device. This slice ports the packed
-path with the synchronous loop. The padded oracle path, the pipelined loop,
-mesh serving, fault injection, prefix sharing and int8 KV raise
-``NotImplementedError`` (ROADMAP Queue A).
+the pool write and gather stay on the device. Two execution paths, as in the
+reference:
+
+* token-packed (``varlen_pack=True``): one ragged stream per stage, as
+  above;
+* padded (``varlen_pack=False``, the oracle and the three baseline
+  systems): Refresh in serial chunks of ``refresh_slots`` requests, each a
+  pow2-padded ``[b, max_seq_len]`` batch; Reuse as one pow2-padded block
+  batch whose pad rows read the scratch slot; the logit stage over the
+  pow2 bucket of the rows (``monolithic``: one ``[N, V]`` pass).
+
+On CUDA the stages run their kernels: ``use_flash_kernel=True`` and
+``logit_mode="fused"`` are required (``--kernels``); the plain fallbacks
+and the other logit modes run on the CPU only. The scan families serve on
+the packed path only. The pipelined loop, mesh serving, fault injection,
+prefix sharing and int8 KV raise ``NotImplementedError`` (ROADMAP Queue A).
 
 ``clock="modeled"`` advances a virtual device clock by the reference's cost
 model (:class:`DeviceModel`) — a parity device, so the port's ``vtime``
@@ -50,6 +62,7 @@ from repro_torch.core.scheduler import make_scheduler
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_varlen import PAD_SEG
 from repro_torch.models import backbone as BB
+from repro_torch.models import layers as L
 from repro_torch.models import lm_head as LM
 from repro_torch.models import transformer as T
 from repro_torch.params import init_params
@@ -210,16 +223,18 @@ class Engine:
         if serve.prefix_sharing or serve.kv_quant != "none":
             raise _not_ported("prefix sharing / int8 KV",
                               "robustness and the memory multipliers")
-        if not (serve.varlen_pack and can_pack_tokens(cfg)):
-            raise _not_ported("the padded execution path (varlen_pack=False)",
-                              "the padded oracle path and the baseline "
-                              "systems")
-        if not serve.use_flash_kernel:
-            raise _not_ported("the jnp attention fallbacks "
-                              "(use_flash_kernel=False)",
-                              "the padded oracle path and the baseline "
-                              "systems")
+        if cfg.family in ("ssm", "hybrid") and not (
+                serve.varlen_pack and serve.use_flash_kernel):
+            raise _not_ported(
+                f"the {cfg.family} family's padded path and fallbacks "
+                f"(varlen_pack=False or use_flash_kernel=False)",
+                "the scan families' padded branches")
         self.device = devices.resolve(device)
+        if self.device.type == "cuda" and not serve.use_flash_kernel:
+            raise ValueError(
+                "on CUDA the attention stages run their kernels: "
+                "use_flash_kernel=False has none (use device='cpu' for the "
+                "plain fallbacks)")
         if self.device.type == "cuda" and serve.logit_mode != "fused":
             raise ValueError(
                 f"on CUDA the logit stage runs the fused kernel: "
@@ -244,8 +259,10 @@ class Engine:
         self.ctx = T.ServeContext(
             block_size=serve.block_size, retain=retain,
             kernel_size=serve.kernel_size, selection=serve.selection,
+            q_chunk=min(L.DEFAULT_Q_CHUNK, serve.max_seq_len),
             use_flash_kernel=serve.use_flash_kernel,
             max_seq_len=serve.max_seq_len)
+        self._use_packed = serve.varlen_pack and can_pack_tokens(cfg)
         self.mesh_devices = 1
         self.scheduler = make_scheduler(serve)
         self.pool = KVPool(serve.max_slots, self.device)
@@ -293,36 +310,53 @@ class Engine:
     # ------------------------------------------------------------------
     def warmup(self) -> float:
         """Build the kernels (on CUDA) and run each stage once at its
-        smallest bucket, so the first served iteration pays no library
-        load, pool allocation or first-touch cost. The dummy Refresh
-        writes zeros into the scratch slot only. Returns the seconds
-        taken."""
+        smallest bucket, on the path the engine serves, so the first served
+        iteration pays no library load, pool allocation or first-touch
+        cost. The dummy Refresh writes zeros into the scratch slot only.
+        Returns the seconds taken."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             kbuild.library()
         S, Sb = self.serve.max_seq_len, self.serve.block_size
-        tp = self._token_bucket(min(S, self.serve.max_num_batched_tokens))
         i32 = lambda n, v=0: np.full((n,), v, np.int32)  # noqa: E731
-        out = BB.serve_refresh_packed(
-            self.params, self.cfg, self._dev(i32(tp)), self._dev(i32(tp)),
-            self._dev(i32(tp)), self._dev(np.ones((tp,), bool)),
-            self._dev(i32(1)), self._dev(i32(1, min(tp, S))),
-            self._dev(i32(1)), self.ctx)
+        if self._use_packed:
+            tp = self._token_bucket(min(S, self.serve.max_num_batched_tokens))
+            out = BB.serve_refresh_packed(
+                self.params, self.cfg, self._dev(i32(tp)), self._dev(i32(tp)),
+                self._dev(i32(tp)), self._dev(np.ones((tp,), bool)),
+                self._dev(i32(1)), self._dev(i32(1, min(tp, S))),
+                self._dev(i32(1)), self.ctx)
+        else:
+            out = BB.serve_refresh(
+                self.params, self.cfg, self._dev(np.zeros((1, S), np.int32)),
+                self._dev(i32(1)), self.ctx,
+                token_valid=self._dev(np.ones((1, S), bool)))
         self.pool.write([self.pool.scratch_slot],
                         tree_map(torch.zeros_like, out.cache))
-        rp = self._reuse_bucket(1)
-        BB.serve_reuse_packed(
-            self.params, self.cfg, self._dev(i32(rp * Sb)),
-            self._dev(i32(rp * Sb)),
-            self.pool.gather([self.pool.scratch_slot] * rp), self.ctx)
-        n = self._logit_bucket(Sb)
-        LM.decode_tokens_packed(
-            self.params["embed"], self.cfg,
-            torch.zeros((n, self.cfg.d_model), dtype=out.block_hidden.dtype,
-                        device=self.device),
-            self._dev(np.ones((n,), bool)),
-            max_num_logits=self.serve.max_num_logits,
-            mode=self.serve.logit_mode)
+        if self._use_packed:
+            rp = self._reuse_bucket(1)
+            BB.serve_reuse_packed(
+                self.params, self.cfg, self._dev(i32(rp * Sb)),
+                self._dev(i32(rp * Sb)),
+                self.pool.gather([self.pool.scratch_slot] * rp), self.ctx)
+        else:
+            blk = self._dev(np.zeros((1, Sb), np.int32))
+            BB.serve_reuse(self.params, self.cfg, blk, blk,
+                           self.pool.gather([self.pool.scratch_slot]),
+                           self.ctx)
+        h = torch.zeros((Sb, self.cfg.d_model), dtype=out.block_hidden.dtype,
+                        device=self.device)
+        if self.serve.varlen_pack:
+            n = self._logit_bucket(Sb)
+            LM.decode_tokens_packed(
+                self.params["embed"], self.cfg, F.pad(h, (0, 0, 0, n - Sb)),
+                self._dev(np.ones((n,), bool)),
+                max_num_logits=self.serve.max_num_logits,
+                mode=self.serve.logit_mode)
+        else:
+            LM.decode_tokens(self.params["embed"], self.cfg, h,
+                             max_num_logits=self.serve.max_num_logits,
+                             mode=self.serve.logit_mode)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -417,7 +451,11 @@ class Engine:
         if self.clock != "modeled":
             return
         cfg = self.cfg
-        tokens = (actual_tokens if self.serve.varlen_pack
+        # a stage is billed for real tokens only when its packed path ran;
+        # the logit stage packs under varlen_pack for every family
+        varlen = self.serve.varlen_pack and (kind == "decode"
+                                             or self._use_packed)
+        tokens = (actual_tokens if varlen
                   and actual_tokens is not None else exec_tokens)
         flops = 2.0 * self._n_params * tokens
         if cfg.has_attention and kv_len:
@@ -457,7 +495,8 @@ class Engine:
             self.stats.deferred_steps += len(plan.deferred)
             self.stats.peak_query_tokens = max(self.stats.peak_query_tokens,
                                                plan.query_tokens)
-            layout = plan.packed_layout(self.serve.refresh_slots)
+            if self._use_packed:
+                layout = plan.packed_layout(self.serve.refresh_slots)
         plan_s = time.perf_counter() - t0
         self.stats.host_plan_s += plan_s
         return _Prepared(now, plan, layout, lifecycle, plan_s)
@@ -470,16 +509,21 @@ class Engine:
         hidden_rows: List[torch.Tensor] = []
         decoded: List[Request] = []
 
-        # ---- Refresh: ONE fused packed dispatch ----
+        # ---- Refresh: ONE fused packed dispatch / padded per-cap chunks ----
         iter_real = iter_exec = 0
-        seg = layout.refresh_fused
+        seg = layout.refresh_fused if self._use_packed else None
         if seg is not None:
             chunk = list(seg.requests)
             t_real = seg.total_tokens
             bh, exec_tokens = self._run_refresh_packed(seg)
             # the varlen kernel skips tiles of other segments: attention
-            # costs Σ Sᵢ², the token-weighted mean segment length
-            kv_len = sum(r.refresh_len ** 2 for r in chunk) // max(t_real, 1)
+            # costs Σ Sᵢ², the token-weighted mean segment length; the
+            # plain fallback is billed for the whole [T, T] rectangle
+            if self.ctx.use_flash_kernel:
+                kv_len = sum(r.refresh_len ** 2
+                             for r in chunk) // max(t_real, 1)
+            else:
+                kv_len = exec_tokens
             hidden_rows.append(bh)
             decoded.extend(chunk)
             self.stats.refresh_steps += len(chunk)
@@ -487,12 +531,29 @@ class Engine:
             iter_exec += exec_tokens
             self._charge("refresh", exec_tokens, kv_len=kv_len,
                          actual_tokens=t_real)
+        elif not self._use_packed:
+            cap = self.serve.refresh_slots
+            for i in range(0, len(plan.refresh), cap):
+                chunk = plan.refresh[i: i + cap]
+                t_real = sum(r.refresh_len for r in chunk)
+                bh, exec_tokens = self._run_refresh(chunk)
+                hidden_rows.append(bh)
+                decoded.extend(chunk)
+                self.stats.refresh_steps += len(chunk)
+                iter_real += t_real
+                iter_exec += exec_tokens
+                self._charge("refresh", exec_tokens,
+                             kv_len=self.serve.max_seq_len,
+                             actual_tokens=t_real)
 
-        # ---- Reuse: one ragged block stream ----
+        # ---- Reuse: one ragged block stream (packed) / pow2 batch ----
         r_real = r_exec = 0
         if plan.reuse:
             r_real = len(plan.reuse) * self.serve.block_size
-            bh, r_exec = self._run_reuse_packed(layout.reuse)
+            if self._use_packed:
+                bh, r_exec = self._run_reuse_packed(layout.reuse)
+            else:
+                bh, r_exec = self._run_reuse(plan.reuse)
             hidden_rows.append(bh)
             decoded.extend(plan.reuse)
             self.stats.reuse_steps += len(plan.reuse)
@@ -506,22 +567,39 @@ class Engine:
         if decoded:
             D = self.cfg.d_model
             N = n_real = len(decoded) * self.serve.block_size
-            b = self._logit_bucket(N)
+            packed = self.serve.varlen_pack
+            # packed: token-bucket rounding + a validity mask; padded: the
+            # pow2 row bucket
+            b = (self._logit_bucket(N) if packed
+                 else _bucket(N, lo=self.serve.block_size))
             h = torch.cat([r.reshape(-1, D) for r in hidden_rows], dim=0)
             if b != N:
                 h = F.pad(h, (0, 0, 0, b - N))
-            valid = torch.arange(b, device=self.device) < N
-            ids, conf = LM.decode_tokens_packed(
-                self.params["embed"], self.cfg, h, valid,
-                max_num_logits=self.serve.max_num_logits,
-                mode=self.serve.logit_mode)
-            sub = self.serve.max_num_logits
-            for off in range(0, b, sub):
-                act = max(0, min(sub, N - off))
-                if act == 0:
-                    break   # a packed engine never launches all-pad chunks
-                self._charge("decode", min(sub, b - off), actual_tokens=act)
-                n_exec += min(sub, b - off)
+            if packed:
+                valid = torch.arange(b, device=self.device) < N
+                ids, conf = LM.decode_tokens_packed(
+                    self.params["embed"], self.cfg, h, valid,
+                    max_num_logits=self.serve.max_num_logits,
+                    mode=self.serve.logit_mode)
+            else:
+                ids, conf = LM.decode_tokens(
+                    self.params["embed"], self.cfg, h,
+                    max_num_logits=self.serve.max_num_logits,
+                    mode=self.serve.logit_mode)
+            # C1: serial sub-batches serialize on the device; monolithic
+            # runs one big call (launch amortized, memory unbounded)
+            if self.serve.logit_mode == "monolithic":
+                self._charge("decode", b, actual_tokens=N)
+                n_exec = b
+            else:
+                sub = self.serve.max_num_logits
+                for off in range(0, b, sub):
+                    act = max(0, min(sub, N - off))
+                    if act == 0 and packed:
+                        break   # a packed engine never launches all-pad chunks
+                    self._charge("decode", min(sub, b - off),
+                                 actual_tokens=act)
+                    n_exec += min(sub, b - off)
             self.stats.logit_tokens_real += n_real
             self.stats.logit_tokens_exec += n_exec
 
@@ -597,6 +675,31 @@ class Engine:
                     f"stale slot handle: request {r.rid} holds slot "
                     f"{r.slot}@gen{r.slot_gen} but the pool is at gen {gen}")
 
+    def _run_refresh(self, chunk: List[Request]) -> Tuple[torch.Tensor, int]:
+        """Padded Refresh: a pow2 request bucket of ``[b, max_seq_len]``
+        rows; the pad rows' caches land in the scratch slot. Returns (block
+        hidden [n, Sb, D], executed tokens = b·max_seq_len)."""
+        n = len(chunk)
+        b = _bucket(n)
+        S = self.serve.max_seq_len
+        tokens = np.zeros((b, S), np.int32)
+        valid = np.zeros((b, S), bool)
+        bstart = np.zeros((b,), np.int32)
+        for j, r in enumerate(chunk):
+            tokens[j] = r.tokens
+            valid[j, : r.total_len] = True
+            bstart[j] = r.block_start
+        self._check_slots(chunk)
+        out = BB.serve_refresh(self.params, self.cfg, self._dev(tokens),
+                               self._dev(bstart), self.ctx,
+                               token_valid=self._dev(valid))
+        self.pool.write([r.slot for r in chunk]
+                        + [self.pool.scratch_slot] * (b - n), out.cache)
+        self.stats.padded_refresh_calls += 1
+        self.stats.refresh_tokens_real += sum(r.refresh_len for r in chunk)
+        self.stats.refresh_tokens_exec += b * S
+        return out.block_hidden[:n], b * S
+
     def _run_refresh_packed(self, seg_layout) -> Tuple[torch.Tensor, int]:
         """Token-packed Refresh: one ragged stream bucketed on total tokens.
         Returns (block hidden [n, Sb, D], executed tokens)."""
@@ -664,3 +767,24 @@ class Engine:
         self.stats.reuse_tokens_real += n * Sb
         self.stats.reuse_tokens_exec += tq
         return h.reshape(rp, Sb, -1)[:n], tq
+
+    def _run_reuse(self, reqs: List[Request]) -> Tuple[torch.Tensor, int]:
+        """Padded Reuse: a pow2 request bucket whose pad rows read the
+        scratch slot. Returns (block hidden [n, Sb, D], b·Sb)."""
+        n = len(reqs)
+        b = _bucket(n)
+        Sb = self.serve.block_size
+        btok = np.zeros((b, Sb), np.int32)
+        bpos = np.zeros((b, Sb), np.int32)
+        slots = [self.pool.scratch_slot] * b
+        for j, r in enumerate(reqs):
+            btok[j] = r.block_tokens()
+            bpos[j] = np.arange(r.block_start, r.block_start + Sb)
+            slots[j] = r.slot
+        self._check_slots(reqs)
+        h = BB.serve_reuse(self.params, self.cfg, self._dev(btok),
+                           self._dev(bpos), self.pool.gather(slots), self.ctx)
+        self.stats.padded_reuse_calls += 1
+        self.stats.reuse_tokens_real += n * Sb
+        self.stats.reuse_tokens_exec += b * Sb
+        return h[:n], b * Sb

@@ -1,5 +1,5 @@
-"""The paper's Phase-Multiplexed Greedy Scheduler (§4.4), copied from
-``repro.core.scheduler``.
+"""The paper's Phase-Multiplexed Greedy Scheduler (§4.4) and the baselines'
+request-level static batching, copied from ``repro.core.scheduler``.
 
 Invariant: an iteration never carries more *query tokens* than
 ``max_num_batched_tokens``. Query tokens are the scheduling currency because
@@ -9,7 +9,7 @@ pre-allocated pool and logits are bounded separately by ``max_num_logits``.
 ``plan()`` also rejects never-admittable waiters, sheds expired ones, bounds
 the waiting queue under ``queue_cap``, and with ``preempt_starvation_s``
 preempts the youngest Reuse-phase resident for a starved head waiter. The
-request-level baseline scheduler and the fault hooks are not ported yet.
+fault hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -274,12 +274,47 @@ class PhaseMultiplexedScheduler:
         return plan
 
 
+class RequestLevelScheduler(PhaseMultiplexedScheduler):
+    """§3.1 baseline: STATIC request-granular batching (paper Table 1).
+
+    Fast-dLLM / dLLM-Cache / Sparse-dLLM batch statically: a batch is
+    formed, runs to completion, and only then is the next batch admitted.
+    Every resident request is charged its worst case (Refresh cost =
+    L_total) for its whole lifetime. No preemption: the baseline's batches
+    run to completion by definition.
+    """
+
+    def plan(self, now: float) -> IterationPlan:
+        plan = IterationPlan()
+        budget = self.cfg.max_num_batched_tokens
+        self._shed_and_reject(now, plan)
+
+        # conservative: every running request is charged its worst case
+        for r in self.running:
+            budget -= r.refresh_len
+            (plan.refresh if r.phase == Phase.REFRESH else plan.reuse).append(r)
+
+        # static batching: admit only when the previous batch fully drained
+        # (the engine executes oversized refresh sets in serial chunks)
+        drained = not self.running
+        while drained and self.waiting and self._free_slots:
+            cand = self.waiting[0]
+            if cand.arrival > now or cand.refresh_len > budget:
+                break
+            self.waiting.pop(0)
+            self._claim_slot(cand)
+            cand.state = State.RUNNING
+            cand.t_admitted = now
+            self.running.append(cand)
+            plan.refresh.append(cand)
+            plan.admitted.append(cand)
+            budget -= cand.refresh_len
+        return plan
+
+
 def make_scheduler(cfg: ServeConfig) -> PhaseMultiplexedScheduler:
     if cfg.scheduler == "phase":
         return PhaseMultiplexedScheduler(cfg)
     if cfg.scheduler == "request":
-        raise NotImplementedError(
-            "the request-level baseline scheduler is not ported yet "
-            "(ROADMAP Queue A, 'the padded oracle path and the baseline "
-            "systems')")
+        return RequestLevelScheduler(cfg)
     raise ValueError(cfg.scheduler)

@@ -38,6 +38,13 @@ SIGNATURES = {
     "repro_flash_varlen": [P] * 9 + [I] * 8 + [F, F] + [I, I, I] + [P],
     # q k seg out | R K Rq T dh dtype | stream
     "repro_head_score_varlen": [P] * 4 + [I] * 6 + [P],
+    # q k out | B K Rq S dh dtype | stream
+    "repro_head_score": [P] * 3 + [I] * 6 + [P],
+    # q k v mask o m s | B K R T Sm dh dtype | scale softcap | stream
+    "repro_packed_flash_attention": [P] * 7 + [I] * 7 + [F, F] + [P],
+    # q k v o q_pos kv_pos kv_valid | B K RG Sq S dh dtype | scale softcap |
+    # causal window is_local | stream
+    "repro_flash_refresh": [P] * 7 + [I] * 7 + [F, F] + [I, I, I] + [P],
     # h w valid part_m part_idx part_s idx m s | T D V v_split n_splits
     # w_layout_vd dtype | softcap | stream
     "repro_logit_argmax": [P] * 9 + [I] * 7 + [F] + [P],

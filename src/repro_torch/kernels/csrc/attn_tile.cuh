@@ -1,0 +1,235 @@
+// The attention tile shared by the port's three flash-attention kernels
+// (flash_varlen.cu, packed_flash_attention.cu, flash_refresh.cu): one CTA of
+// four warps owns 64 query rows, walks the keys in tiles of 64 and keeps a
+// float32 online softmax per row. Only the mask differs between the kernels;
+// each passes its own as a functor to softmax_tile.
+//
+// bf16 products run on the tensor cores (WMMA 16x16x16, float32
+// accumulators); float32 inputs on the CUDA cores in full precision. The
+// attention probabilities are rounded to the input type before the P·V
+// product, as the Pallas kernels do.
+#pragma once
+
+#include "common.cuh"
+
+namespace repro {
+namespace attn {
+
+using namespace nvcuda;
+
+constexpr int BQ = 64;          // query rows per CTA
+constexpr int BK = 64;          // keys per KV tile
+constexpr int NWARP = 4;        // each warp owns 16 query rows
+constexpr int NTHREADS = NWARP * 32;
+
+// Shared-memory carve-up of one CTA: the Q, K and V tiles, the scores, the
+// probabilities, the float32 output accumulator, a 16x16 scratch tile per
+// warp, three float and two int values per row, and three int values per
+// key plus two.
+template <typename T, int DH>
+struct Layout {
+  static constexpr size_t q = 0;
+  static constexpr size_t k = align128(q + BQ * DH * sizeof(T));
+  static constexpr size_t v = align128(k + BK * DH * sizeof(T));
+  static constexpr size_t s = align128(v + BK * DH * sizeof(T));
+  static constexpr size_t p = align128(s + BQ * BK * sizeof(float));
+  static constexpr size_t o = align128(p + BQ * BK * sizeof(T));
+  static constexpr size_t w = align128(o + BQ * DH * sizeof(float));
+  static constexpr size_t rowf = align128(w + NWARP * 256 * sizeof(float));
+  static constexpr size_t rowi = align128(rowf + 3 * BQ * sizeof(float));
+  static constexpr size_t key = align128(rowi + 2 * BQ * sizeof(int));
+  static constexpr size_t total = align128(key + (3 * BK + 2) * sizeof(int));
+};
+
+// Typed pointers into one CTA's shared memory.
+template <typename T, int DH>
+struct Tile {
+  T* Qs; T* Ks; T* Vs; float* Ss; T* Ps; float* Os; float* scratch;
+  float* row_m; float* row_l; float* row_a;
+  int* row_i0; int* row_i1;             // two per-row ints, kernel-defined
+  int* key_i0; int* key_i1; int* key_i2; // three per-key ints, kernel-defined
+  int* extra;                            // two more ints
+
+  __device__ explicit Tile(unsigned char* smem) {
+    using Lay = Layout<T, DH>;
+    Qs = reinterpret_cast<T*>(smem + Lay::q);
+    Ks = reinterpret_cast<T*>(smem + Lay::k);
+    Vs = reinterpret_cast<T*>(smem + Lay::v);
+    Ss = reinterpret_cast<float*>(smem + Lay::s);
+    Ps = reinterpret_cast<T*>(smem + Lay::p);
+    Os = reinterpret_cast<float*>(smem + Lay::o);
+    scratch = reinterpret_cast<float*>(smem + Lay::w);
+    row_m = reinterpret_cast<float*>(smem + Lay::rowf);
+    row_l = row_m + BQ;
+    row_a = row_l + BQ;
+    row_i0 = reinterpret_cast<int*>(smem + Lay::rowi);
+    row_i1 = row_i0 + BQ;
+    key_i0 = reinterpret_cast<int*>(smem + Lay::key);
+    key_i1 = key_i0 + BK;
+    key_i2 = key_i1 + BK;
+    extra = key_i2 + BK;
+  }
+};
+
+// S[BQ][BK] = Q[BQ][DH] · K[BK][DH]^T, unscaled
+template <typename T, int DH>
+__device__ __forceinline__ void scores(const T* Qs, const T* Ks, float* Ss,
+                                       int warp, int tid) {
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int n = 0; n < BK / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, Qs + warp * 16 * DH + kk * 16, DH);
+        wmma::load_matrix_sync(b, Ks + n * 16 * DH + kk * 16, DH);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(Ss + warp * 16 * BK + n * 16, acc, BK,
+                              wmma::mem_row_major);
+    }
+  } else {
+    for (int e = tid; e < BQ * BK; e += NTHREADS) {
+      const int r = e / BK, c = e % BK;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d)
+        acc = fmaf(Qs[r * DH + d], Ks[c * DH + d], acc);
+      Ss[e] = acc;
+    }
+  }
+}
+
+// O[r][:] = O[r][:]·alpha[r] + P[r][:] · V
+template <typename T, int DH>
+__device__ __forceinline__ void accumulate_pv(const T* Ps, const T* Vs,
+                                              float* Os, const float* alpha,
+                                              float* scratch, int warp,
+                                              int lane, int tid) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    float* mine = scratch + warp * 256;
+#pragma unroll
+    for (int n = 0; n < DH / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, Ps + warp * 16 * BK + kk * 16, BK);
+        wmma::load_matrix_sync(b, Vs + kk * 16 * DH + n * 16, DH);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(mine, acc, 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = warp * 16 + (e >> 4);
+        float* o = Os + r * DH + n * 16 + (e & 15);
+        *o = *o * alpha[r] + mine[e];
+      }
+      __syncwarp();
+    }
+  } else {
+    for (int e = tid; e < BQ * DH; e += NTHREADS) {
+      const int r = e / DH, c = e % DH;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < BK; ++j) acc = fmaf(Ps[r * BK + j], Vs[j * DH + c], acc);
+      Os[e] = Os[e] * alpha[r] + acc;
+    }
+  }
+}
+
+// Load `nrows` rows of Q (row stride DH) into the tile, zero the rest and
+// the output accumulator, and reset the row statistics.
+template <typename T, int DH>
+__device__ __forceinline__ void init_rows(const Tile<T, DH>& t, const T* q,
+                                          int nrows, int tid) {
+  const T zero = from_f32<T>(0.f);
+  for (int i = tid; i < BQ; i += NTHREADS) {
+    t.row_m[i] = -INFINITY;
+    t.row_l[i] = 0.f;
+  }
+  for (int i = tid; i < BQ * DH; i += NTHREADS) {
+    t.Qs[i] = (i / DH) < nrows ? q[i] : zero;
+    t.Os[i] = 0.f;
+  }
+}
+
+// Load keys [kv0, kv0 + nk) of K and V; rows past nk are zero-filled (their
+// probability is exactly 0, and 0 · garbage could be NaN).
+template <typename T, int DH>
+__device__ __forceinline__ void load_kv(const Tile<T, DH>& t, const T* k,
+                                        const T* v, int kv0, int nk, int tid) {
+  const T zero = from_f32<T>(0.f);
+  for (int i = tid; i < BK * DH; i += NTHREADS) {
+    const bool in = (i / DH) < nk;
+    t.Ks[i] = in ? k[(size_t)kv0 * DH + i] : zero;
+    t.Vs[i] = in ? v[(size_t)kv0 * DH + i] : zero;
+  }
+}
+
+// One KV tile of the online softmax, scores already in Ss. Warp w owns rows
+// [16w, 16w + 16), two keys a lane. logit(r, c, z) returns the logit of row
+// r against key c given its scaled, softcapped score z: z itself, -1e30
+// where the mask removes the pair, or -inf for a key past the end of the
+// stream (probability exactly 0 whatever the row's running max).
+template <typename T, typename Logit>
+__device__ __forceinline__ void softmax_tile(float* Ss, T* Ps, float* row_m,
+                                             float* row_l, float* row_a,
+                                             float scale, float softcap,
+                                             int warp, int lane, Logit logit) {
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr;
+    float z[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = lane + 32 * hh;
+      float zz = Ss[r * BK + c] * scale;
+      if (softcap != 0.f) zz = softcap * tanhf(zz / softcap);
+      z[hh] = logit(r, c, zz);
+    }
+    const float m_old = row_m[r];
+    const float m_new = fmaxf(m_old, warp_max(fmaxf(z[0], z[1])));
+    const float p0 = expf(z[0] - m_new), p1 = expf(z[1] - m_new);
+    Ps[r * BK + lane] = from_f32<T>(p0);
+    Ps[r * BK + lane + 32] = from_f32<T>(p1);
+    const float sum = warp_sum(p0 + p1);
+    if (lane == 0) {
+      const float a = expf(m_old - m_new);
+      row_a[r] = a;
+      row_l[r] = row_l[r] * a + sum;
+      row_m[r] = m_new;
+    }
+  }
+}
+
+// Instantiate `Launch<T, DH>::run(args...)` for the supported head dims.
+template <template <typename, int> class Launch, typename T, typename... A>
+cudaError_t dispatch_dh(int dh, A&&... args) {
+  switch (dh) {
+    case 16: return Launch<T, 16>::run(args...);
+    case 32: return Launch<T, 32>::run(args...);
+    case 64: return Launch<T, 64>::run(args...);
+    case 112: return Launch<T, 112>::run(args...);   // zamba2-7b: 7 x 16
+    case 128: return Launch<T, 128>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Set the kernel's dynamic shared memory to the tile's and launch it.
+template <typename T, int DH, typename Kern, typename P>
+cudaError_t launch_tile(Kern kern, dim3 grid, const P& p, cudaStream_t s) {
+  const size_t smem = Layout<T, DH>::total;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, NTHREADS, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace attn
+}  // namespace repro

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_refresh as FR
 from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
@@ -71,6 +73,65 @@ def flash_varlen_cross_attention(q, k, v, *, q_seg, q_pos, kv_seg, kv_pos,
         is_local, softcap=softcap, causal=causal, window=window)
     out = out.reshape(K, Tq, G, dh).permute(1, 0, 2, 3).reshape(Tq, H, dh)
     return out.to(q.dtype)
+
+
+def packed_flash_attention_stats(qr, k_all, v_all, ok, *,
+                                 softcap: float = 0.0):
+    """Raw flash statistics for the exact split-attention merge of the
+    padded Reuse. qr [B, K, R, dh] (rows sb·G + g); k_all/v_all
+    [B, K, T, dh]; ok [B, K, Sm, T] bool (Sm = Sb, or 1) -> (o f32
+    UNNORMALISED [B, K, R, dh], m [B, K, R], s [B, K, R])."""
+    return FA.packed_flash_attention_call(
+        qr.contiguous(), k_all.contiguous(), v_all.contiguous(),
+        ok.contiguous(), softcap=softcap)
+
+
+def packed_flash_attention(q, k_all, v_all, ok, *, softcap: float = 0.0):
+    """Padded Reuse attention, the model-layer contract: q [B, Sb, H, dh];
+    k_all/v_all [B, K, T, dh]; ok [B, K, Sm, T] bool -> [B, Sb, H, dh]."""
+    B, Sb, H, dh = q.shape
+    K = k_all.shape[1]
+    G = H // K
+    qr = q.reshape(B, Sb, K, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, K, Sb * G, dh)
+    out, _, s = packed_flash_attention_stats(qr, k_all, v_all, ok,
+                                             softcap=softcap)
+    out = out / s.clamp_min(1e-30)[..., None]
+    out = out.reshape(B, K, Sb, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Sb, H, dh)
+    return out.to(q.dtype)
+
+
+def flash_refresh_attention(q, k, v, *, q_pos, kv_pos, kv_valid, mask_mode,
+                            window, is_local, softcap):
+    """Padded full-sequence attention (the Refresh prefill), the
+    model-layer contract of ``layers.attention``: q [B, S, H, dh]; k/v
+    [B, S, K, dh]; q_pos/kv_pos [B, S]; kv_valid [B, S] -> [B, S, H, dh]."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    qr = q.reshape(B, S, K, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, K, S * G, dh)
+    out = FR.flash_refresh_call(
+        qr.contiguous(), k.permute(0, 2, 1, 3).contiguous(),
+        v.permute(0, 2, 1, 3).contiguous(), _i32(q_pos), _i32(kv_pos),
+        kv_valid.contiguous(), bool(is_local), softcap=softcap,
+        causal=mask_mode == "causal", window=window)
+    out = out.reshape(B, K, S, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, S, H, dh)
+    return out.to(q.dtype)
+
+
+def head_score(q_block, k_full):
+    """q_block [B, Sb, H, dh]; k_full [B, S, K, dh] -> [B, K, S] f32 raw
+    (pre-maxpool) importance scores of a padded batch."""
+    B, Sb, H, dh = q_block.shape
+    K = k_full.shape[2]
+    G = H // K
+    qr = (q_block.reshape(B, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
+          .reshape(B, K, Sb * G, dh))
+    return SP.head_score_call(qr.contiguous(),
+                              k_full.permute(0, 2, 1, 3).contiguous())
 
 
 def head_score_varlen(q_block, k_flat, seg_ids):

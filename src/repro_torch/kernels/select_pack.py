@@ -1,14 +1,23 @@
-"""Per-KV-head importance scores over the packed Refresh stream (paper C3).
+"""Per-KV-head importance scores (paper C3).
 
-Replaces ``repro/kernels/select_pack.py::head_score_varlen_call`` (Pallas):
-``out[r, k, t] = max over request r's block query rows q (all G heads of the
-group) of Q[r, k, q] · K[k, t]`` where ``seg[t] == r``, and ``-inf``
-elsewhere. A raw dot product, without the ``dh^-1/2`` scale. The local
-max-pool, top-k and gather that follow stay plain PyTorch
-(``models/sparse_select.py``), as they are plain XLA in the reference.
+Replaces the two Pallas kernels of ``repro/kernels/select_pack.py``, both
+with ``csrc/head_score.cu``:
 
-The wrapper runs the plain version only for CPU tensors; on a CUDA tensor it
-launches ``csrc/head_score.cu`` or raises.
+* ``head_score_varlen_call``: over the packed Refresh stream,
+  ``out[r, k, t] = max over request r's block query rows q (all G heads of
+  the group) of Q[r, k, q] · K[k, t]`` where ``seg[t] == r``, and ``-inf``
+  elsewhere;
+* ``head_score_call``: over a padded batch, ``out[b, k, s] = max over the
+  Sb·G rows q of Q[b, k, q] · K[b, k, s]``. No model code of the reference
+  reaches it (its padded ``sparse_select.head_scores`` is plain jnp, and so
+  is the port's); only its wrapper ``ops.head_score`` does.
+
+A raw dot product, without the ``dh^-1/2`` scale. The local max-pool, top-k
+and gather that follow stay plain PyTorch (``models/sparse_select.py``), as
+they are plain XLA in the reference.
+
+Each wrapper runs its plain version only for CPU tensors; on a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch
 from repro_torch.kernels import build
 
 SCORE = build.counter("head_score_varlen")
+PADDED = build.counter("head_score")
 
 
 def head_score_varlen_plain(q, k, seg):
@@ -53,4 +63,33 @@ def head_score_varlen_call(q, k, seg):
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, name)
     SCORE.launches += 1
+    return out
+
+
+def head_score_plain(q, k):
+    """q [B, K, Rq, dh]; k [B, K, S, dh] -> [B, K, S] f32."""
+    return torch.einsum("bkrd,bksd->bkrs", q.float(), k.float()).amax(dim=2)
+
+
+def head_score_call(q, k):
+    """Raw per-KV-head scores of a padded batch (replaces
+    ``repro/kernels/select_pack.py::head_score_call``)."""
+    if q.device.type == "cpu":
+        PADDED.plain_calls += 1
+        return head_score_plain(q, k)
+    name = PADDED.name
+    build.require_cuda(name, q, k)
+    B, K, Rq, dh = q.shape
+    S = k.shape[2]
+    if q.dtype != k.dtype:
+        raise TypeError(f"{name}: q/k dtypes differ")
+    if k.shape != (B, K, S, dh) or 0 in (B, K, Rq, S) or dh > 256:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)}")
+    out = torch.empty((B, K, S), dtype=torch.float32, device=q.device)
+    code = build.library().repro_head_score(
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), B, K, Rq, S, dh,
+        build.dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(code, name)
+    PADDED.launches += 1
     return out

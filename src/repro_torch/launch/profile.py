@@ -2,11 +2,12 @@
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b]
-        [--n 8] [--out F]
+        [--system sparse-dllm] [--n 8] [--out F]
 
 Serves the full arch (default llada-8b; random bfloat16 weights from a
-seed) through the dllm-serve profile with the kernels, the configuration
-chip_smoke.py drives, once to warm and once under the profiler (CUDA
+seed) through a system's profile (default dllm-serve) with the kernels, the
+configuration chip_smoke.py drives, once to warm and once under the
+profiler (CUDA
 activity only: the script reads device events alone, and CPU events would
 double the events of a run that enqueues thousands of small ops per
 iteration).
@@ -33,7 +34,9 @@ from repro_torch.launch.serve import run_serve
 SERVE_KW = dict(max_seq_len=256, block_size=8, max_slots=12,
                 max_num_batched_tokens=1024, max_num_logits=128)
 GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",)),
-          ("head_score_varlen", ("head_score_kernel",)),
+          ("packed_flash_attention", ("packed_attention_kernel",)),
+          ("flash_refresh", ("refresh_attention_kernel",)),
+          ("head_score (varlen + padded)", ("head_score_kernel",)),
           ("fused_logit_argmax", ("logit_partial_kernel",
                                   "logit_merge_kernel")),
           ("ssm_segment_scan", ("ssm_scan_kernel",)),
@@ -48,16 +51,17 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def profile_serve(arch: str, n: int, seed: int = 0) -> dict:
+def profile_serve(arch: str, n: int, seed: int = 0,
+                  system: str = "dllm-serve") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the profile measures the card; no CUDA device")
     kw = dict(use_reduced=False, kernels=True, clock="wall", seed=seed,
               size_by_profiler=False, device="cuda", **SERVE_KW)
-    warm = run_serve(arch, "dllm-serve", "livebench", 50.0, n, **kw)
+    warm = run_serve(arch, system, "livebench", 50.0, n, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_serve(arch, "dllm-serve", "livebench", 50.0, n, **kw)
+        res = run_serve(arch, system, "livebench", 50.0, n, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -71,7 +75,8 @@ def profile_serve(arch: str, n: int, seed: int = 0) -> dict:
     busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return dict(
-        arch=arch, card=torch.cuda.get_device_name(0), n_requests=n,
+        arch=arch, system=system, card=torch.cuda.get_device_name(0),
+        n_requests=n,
         iterations=res["iterations"], committed_tokens=res["committed_tokens"],
         profiled_wall_s=wall, device_busy_s=busy_s,
         device_idle_share=1.0 - busy_s / wall,
@@ -80,6 +85,10 @@ def profile_serve(arch: str, n: int, seed: int = 0) -> dict:
         unprofiled_idle_share=1.0 - busy_s / warm["wall_clock_s"],
         host_plan_s=res["host_plan_s"], host_fill_s=res["host_fill_s"],
         sync_wait_s=res["sync_wait_s"],
+        refresh_waste=res["refresh_waste"], reuse_waste=res["reuse_waste"],
+        logit_waste=res["logit_waste"],
+        padded_refresh_calls=res["padded_refresh_calls"],
+        padded_reuse_calls=res["padded_reuse_calls"],
         groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         top_kernels=[dict(name=k[:120], ms=v[0], count=v[1]) for k, v in top])
 
@@ -87,10 +96,13 @@ def profile_serve(arch: str, n: int, seed: int = 0) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llada-8b")
+    ap.add_argument("--system", default="dllm-serve",
+                    choices=["dllm-serve", "sparse-dllm", "fast-dllm",
+                             "dllm-cache"])
     ap.add_argument("--n", type=int, default=8)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    res = profile_serve(args.arch, args.n)
+    res = profile_serve(args.arch, args.n, system=args.system)
     print(json.dumps(res))
     if args.out:
         with open(args.out, "w") as f:

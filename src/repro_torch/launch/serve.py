@@ -1,5 +1,6 @@
-"""Serving launcher: run the port's dLLM-Serve engine over a synthetic
-workload and print the reference launcher's JSON keys.
+"""Serving launcher: run the port's engine over a synthetic workload under
+one of the paper's serving systems and print the reference launcher's JSON
+keys.
 
 On the card (the default device), with the kernels, full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
@@ -7,10 +8,16 @@ On the card (the default device), with the kernels, full width:
 
 On the CPU, the kernels' plain versions at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
-      --system dllm-serve --kernels --device cpu
+      --system sparse-dllm --kernels --device cpu
 
-``--arch`` takes any arch of ``repro_torch.configs.ARCHS``: llada-8b,
-zamba2-7b (hybrid) and mamba2-130m (ssm).
+``--system`` takes every profile of ``core.baselines.system_profiles``:
+dllm-serve (phase scheduler, token-packed) and the three baselines
+fast-dllm, dllm-cache and sparse-dllm (request-level scheduler, padded).
+Without ``--kernels`` a system runs its profile's own flags (the plain
+fallbacks and monolithic or chunked logits), which the engine takes on the
+CPU only. ``--arch`` takes any arch of ``repro_torch.configs.ARCHS``:
+llada-8b, zamba2-7b (hybrid) and mamba2-130m (ssm); the scan families serve
+under dllm-serve with ``--kernels`` only.
 
 Keys whose feature the port does not have yet carry the reference's "off"
 value: ``compile_counts={}``, ``compiles_*=0``, ``mesh_devices=1``,

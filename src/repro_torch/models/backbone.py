@@ -1,6 +1,10 @@
-"""Model API the engine calls: parameters and the packed serving stages.
+"""Model API the engine calls: parameters and the serving stages.
 
   * :func:`init_params` — random weights for an arch, drawn on the device.
+  * :func:`serve_refresh` / :func:`serve_reuse` — the padded stages: a
+    ``[B, S]`` batch per Refresh, a ``[B, Sb]`` block batch per Reuse (the
+    oracle, and the path of the three baseline systems; attention families
+    only so far).
   * :func:`serve_refresh_packed` — the paper's **Refresh** phase over one
     token-packed stream: capture each request's serving cache (packed sparse
     KV, SSM state and conv history, or both) and return its active block's
@@ -9,7 +13,8 @@
     one packed stream against their gathered slot caches.
 
 Families: dense (MoE raises in the layers), ssm (mamba2) and hybrid
-(zamba2); the modality frontends come with a later slice.
+(zamba2) on the packed path; the scan families' padded branches and the
+modality frontends come with later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +42,25 @@ def _check_family(cfg: ModelConfig) -> None:
             "and frontends')")
 
 
+def mask_mode(cfg: ModelConfig) -> str:
+    """Diffusion LMs are bidirectional; SSM-bearing archs are causal."""
+    return "causal" if cfg.family in ("ssm", "hybrid") else "bidirectional"
+
+
+def _check_padded(cfg: ModelConfig) -> None:
+    if cfg.family not in ATTN_FAMILIES:
+        raise NotImplementedError(
+            f"the padded stages of the {cfg.family} family are not ported "
+            f"yet (ROADMAP Queue A, 'the scan families' padded branches')")
+
+
+def embed_inputs(params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """[B, S] tokens -> [B, S, D] (text-only archs)."""
+    _check_family(cfg)
+    return LM.embed_tokens(params["embed"], tokens)
+
+
 def embed_inputs_packed(params, cfg: ModelConfig,
                         flat_tokens: torch.Tensor) -> torch.Tensor:
     """[T] token stream -> [T, D] (text-only archs)."""
@@ -60,6 +84,37 @@ def _serve_chunk_cfg(cfg: ModelConfig, block_size: int) -> ModelConfig:
 class RefreshOut(NamedTuple):
     block_hidden: torch.Tensor   # [R, Sb, D] (final-normed)
     cache: object                # PackedKV | SSMCache | HybridCache
+
+
+def serve_refresh(params, cfg: ModelConfig, tokens, block_start,
+                  serve: T.ServeContext, token_valid=None) -> RefreshOut:
+    """Padded Refresh: the full forward of a ``[B, S]`` batch, capturing
+    each row's packed sparse KV, and the active blocks' final-normed hidden
+    rows. tokens [B, S]; block_start [B]; token_valid [B, S]."""
+    _check_padded(cfg)
+    x = embed_inputs(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    if token_valid is None:
+        token_valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    h, cache, _ = T.forward_full(
+        params["stack"], cfg, x, positions, token_valid=token_valid,
+        mask_mode=mask_mode(cfg), serve=serve, block_start=block_start)
+    bh = T.slice_block(_final(params, cfg, h), block_start,
+                       serve.block_size)
+    return RefreshOut(block_hidden=bh, cache=cache)
+
+
+def serve_reuse(params, cfg: ModelConfig, block_tokens, block_positions,
+                cache, serve: T.ServeContext) -> torch.Tensor:
+    """Padded Reuse: block_tokens/block_positions [B, Sb] against the
+    gathered caches (batch axis B). Returns final-normed [B, Sb, D]."""
+    _check_padded(cfg)
+    xb = LM.embed_tokens(params["embed"], block_tokens)
+    h = T.forward_block(params["stack"], cfg, xb, block_positions, cache,
+                        serve=serve, mask_mode=mask_mode(cfg))
+    return _final(params, cfg, h)
 
 
 def _ssm_refresh(stack, cfg: ModelConfig, x, seg_ids, positions, cu_seqlens,
@@ -92,7 +147,7 @@ def serve_refresh_packed(params, cfg: ModelConfig, flat_tokens, positions,
             params["stack"], cfg, x, positions[None], seg_ids[None],
             token_valid[None], cu_seqlens, seq_lens, block_start, serve)
     elif cfg.family == "ssm":
-        T._check_kernel_path(cfg, serve)
+        T._check_kernel_path(cfg, serve, x.device)
         h, cache = _ssm_refresh(
             params["stack"], _serve_chunk_cfg(cfg, serve.block_size), x,
             seg_ids, positions, cu_seqlens, block_start)
@@ -132,7 +187,7 @@ def serve_reuse_packed(params, cfg: ModelConfig, flat_tokens, flat_positions,
                                    flat_positions.reshape(R, Sb), cache,
                                    serve=serve)
     elif cfg.family == "ssm":
-        T._check_kernel_path(cfg, serve)
+        T._check_kernel_path(cfg, serve, xb.device)
         h = _ssm_reuse(params, cfg, xb, cache)
     else:
         h = HY.forward_block_packed(params["stack"], cfg, xb,

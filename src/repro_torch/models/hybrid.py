@@ -50,7 +50,7 @@ def forward_full_packed(params, cfg: ModelConfig, x, positions, seg_ids,
     token_valid [1, T]; cu_seqlens/seq_lens/block_start [R]. Returns
     (hidden [1, T, D], :class:`HybridCache`)."""
     assert serve.max_seq_len > 0, "packed path needs ServeContext.max_seq_len"
-    T._check_kernel_path(cfg, serve)
+    T._check_kernel_path(cfg, serve, x.device)
     T_len = x.shape[1]
     cos, sin = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     geom = T.packed_refresh_geometry(cu_seqlens, seq_lens, block_start, T_len,
@@ -93,7 +93,7 @@ def forward_block_packed(params, cfg: ModelConfig, xb, block_positions,
     """Token-packed hybrid Reuse. xb [R, Sb, D]; block_positions [R, Sb];
     cache: the gathered slot caches (batch axis R). The shared block runs
     one flat causal cross-attention dispatch over the ``[R·Sb]`` queries."""
-    T._check_kernel_path(cfg, serve)
+    T._check_kernel_path(cfg, serve, xb.device)
     cos, sin = L.rope_tables(block_positions, cfg.resolved_head_dim,
                              cfg.rope_theta)
     R, Sb, _ = xb.shape

@@ -1,15 +1,27 @@
-"""Shared layer primitives: RMSNorm, RoPE, gated MLPs, per-layer flags.
+"""Shared layer primitives: RMSNorm, RoPE, the padded attention, gated
+MLPs, per-layer flags.
 
 Conventions as in ``repro.models.layers``: activations ``[..., D]``,
 attention heads ``[..., H, dh]``, normalisation and RoPE in float32 and cast
 back to the working dtype.
+
+:func:`attention` is the padded, query-chunked exact attention of the
+reference. On the card it runs as plain PyTorch (einsum, softmax) except
+where ``use_kernel`` selects the ``flash_refresh`` kernel, because the
+reference computes it in jnp outside any Pallas kernel on the engine's
+path; only its ``use_kernel`` branch is a kernel there.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+DEFAULT_Q_CHUNK = 1024
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -43,6 +55,69 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_pos: torch.Tensor, kv_pos: torch.Tensor,
+              kv_valid: Optional[torch.Tensor] = None,
+              q_seg: Optional[torch.Tensor] = None,
+              kv_seg: Optional[torch.Tensor] = None,
+              mask_mode: str = "bidirectional", window: int = 0,
+              is_local: bool = False, attn_softcap: float = 0.0,
+              q_chunk: int = DEFAULT_Q_CHUNK,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Query-chunked exact attention. q [B, Sq, H, dh]; k/v [B, Sk, K, dh];
+    q_pos [B, Sq]; kv_pos [B, Sk]; kv_valid [B, Sk] bool; q_seg/kv_seg
+    [B, Sq]/[B, Sk] restrict attention to same-segment tokens. Returns
+    [B, Sq, H, dh]. Masks are built per query chunk ([B, c, Sk]), never as
+    a full [B, Sq, Sk] bias; masked logits are -1e30. ``use_kernel`` runs
+    the ``flash_refresh`` kernel, under the reference's condition (self
+    attention without segments)."""
+    if use_kernel and q.shape[1] == k.shape[1] and q_seg is None:
+        B, Sq = q.shape[:2]
+        if kv_valid is None:
+            kv_valid = torch.ones((B, Sq), dtype=torch.bool, device=q.device)
+        return ops.flash_refresh_attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
+            mask_mode=mask_mode, window=window, is_local=is_local,
+            softcap=attn_softcap)
+    B, Sq, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = dh ** -0.5
+    qg = q.reshape(B, Sq, K, G, dh)
+    has_seg = q_seg is not None
+    needs_mask = (mask_mode == "causal") or window or \
+        (kv_valid is not None) or has_seg
+
+    def chunk_mask(qp, qs):        # qp/qs [B, c] -> [B, c, Sk] bool | None
+        if not needs_mask:
+            return None
+        ok = torch.ones((B, qp.shape[1], kv_pos.shape[1]), dtype=torch.bool,
+                        device=q.device)
+        if kv_valid is not None:
+            ok = ok & kv_valid[:, None, :]
+        if has_seg:
+            ok = ok & (qs[:, :, None] == kv_seg[:, None, :])
+        if mask_mode == "causal":
+            ok = ok & (qp[:, :, None] >= kv_pos[:, None, :])
+        if window and is_local:
+            ok = ok & ((qp[:, :, None] - kv_pos[:, None, :]).abs() <= window)
+        return ok
+
+    outs = []
+    for c0 in range(0, Sq, q_chunk):
+        qb = qg[:, c0: c0 + q_chunk]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, k).float() * scale
+        if attn_softcap:
+            s = attn_softcap * torch.tanh(s / attn_softcap)
+        ok = chunk_mask(q_pos[:, c0: c0 + q_chunk],
+                        q_seg[:, c0: c0 + q_chunk] if has_seg else None)
+        if ok is not None:
+            s = s.masked_fill(~ok[:, None, None], -1e30)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, dh)
 
 
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,12 +1,18 @@
 """Embedding + output head with Logit-Aware Activation Budgeting (paper C1).
 
-The packed decode of ``repro.models.lm_head``: the logit stage decodes the
-iteration's hidden rows in serial ``max_num_logits`` sub-batches, either
+The decode of ``repro.models.lm_head`` (padded :func:`decode_tokens`,
+packed :func:`decode_tokens_packed`): the logit stage decodes the
+iteration's hidden rows
 
-  * ``fused``   — the fused logit-argmax kernel: the ``[chunk, V]`` logits
-                  never exist in device memory (the main path), or
-  * ``chunked`` — paper-faithful sub-batches materialising ``[chunk, V]``
-                  float32 logits (plain PyTorch: CPU only in the port).
+  * ``fused``      — in serial ``max_num_logits`` sub-batches of the fused
+                     logit-argmax kernel: the ``[chunk, V]`` logits never
+                     exist in device memory (the path on the card),
+  * ``chunked``    — in paper-faithful sub-batches materialising
+                     ``[chunk, V]`` float32 logits, or
+  * ``monolithic`` — in one ``[N, V]`` float32 matrix (the baselines'
+                     un-budgeted logit stage).
+
+The last two are plain PyTorch; the engine runs them on the CPU only.
 """
 from __future__ import annotations
 
@@ -35,6 +41,12 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return z
 
 
+def logits_monolithic(params, cfg: ModelConfig,
+                      h: torch.Tensor) -> torch.Tensor:
+    """The un-budgeted baseline: the full [N, V] float32 logits."""
+    return _logits(params, cfg, h)
+
+
 def _decode_chunk_jnp(params, cfg: ModelConfig,
                       h_chunk) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's plain chunk decode: argmax and its softmax
@@ -45,6 +57,38 @@ def _decode_chunk_jnp(params, cfg: ModelConfig,
     return ids, conf
 
 
+def _head(params, cfg: ModelConfig):
+    """The output head weight and its layout for the fused kernel."""
+    if cfg.tie_embeddings:
+        return params["table"], "vd"      # [V, D], no transpose
+    return params["lm_head"], "dv"        # [D, V]
+
+
+def decode_tokens(params, cfg: ModelConfig, h: torch.Tensor, *,
+                  max_num_logits: int, mode: str = "chunked"):
+    """ArgMax decode and confidence of h [N, D] under the C1 budget: one
+    pass when ``monolithic`` (or N fits the budget outside ``fused``),
+    else serial ``max_num_logits`` chunks. Returns ([N] int32, [N] f32)."""
+    N = h.shape[0]
+    if mode == "monolithic" or N <= max_num_logits and mode != "fused":
+        return _decode_chunk_jnp(params, cfg, h)
+    if mode not in ("fused", "chunked"):
+        raise ValueError(f"unknown logit mode {mode!r}")
+    chunk = min(max_num_logits, N)
+    w, layout = _head(params, cfg)
+    ids, conf = [], []
+    for c0 in range(0, N, chunk):
+        hb = h[c0: c0 + chunk]
+        if mode == "fused":
+            i, c = ops.fused_logit_argmax(hb, w, softcap=cfg.final_softcap,
+                                          w_layout=layout)
+        else:
+            i, c = _decode_chunk_jnp(params, cfg, hb)
+        ids.append(i)
+        conf.append(c)
+    return torch.cat(ids), torch.cat(conf)
+
+
 def decode_tokens_packed(params, cfg: ModelConfig, h: torch.Tensor,
                          valid: torch.Tensor, *, max_num_logits: int,
                          mode: str = "chunked"):
@@ -52,17 +96,17 @@ def decode_tokens_packed(params, cfg: ModelConfig, h: torch.Tensor,
 
     h [N_exec, D] token-bucketed rows; valid [N_exec] bool. C1 chunking as
     in the reference; all-padding chunks are never computed, and invalid
-    rows return (id 0, conf 0.0). Returns ([N_exec], [N_exec])."""
+    rows return (id 0, conf 0.0). ``monolithic`` decodes every row in one
+    pass. Returns ([N_exec], [N_exec])."""
+    if mode == "monolithic":
+        ids, conf = _decode_chunk_jnp(params, cfg, h)
+        return (torch.where(valid, ids, torch.zeros_like(ids)),
+                torch.where(valid, conf, torch.zeros_like(conf)))
     if mode not in ("fused", "chunked"):
-        raise NotImplementedError(
-            f"logit_mode={mode!r} is not ported yet (ROADMAP Queue A, 'the "
-            f"padded oracle path and the baseline systems')")
+        raise ValueError(f"unknown logit mode {mode!r}")
     N = h.shape[0]
     chunk = min(max_num_logits, N)
-    if cfg.tie_embeddings:
-        w, layout = params["table"], "vd"      # [V, D], no transpose
-    else:
-        w, layout = params["lm_head"], "dv"    # [D, V]
+    w, layout = _head(params, cfg)
     ids = torch.zeros((N,), dtype=torch.int32, device=h.device)
     conf = torch.zeros((N,), dtype=torch.float32, device=h.device)
     for c0 in range(0, N, chunk):

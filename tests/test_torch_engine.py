@@ -1,8 +1,10 @@
 """The slice as a whole: the JAX engine and the port's engine serve the same
-requests on the same weights (reduced llada-8b, float32), the dllm-serve
-profile with the kernel paths on (``use_flash_kernel=True``,
-``logit_mode="fused"``), the synchronous loop and the modeled clock; the
-port runs on the CPU, i.e. on its kernels' plain versions.
+requests on the same weights (reduced llada-8b, float32) under every
+serving system — dllm-serve (phase scheduler, token-packed) and the three
+baselines (request-level scheduler, padded) — with the kernel paths on
+(``use_flash_kernel=True``, ``logit_mode="fused"``) and with each profile's
+own flags, the synchronous loop and the modeled clock; the port runs on the
+CPU, i.e. on its kernels' plain versions.
 
 Exact: every committed token id, every EngineStats counter and the modeled
 clock. The only fields left out are host wall-clock timings and the JAX
@@ -16,15 +18,22 @@ import pytest
 
 from repro.configs import ARCHS, reduced
 from repro.configs.base import ServeConfig as JServe
+from repro.core.baselines import ablation_profiles as jablation
 from repro.core.baselines import system_profiles as jprofiles
 from repro.core.engine import Engine as JEngine
+from repro.core.request import Request as JRequest
+from repro.core.scheduler import make_scheduler as jmake_scheduler
 from repro.launch.serve import run_serve as jrun_serve
 from repro.models import backbone as JBB
 from repro_torch.configs import get_config, reduced as treduced
 from repro_torch.configs.base import ServeConfig as TServe
+from repro_torch.core import diffusion
+from repro_torch.core.baselines import ablation_profiles as tablation
 from repro_torch.core.baselines import system_profiles as tprofiles
 from repro_torch.core.engine import Engine as TEngine
-from repro_torch.core.request import State
+from repro_torch.core.request import Request as TRequest, State
+from repro_torch.core.scheduler import (RequestLevelScheduler,
+                                        make_scheduler as tmake_scheduler)
 from repro_torch.launch.serve import run_serve as trun_serve
 from repro_torch.params import from_jax
 
@@ -47,21 +56,25 @@ def _requests(vocab):
              int(rng.integers(9, 30)), float(i) * 0.004) for i in range(6)]
 
 
-def test_engine_matches_reference_exactly():
+def _serve_both(jserve, tserve, requests=None, check_deferred=True):
+    """Serve the same requests on both engines; ids, request times, every
+    EngineStats counter and vtime must be equal."""
     jcfg = reduced(ARCHS["llada-8b"])
     tcfg = treduced(get_config("llada-8b"))
     jp = JBB.init_params(jcfg, jax.random.PRNGKey(3))
-    je = JEngine(jcfg, _serve(JServe, jprofiles), params=jp, clock="modeled")
-    te = TEngine(tcfg, _serve(TServe, tprofiles),
+    je = JEngine(jcfg, jserve, params=jp, clock="modeled")
+    te = TEngine(tcfg, tserve,
                  params=from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu"),
                  clock="modeled", device="cpu")
     jreqs, treqs = [], []
-    for i, (p, g, t) in enumerate(_requests(jcfg.vocab_size)):
+    for i, (p, g, t) in enumerate(requests or _requests(jcfg.vocab_size)):
         jreqs.append(je.submit(p, gen_len=g, arrival=t, rid=i))
         treqs.append(te.submit(p, gen_len=g, arrival=t, rid=i))
     js, ts = je.run(), te.run()
     assert all(r.state == State.FINISHED for r in treqs)
-    assert ts.reuse_steps > 0 and ts.deferred_steps > 0
+    assert ts.reuse_steps > 0
+    if check_deferred:
+        assert ts.deferred_steps > 0
     for a, b in zip(jreqs, treqs):
         assert np.array_equal(a.tokens, b.tokens), a.rid
         assert (a.t_admitted, a.t_first_commit, a.t_finished) == \
@@ -78,6 +91,87 @@ def test_engine_matches_reference_exactly():
             got = [{k: v for k, v in r.items() if k not in drop}
                    for r in got]
         assert want == got, f.name
+    return ts
+
+
+def test_engine_matches_reference_exactly():
+    _serve_both(_serve(JServe, jprofiles), _serve(TServe, tprofiles))
+
+
+# the baselines charge every resident its whole length: a budget that fits
+# three requests at once, refreshed in serial chunks of two
+BASE = dict(SERVE, max_num_batched_tokens=160)
+
+
+@pytest.mark.parametrize("system,kernels", [
+    ("fast-dllm", None), ("fast-dllm", True), ("dllm-cache", None),
+    ("dllm-cache", True), ("sparse-dllm", None), ("sparse-dllm", True),
+    ("dllm-serve", None)])
+def test_systems_match_reference_exactly(system, kernels):
+    """Every system of ``system_profiles`` with its own flags
+    (``kernels=None``: the plain fallbacks and monolithic or chunked logits)
+    and with the kernel paths; dllm-serve with the kernels is
+    :func:`test_engine_matches_reference_exactly`."""
+    def serve(cls, profiles):
+        s = profiles(cls(**BASE))[system]
+        if kernels:
+            s = dataclasses.replace(s, use_flash_kernel=True,
+                                    logit_mode="fused")
+        return s
+    ts = _serve_both(serve(JServe, jprofiles), serve(TServe, tprofiles),
+                     check_deferred=False)
+    padded = system != "dllm-serve"
+    assert (ts.padded_refresh_calls > 0) == padded
+    assert (ts.padded_reuse_calls > 0) == padded
+    assert (ts.packed_refresh_calls > 0) != padded
+
+
+@pytest.mark.parametrize("profile", ["+engine", "+scheduler"])
+def test_ablation_profiles_match_reference_exactly(profile):
+    """The §6.6 ablation steps that no system profile covers: the
+    request-level scheduler on the packed path with monolithic logits
+    (``+engine``), then the phase scheduler with them (``+scheduler``)."""
+    ts = _serve_both(jablation(JServe(**BASE))[profile],
+                     tablation(TServe(**BASE))[profile],
+                     check_deferred=False)
+    assert ts.packed_refresh_calls > 0 and ts.padded_refresh_calls == 0
+
+
+def test_request_level_scheduler_plans_match_reference():
+    """Plan for plan: static batches admitted only when the previous one
+    drained, worst-case budget charges, the same refresh/reuse split,
+    deferrals, rejections and sheds, with the requests advanced between
+    plans by the reference's commit counts."""
+    rng = np.random.default_rng(12)
+    cfgs = (JServe(**BASE, scheduler="request"),
+            TServe(**BASE, scheduler="request"))
+    scheds = [jmake_scheduler(cfgs[0]), tmake_scheduler(cfgs[1])]
+    assert isinstance(scheds[1], RequestLevelScheduler)
+    for i in range(9):
+        p = rng.integers(0, 100, int(rng.integers(8, 40)))
+        g = int(rng.integers(8, 40))
+        t, dl = 0.01 * i, (0.05 if i == 7 else float("inf"))
+        for sch, cls, cfg in zip(scheds, (JRequest, TRequest), cfgs):
+            sch.submit(cls(rid=i, prompt=p.astype(np.int32), gen_len=g,
+                           arrival=t, cfg=cfg, mask_id=0, deadline=dl))
+    now, n_plans = 0.0, 0
+    while scheds[0].has_work:
+        plans = [sch.plan(now) for sch in scheds]
+        for f in ("refresh", "reuse", "deferred", "admitted", "rejected",
+                  "shed"):
+            want, got = ([r.rid for r in getattr(pl, f)] for pl in plans)
+            assert want == got, (n_plans, f)
+        for sch, pl in zip(scheds, plans):
+            for r in pl.refresh + pl.reuse:
+                left = sch.cfg.steps_per_block - r.step_in_block
+                r.advance_control(diffusion.commit_count(r.masked_left, left),
+                                  now)
+                if r.state.value == "finished":
+                    sch.finish(r)
+        assert scheds[1].has_work == scheds[0].has_work
+        now += 0.01
+        n_plans += 1
+    assert n_plans > 10
 
 
 @pytest.mark.parametrize("workload", ["burst", "livebench"])
@@ -96,17 +190,48 @@ def test_run_serve_json_matches_reference(workload):
         assert got[k] == want[k], k
 
 
+def test_run_serve_baseline_json_matches_reference():
+    """A baseline through the launcher with its profile's own flags
+    (``kernels=None``): padded stages, monolithic logits."""
+    kw = dict(use_reduced=True, seed=2, kernels=None, clock="modeled",
+              size_by_profiler=False, pipeline=False, max_seq_len=96,
+              max_num_batched_tokens=256, max_slots=4, max_num_logits=32)
+    want = jrun_serve("llada-8b", "sparse-dllm", "burst", 4.0, 3, **kw)
+    got = trun_serve("llada-8b", "sparse-dllm", "burst", 4.0, 3,
+                     device="cpu", **kw)
+    assert got["n_finished"] == 3 and got["padded_reuse_calls"] > 0
+    skip = HOST_TIMES | JAX_ONLY | {"warmup_s", "wall_clock_s", "wall_tok_s",
+                                    "overlap_frac", "compiles_post_warmup"}
+    for k in sorted(set(want) - skip):
+        assert got[k] == want[k], k
+
+
 def test_unported_engine_options_raise():
     tcfg = treduced(get_config("llada-8b"))
     base = _serve(TServe, tprofiles)
     for bad in (dict(pipeline=True), dict(mesh_shape=(1, 2)),
-                dict(prefix_sharing=True), dict(kv_quant="int8"),
-                dict(varlen_pack=False), dict(use_flash_kernel=False)):
+                dict(prefix_sharing=True), dict(kv_quant="int8")):
         with pytest.raises(NotImplementedError):
             TEngine(tcfg, dataclasses.replace(base, **bad), device="cpu")
     with pytest.raises(NotImplementedError):
         trun_serve("llada-8b", "dllm-serve", "burst", 4.0, 2,
                    size_by_profiler=True, device="cpu", kernels=True)
+
+
+def test_cuda_engine_requires_the_kernel_paths(monkeypatch):
+    """On CUDA the engine refuses the plain fallbacks and every logit mode
+    but the fused kernel, for every system (checked before any weight is
+    drawn, with the device resolution stubbed)."""
+    import torch
+    from repro_torch.core import engine as tengine
+    monkeypatch.setattr(tengine.devices, "resolve",
+                        lambda d: torch.device("cuda"))
+    tcfg = treduced(get_config("llada-8b"))
+    for system, s in tprofiles(TServe(**SERVE)).items():
+        with pytest.raises(ValueError, match="CUDA"):
+            TEngine(tcfg, dataclasses.replace(s, logit_mode="fused"))
+        with pytest.raises(ValueError, match="CUDA"):
+            TEngine(tcfg, dataclasses.replace(s, use_flash_kernel=True))
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

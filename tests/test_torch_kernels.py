@@ -15,7 +15,11 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_refresh as FR
+from repro_torch.kernels import select_pack as SP
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_varlen import PAD_SEG
 
@@ -153,8 +157,136 @@ def test_logit_argmax_ties_pick_lowest_index():
     assert (ids.numpy() == 7).all()
 
 
+def _gqa_rows(q, K):
+    """[B, Sb, H, dh] -> the kernels' [B, K, Sb·G, dh] (row = sb·G + g)."""
+    B, Sb, H, dh = q.shape
+    return (q.reshape(B, Sb, K, H // K, dh).transpose(0, 2, 1, 3, 4)
+            .reshape(B, K, Sb * (H // K), dh))
+
+
+@pytest.mark.parametrize("G,Sm", [(1, 8), (2, 8), (2, 1)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_packed_flash_attention_plain_matches_jax(G, Sm, softcap):
+    """Row 6's plain version: the unnormalised (o, m, s) against the Pallas
+    kernel in interpret mode (T = 40 in tiles of 8), the normalised output
+    against ``repro.kernels.ref``; a fully masked row comes out with
+    m = -1e30 and s = T in both, and a mask of one row (Sm = 1) serves
+    every query row."""
+    from repro.kernels.flash_attention import packed_flash_attention_call
+    rng = np.random.default_rng(5)
+    B, K, Sb, T, dh = 2, 2, 8, 40, 16
+    R = Sb * G
+    q = rng.standard_normal((B, K, R, dh)).astype(np.float32)
+    k = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    v = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    mask = rng.random((B, K, Sm, T)) < 0.6
+    mask[0, 1] = False                       # every row of one head masked
+    o_r, m_r, s_r = packed_flash_attention_call(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        softcap=softcap, t_tile=8, interpret=True)
+    o, m, s = FA.packed_flash_attention_call(_t(q), _t(k), _t(v), _t(mask),
+                                             softcap=softcap)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_r), atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=1e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_r), rtol=1e-5,
+                               atol=1e-4)
+    assert (m.numpy()[0, 1] == -1e30).all() and (s.numpy()[0, 1] == T).all()
+    if Sm == Sb:
+        want = jref.packed_flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(mask), softcap=softcap)
+        got = o / s[..., None]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("H,K", [(4, 4), (4, 2)])
+def test_packed_flash_attention_op_matches_jax(H, K):
+    """``ops.packed_flash_attention`` (the model-layer contract)."""
+    rng = np.random.default_rng(6)
+    B, Sb, T, dh = 2, 4, 24, 16
+    q = rng.standard_normal((B, Sb, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    v = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    mask = rng.random((B, K, Sb, T)) < 0.7
+    ref = jops.packed_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jnp.asarray(mask),
+                                      t_tile=8)
+    out = tops.packed_flash_attention(_t(q), _t(k), _t(v), _t(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("H,K", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("flags", [
+    dict(), dict(softcap=20.0), dict(mask_mode="causal"),
+    dict(window=3, is_local=True), dict(window=3, is_local=False),
+])
+def test_flash_refresh_plain_matches_jax(H, K, flags):
+    """Row 7's plain version through ``ops.flash_refresh_attention`` against
+    the Pallas kernel in interpret mode (S = 24 in 8-row tiles), with
+    ``kv_valid`` holes and a row of a batch with no valid key."""
+    rng = np.random.default_rng(7)
+    B, Sq, dh = 3, 24, 16
+    q = rng.standard_normal((B, Sq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, Sq, K, dh)).astype(np.float32)
+    v = rng.standard_normal((B, Sq, K, dh)).astype(np.float32)
+    pos = np.tile(np.arange(Sq, dtype=np.int32), (B, 1))
+    valid = rng.random((B, Sq)) < 0.7
+    valid[2] = False
+    kw = dict(mask_mode=flags.get("mask_mode", "bidirectional"),
+              window=flags.get("window", 0),
+              is_local=flags.get("is_local", False),
+              softcap=flags.get("softcap", 0.0))
+    ref = jops.flash_refresh_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos),
+        kv_valid=jnp.asarray(valid), q_tile=8, kv_tile=8, **kw)
+    out = tops.flash_refresh_attention(
+        _t(q), _t(k), _t(v), q_pos=_t(pos), kv_pos=_t(pos),
+        kv_valid=_t(valid), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    # the kernel layout of the plain version, against the row layout
+    qr, kr, vr = _gqa_rows(q, K), k.transpose(0, 2, 1, 3), \
+        v.transpose(0, 2, 1, 3)
+    raw = FR.refresh_attention_plain(
+        _t(qr), _t(kr), _t(vr), _t(pos), _t(pos), _t(valid),
+        kw["is_local"], softcap=kw["softcap"],
+        causal=kw["mask_mode"] == "causal", window=kw["window"])
+    assert raw.shape == (B, K, Sq * (H // K), dh)
+
+
+@pytest.mark.parametrize("H,K", [(4, 4), (4, 2)])
+def test_head_score_padded_plain_matches_jax(H, K):
+    """Row 8's plain version: raw scores against ``repro.kernels.ref`` and
+    the JAX ``ops.head_score`` (Pallas interpret, 16-key tiles)."""
+    rng = np.random.default_rng(8)
+    B, Sb, S, dh = 3, 4, 48, 16
+    q = rng.standard_normal((B, Sb, H, dh)).astype(np.float32)
+    kf = rng.standard_normal((B, S, K, dh)).astype(np.float32)
+    ref = jops.head_score(jnp.asarray(q), jnp.asarray(kf), s_tile=16)
+    out = tops.head_score(_t(q), _t(kf))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    want = jref.head_score(jnp.asarray(_gqa_rows(q, K)),
+                           jnp.asarray(kf.transpose(0, 2, 1, 3)))
+    got = SP.head_score_plain(_t(_gqa_rows(q, K)),
+                              _t(kf.transpose(0, 2, 1, 3)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
 def test_wrappers_count_plain_calls_on_cpu():
     build.reset_counters()
     tops.fused_logit_argmax(torch.zeros(4, 8), torch.zeros(8, 16))
     c = build.COUNTERS["fused_logit_argmax"]
     assert (c.plain_calls, c.launches) == (1, 0)
+    z = torch.zeros(1, 1, 8, 16)
+    tops.packed_flash_attention_stats(z, z, z,
+                                      torch.ones(1, 1, 8, 8, dtype=bool))
+    tops.head_score(torch.zeros(1, 8, 1, 16), torch.zeros(1, 16, 1, 16))
+    i = torch.zeros(1, 8, dtype=torch.int32)
+    tops.flash_refresh_attention(
+        torch.zeros(1, 8, 1, 16), torch.zeros(1, 8, 1, 16),
+        torch.zeros(1, 8, 1, 16), q_pos=i, kv_pos=i,
+        kv_valid=torch.ones(1, 8, dtype=bool), mask_mode="bidirectional",
+        window=0, is_local=False, softcap=0.0)
+    for name in ("packed_flash_attention", "head_score", "flash_refresh"):
+        c = build.COUNTERS[name]
+        assert (c.plain_calls, c.launches) == (1, 0), name

@@ -11,7 +11,9 @@ Tolerances: float32 inputs run in full float32 on both sides (TF32 off), so
 only the order of sums differs: 1e-4 on outputs of magnitude ~1. bfloat16
 inputs: the kernel rounds the attention probabilities to bfloat16 before
 the P·V product, as the reference kernels do, and sums in another order:
-2e-2. Argmax ids must match where the top two logits are apart. The SSD
+2e-2 (the unnormalised output of ``packed_flash_attention``: 2e-2 relative
+to its row sums). Argmax ids must match where the top two logits are
+apart. The SSD
 scan is float32 on both sides, a token recurrence against the chunked form:
 1e-4 relative to the largest output.
 """
@@ -20,6 +22,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_refresh as FR
 from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
@@ -199,6 +203,93 @@ def test_ssm_segment_scan_matches_plain(cuda, T, H, P, N):
     assert not got[1][0].any() and not got[1][5].any()
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G,Sm,dh", [(1, 8, 128), (2, 8, 64), (4, 1, 16),
+                                     (1, 8, 112)])
+@pytest.mark.parametrize("T", [40, 128, 248])
+def test_packed_flash_attention_matches_plain(cuda, dtype, tol, G, Sm, dh,
+                                              T):
+    """Ragged last KV tile (T = 40, 248), GQA rows reading mask row
+    r // G, a one-row mask (Sm = 1), softcap, and a head whose keys are all
+    masked (m = -1e30, s = T, as the Pallas kernel gives it)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, K, Sb = 3, 2, 8
+    R = Sb * G
+    q = torch.randn((B, K, R, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, K, T, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, K, T, dh), generator=g, device=cuda).to(dtype)
+    mask = torch.rand((B, K, Sm, T), generator=g, device=cuda) < 0.6
+    mask[1, 0] = False
+    for softcap in (0.0, 30.0):
+        o, m, s = FA.packed_flash_attention_call(q, k, v, mask,
+                                                 softcap=softcap)
+        ro, rm, rs = FA.packed_attention_plain(q, k, v, mask,
+                                               softcap=softcap)
+        torch.cuda.synchronize()
+        assert (m[1, 0] == -1e30).all() and (s[1, 0] == T).all()
+        assert (m - rm).abs().max().item() < 1e-4
+        assert ((s - rs).abs() / rs).max().item() < tol
+        assert ((o - ro).abs() / rs[..., None]).max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 64), (1, 112), (4, 16)])
+@pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
+                                   dict(causal=True),
+                                   dict(window=5, is_local=True),
+                                   dict(window=5, is_local=False)])
+def test_flash_refresh_matches_plain(cuda, dtype, tol, G, dh, flags):
+    """S = 150 (a ragged last tile), kv_valid holes, a batch row with no
+    valid key (averages V, as the reference does)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, K, S = 3, 2, 150
+    q = torch.randn((B, K, S * G, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, K, S, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, K, S, dh), generator=g, device=cuda).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    valid = torch.rand((B, S), generator=g, device=cuda) < 0.8
+    valid[2] = False
+    kw = dict(softcap=flags.get("softcap", 0.0),
+              causal=flags.get("causal", False), window=flags.get("window", 0))
+    loc = flags.get("is_local", False)
+    out = FR.flash_refresh_call(q, k, v, pos, pos, valid, loc, **kw)
+    ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, loc, **kw)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("Rq,S,dh", [(8, 256, 128), (40, 100, 16),
+                                     (8, 77, 112)])
+def test_head_score_padded_matches_plain(cuda, dtype, tol, Rq, S, dh):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, K = 4, 3
+    q = torch.randn((B, K, Rq, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, K, S, dh), generator=g, device=cuda).to(dtype)
+    out = SP.head_score_call(q, k)
+    ref = SP.head_score_plain(q, k)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() < tol * max(1.0, scale)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """No fallback on the card: an unsupported head_dim, a CPU tensor in a
+    CUDA call or a non-bool mask raises."""
+    z = torch.zeros((1, 1, 8, 96), device=cuda)
+    mask = torch.ones((1, 1, 8, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.packed_flash_attention_call(z, z[:, :, :8], z[:, :, :8], mask)
+    z = torch.zeros((1, 1, 8, 64), device=cuda)
+    with pytest.raises(ValueError):
+        FA.packed_flash_attention_call(z, z.cpu(), z, mask)
+    with pytest.raises(TypeError):
+        FA.packed_flash_attention_call(z, z, z, mask.float())
+
+
 def test_launches_are_counted(cuda):
     build.reset_counters()
     h = torch.zeros((4, 16), device=cuda)
@@ -206,3 +297,12 @@ def test_launches_are_counted(cuda):
                                torch.ones(4, dtype=torch.bool, device=cuda))
     c = build.COUNTERS["fused_logit_argmax"]
     assert (c.launches, c.plain_calls) == (1, 0)
+    z = torch.zeros((1, 1, 8, 16), device=cuda)
+    i = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    ones = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    FA.packed_flash_attention_call(z, z, z, ones.view(1, 1, 1, 8))
+    FR.flash_refresh_call(z, z, z, i, i, ones)
+    SP.head_score_call(z, z)
+    for name in ("packed_flash_attention", "flash_refresh", "head_score"):
+        c = build.COUNTERS[name]
+        assert (c.launches, c.plain_calls) == (1, 0), name

@@ -157,11 +157,17 @@ def test_init_params_shapes_match_reference():
 
 
 def test_unported_paths_raise():
+    """MoE layers are not ported: both Refresh paths refuse them; an
+    unknown logit mode is refused (the plain fallbacks and the monolithic
+    mode now run, see ``test_torch_padded.py``)."""
     _, tcfg = _cfgs(4)
+    moe = dataclasses.replace(tcfg, n_experts=4)
     ctx = dataclasses.replace(_ctx(TT), use_flash_kernel=False)
     x = torch.zeros(1, 8, tcfg.d_model)
     with pytest.raises(NotImplementedError):
-        TT.forward_full_packed({}, tcfg, x, *[None] * 6, ctx)
+        TT.forward_full_packed({}, moe, x, *[None] * 6, ctx)
     with pytest.raises(NotImplementedError):
+        TT.forward_full({}, moe, x, torch.zeros(1, 8, dtype=torch.int32))
+    with pytest.raises(ValueError):
         TLM.decode_tokens_packed({}, tcfg, x[0], torch.ones(8, dtype=bool),
-                                 max_num_logits=8, mode="monolithic")
+                                 max_num_logits=8, mode="sampled")
