@@ -10,14 +10,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. each kernel against its plain PyTorch version on the card, at a small
      float32 shape with every mask flag, and at the main paths' full-width
      shapes (llada-8b, bfloat16: Refresh streams up to the token bucket of
-     max_num_batched_tokens, one max_num_logits chunk for the logit stage;
-     zamba2-7b, bfloat16: the shared block's causal attention at head_dim
-     112; the float32 SSD scan at zamba2-7b's and mamba2-130m's widths;
-     the padded path's kernels at llada-8b's padded Reuse, padded prefill
-     and padded Refresh scoring), with the kernel's time, the plain
-     version's, one PyTorch library
+     max_num_batched_tokens, one max_num_logits chunk and the serving
+     buckets T = 8 and 40 for the logit stage; zamba2-7b, bfloat16: the
+     shared block's causal attention at head_dim 112; the float32 SSD scan
+     at zamba2-7b's and mamba2-130m's widths; the padded path's kernels at
+     llada-8b's padded Reuse, padded prefill (also with a ragged kv_valid
+     tail and a request with no valid key) and padded Refresh scoring),
+     with the kernel's time, the plain version's, one PyTorch library
      call's where one computes the same function (a yardstick the port
-     never calls) and the least time the card could take (bound_ms);
+     never calls), the least time the card could take (bound_ms) and, for
+     the logit and flash_refresh kernels, the achieved rate (TB/s of the
+     head, TFLOP/s);
   4. a small end-to-end check: three iterations of reduced llada-8b and of
      reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
      sparse-dllm (the padded path), on the card against the same iterations
@@ -313,38 +316,48 @@ def check_logit_argmax(dev, g, cfg, serve, tied):
         err, n = compare(h, w, valid, layout, 15.0, 1e-3)
         log(f"  fused_logit_argmax f32 {layout} softcap: max_err={err:.3g} "
             f"(tol 1e-3), {n} ids compared")
-    # one max_num_logits chunk of the main path against the llada-8b head
-    T, D, V = serve.max_num_logits, cfg.d_model, cfg.vocab_size
-    bf = torch.bfloat16
-    h = torch.randn((T, D), generator=g, device=dev, dtype=bf)
+    # one max_num_logits chunk of the main path against the llada-8b head,
+    # then the serving buckets T = 8 and 40 against the same head
+    D, V, bf = cfg.d_model, cfg.vocab_size, torch.bfloat16
     w = torch.empty((D, V), device=dev, dtype=bf).normal_(0, 0.02,
                                                           generator=g)
-    valid = torch.ones(T, dtype=torch.bool, device=dev)
-    err, n = compare(h, w, valid, "dv", 0.0, 2e-3)
-    log(f"  fused_logit_argmax bf16 T={T} D={D} V={V}: max_err={err:.3g} "
-        f"(tol 2e-3), {n}/{T} ids compared")
+    rows = {}
+    for T in sorted({serve.max_num_logits, 8, 40}, reverse=True):
+        h = torch.randn((T, D), generator=g, device=dev, dtype=bf)
+        valid = torch.ones(T, dtype=torch.bool, device=dev)
+        err, n = compare(h, w, valid, "dv", 0.0, 2e-3)
+        log(f"  fused_logit_argmax bf16 T={T} D={D} V={V}: max_err={err:.3g} "
+            f"(tol 2e-3), {n}/{T} ids compared")
+
+        def library(h=h):
+            z = (h @ w).float()
+            return z.argmax(dim=1), torch.logsumexp(z, dim=1)
+
+        b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
+        ms = time_ms(lambda h=h, valid=valid: LA.fused_logit_argmax_call(
+            h, w, valid))
+        rows[T] = dict(
+            max_abs_err=err, ms=ms,
+            plain_ms=time_ms(lambda h=h: LA.fused_logit_argmax_plain(h, w),
+                             iters=3),
+            bound_ms=b, bound_by=by, library_ms=time_ms(library),
+            w_tb_s=nbytes(w) / ms / 1e9, ids_compared=n)
     # the tied [V, D] head of the attention-free arch, V not a multiple of
     # the 128-wide vocabulary tile
+    T = serve.max_num_logits
     Dt, Vt = tied.d_model, tied.vocab_size
     ht = torch.randn((T, Dt), generator=g, device=dev, dtype=bf)
     wt = torch.empty((Vt, Dt), device=dev, dtype=bf).normal_(0, 0.02,
                                                              generator=g)
+    valid = torch.ones(T, dtype=torch.bool, device=dev)
     err_t, n = compare(ht, wt, valid, "vd", 0.0, 2e-3)
     log(f"  fused_logit_argmax bf16 vd {tied.name} T={T} D={Dt} V={Vt}: "
         f"max_err={err_t:.3g} (tol 2e-3), {n}/{T} ids compared")
-
-    def library():
-        z = (h @ w).float()
-        return z.argmax(dim=1), torch.logsumexp(z, dim=1)
-
-    b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
+    main = rows.pop(serve.max_num_logits)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/logit_argmax.cu",
         replaces="src/repro/kernels/logit_argmax.py:80",
-        max_abs_err=err,
-        ms=time_ms(lambda: LA.fused_logit_argmax_call(h, w, valid)),
-        plain_ms=time_ms(lambda: LA.fused_logit_argmax_plain(h, w), iters=3),
-        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+        **main, **{f"T={t}": r for t, r in sorted(rows.items())})
 
 
 def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
@@ -504,6 +517,19 @@ def check_flash_refresh(dev, g, cfg):
         assert err < 1e-4, err
     B, S, K, dh = 2, 2048, cfg.n_kv_heads, cfg.resolved_head_dim
     G, bf = cfg.n_heads // K, torch.bfloat16
+    # a ragged kv_valid tail, holes, and a request with no valid key
+    # (averages V over all S keys), at the prefill's S and heads
+    q, k, v, pos = case(3, K, S, G, dh, bf)
+    valid = torch.ones((3, S), dtype=torch.bool, device=dev)
+    valid[0, S - 37:] = False
+    valid[1] = torch.rand(S, generator=g, device=dev) < 0.7
+    valid[2] = False
+    err = (FR.flash_refresh_call(q, k, v, pos, pos, valid)
+           - FR.refresh_attention_plain(q, k, v, pos, pos, valid, False)
+           ).abs().max().item()
+    log(f"  flash_refresh bf16 {cfg.name} B=3 S={S} K={K} dh={dh}, ragged "
+        f"tail, holes, no valid key: max_abs_err={err:.3g} (tol 2e-2)")
+    assert err < 2e-2, err
     q, k, v, pos = case(B, K, S, G, dh, bf)
     valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     call = lambda: FR.flash_refresh_call(q, k, v, pos, pos, valid)  # noqa
@@ -515,14 +541,15 @@ def check_flash_refresh(dev, g, cfg):
     assert err < 2e-2, err
     assert G == 1, "the SDPA yardstick takes one query head per KV head"
     mask = valid[:, None, None, :].expand(B, 1, S, S)
-    b, by = bound(4.0 * B * cfg.n_heads * S * S * dh,
-                  nbytes(q, k, v, pos, pos, valid) + q.numel() * 4, bf)
+    ops = 4.0 * B * cfg.n_heads * S * S * dh
+    b, by = bound(ops, nbytes(q, k, v, pos, pos, valid) + q.numel() * 4, bf)
+    ms = time_ms(call, iters=10)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_refresh.cu",
         replaces="src/repro/kernels/flash_refresh.py:89", max_abs_err=err,
-        ms=time_ms(call, iters=10), plain_ms=time_ms(plain, iters=3),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10))
+        ms=ms, plain_ms=time_ms(plain, iters=3), bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10),
+        tflop_s=ops / ms / 1e9)
 
 
 def check_head_score_padded(dev, g, cfg, serve):
@@ -794,8 +821,9 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.library()
-    with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
-        f.write(build.build_log)
+    if build.build_log:         # empty when an earlier run built the library
+        with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
+            f.write(build.build_log)
     log(f"phase build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {build.build_seconds:.3f} s; ptxas report in "
         f"build/chip_smoke/kernel_build.log)")
@@ -839,9 +867,11 @@ def main() -> int:
                                       if isinstance(v, dict)]:
             lib = ("none" if x["library_ms"] is None
                    else f"{x['library_ms']:.4f}")
+            rate = "".join(f" {k}={x[k]:.4f}" for k in ("tflop_s", "w_tb_s")
+                           if k in x)
             log(f"  {name}{shape}: kernel_ms={x['ms']:.4f} "
                 f"plain_ms={x['plain_ms']:.4f} library_ms={lib} "
-                f"bound_ms={x['bound_ms']:.4f} ({x['bound_by']})")
+                f"bound_ms={x['bound_ms']:.4f} ({x['bound_by']}){rate}")
     log(f"phase kernels: {time.perf_counter() - t0:.3f} s")
 
     # 4. small end-to-end checks

@@ -1,8 +1,9 @@
-// The attention tile shared by the port's three flash-attention kernels
-// (flash_varlen.cu, packed_flash_attention.cu, flash_refresh.cu): one CTA of
-// four warps owns 64 query rows, walks the keys in tiles of 64 and keeps a
-// float32 online softmax per row. Only the mask differs between the kernels;
-// each passes its own as a functor to softmax_tile.
+// The attention tile shared by the port's flash-attention kernels
+// (flash_varlen.cu, packed_flash_attention.cu, and flash_refresh.cu for
+// float32 inputs; flash_refresh.cu's bfloat16 path runs on attn_sm90.cuh):
+// one CTA of four warps owns 64 query rows, walks the keys in tiles of 64
+// and keeps a float32 online softmax per row. Only the mask differs between
+// the kernels; each passes its own as a functor to softmax_tile.
 //
 // bf16 products run on the tensor cores (WMMA 16x16x16, float32
 // accumulators); float32 inputs on the CUDA cores in full precision. The

@@ -15,13 +15,26 @@
 // K = H = 32, dh = 128) the work is 4·B·H·S²·dh ~ 137 GFLOP against
 // ~168 MB of bf16 q/k/v and float32 o: ~800 operations per byte, above the
 // ~295 where the tensor cores become the limit — bound by operations
-// (0.14 ms at 989 TFLOP/s). Design: one CTA per (request, KV head, tile of 64 query rows)
-// of attn_tile.cuh's tile, the online softmax carried across the KV tiles
-// inside the CTA and the output normalised once at the end; keys past S
-// take the logit -inf so a ragged last tile never enters Σp. A first,
-// simple kernel: WMMA tiles, no TMA, wgmma or double buffering, and no
-// causal tile skip (positions are data, not known to ascend).
+// (0.14 ms at 989 TFLOP/s), which only wgmma reaches.
+//
+// bfloat16 runs on the Hopper tile of attn_sm90.cuh: one CTA per (request,
+// KV head, 128 query rows), a producer warp streaming K and V through a
+// four-stage TMA/mbarrier ring, two consumer warpgroups computing Q·Kᵀ and
+// P·V with wgmma, the scores, the mask and the online softmax in registers,
+// the P·V of one KV tile overlapping the softmax of the next.
+// The first version of this kernel (WMMA 16x16x16 on a 64-row tile) lost
+// its time in two places, and the design removes both: K and V were staged
+// element by element with no second buffer (now TMA into a ring, so the
+// next tiles load while this one computes), and every score, probability
+// and output element went through shared memory with a row-serial softmax
+// (now register fragments, quad shuffles and one normalisation).
+// float32 inputs (a parity path on the card: reduced configs, TF32 off)
+// stay on attn_tile.cuh's tile, dispatched by dtype below; so do the varlen
+// and packed attention kernels (flash_varlen.cu, packed_flash_attention.cu).
+// Keys past S take the logit -inf, so a ragged last tile never enters Σp;
+// no KV tile is skipped (positions are data, not known to ascend).
 
+#include "attn_sm90.cuh"
 #include "attn_tile.cuh"
 
 using repro::bf16;
@@ -107,6 +120,70 @@ struct Launch {
   }
 };
 
+// ---- bfloat16: the Hopper tile ----
+
+// The problem of attn_sm90.cuh: stream bh = b·K + head; a key's metadata
+// is (kv_pos, kv_valid), a row's datum its token's position.
+struct RefreshProb {
+  int rows, keys;               // RG, S
+  float scale, softcap;
+  float* o;                     // [B·K, RG, dh]
+  const int* q_pos;             // [B, Sq]
+  const int* kv_pos;            // [B, S]
+  const uint8_t* kv_valid;      // [B, S]
+  int K, G, Sq, causal, window, is_local;
+
+  __device__ int2 key_meta(int bh, int key) const {
+    const size_t i = (size_t)(bh / K) * keys + key;
+    return make_int2(kv_pos[i], (int)kv_valid[i]);
+  }
+  __device__ int row_info(int bh, int row) const {
+    return row < rows ? q_pos[(size_t)(bh / K) * Sq + row / G] : 0;
+  }
+  __device__ bool row_mask() const { return causal || (window && is_local); }
+  __device__ bool keep(int pos, int key_pos) const {
+    bool ok = !causal || pos >= key_pos;
+    if (window && is_local) ok = ok && abs(pos - key_pos) <= window;
+    return ok;
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(repro::sm90::NTHREADS, 1)
+refresh_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const RefreshProb p) {
+  repro::sm90::attention_cta<DH>(&tq, &tk, &tv, p,
+                                 blockIdx.z * p.K + blockIdx.y,
+                                 blockIdx.x * repro::sm90::BM);
+}
+
+template <typename T, int DH>
+struct LaunchSm90 {
+  static cudaError_t run(const Params& p, int B, cudaStream_t s) {
+    namespace H = repro::sm90;
+    CUtensorMap tq, tk, tv;
+    cudaError_t e = H::tma_map_3d(&tq, p.q, DH, p.RG, B * p.K, H::BM);
+    if (e == cudaSuccess) e = H::tma_map_3d(&tk, p.k, DH, p.S, B * p.K, H::BK);
+    if (e == cudaSuccess) e = H::tma_map_3d(&tv, p.v, DH, p.S, B * p.K, H::BK);
+    if (e != cudaSuccess) return e;
+    RefreshProb r;
+    r.rows = p.RG; r.keys = p.S; r.scale = p.scale; r.softcap = p.softcap;
+    r.o = p.o; r.q_pos = p.q_pos; r.kv_pos = p.kv_pos;
+    r.kv_valid = p.kv_valid; r.K = p.K; r.G = p.G; r.Sq = p.Sq;
+    r.causal = p.causal; r.window = p.window; r.is_local = p.is_local;
+    const int smem = H::Smem<DH>::total;
+    auto kern = refresh_attention_kernel_sm90<DH>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3((p.RG + H::BM - 1) / H::BM, p.K, B), H::NTHREADS, smem, s>>>(
+        tq, tk, tv, r);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" int repro_flash_refresh(
@@ -125,7 +202,7 @@ extern "C" int repro_flash_refresh(
   p.causal = causal; p.window = window; p.is_local = is_local;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == repro::kBF16) e = dispatch_dh<Launch, bf16>(dh, p, B, st);
+  if (dtype == repro::kBF16) e = dispatch_dh<LaunchSm90, bf16>(dh, p, B, st);
   else if (dtype == repro::kF32) e = dispatch_dh<Launch, float>(dh, p, B, st);
   else e = cudaErrorInvalidValue;
   return (int)e;

@@ -2,9 +2,10 @@
 
 Replaces ``repro/kernels/logit_argmax.py::fused_logit_argmax_call``
 (Pallas). The ``[T, V]`` logits never exist in device memory: each CTA of
-``csrc/logit_argmax.cu`` projects a T tile onto one split of the vocabulary,
-tile by tile, keeping an online (max, lowest argmax, Σexp(z − max)) per row,
-and a second small kernel merges the splits by the law of the reference's
+``csrc/logit_argmax.cu`` (a persistent grid, one CTA an SM) projects a T
+tile onto one split of the vocabulary, a run of whole 128-column tiles,
+keeping an online (max, lowest argmax, Σexp(z − max)) per row in
+registers, and a second small kernel merges the splits by the law of the reference's
 vocab-sharded path (``repro/kernels/ops.py::_sharded_logit_argmax``):
 ``m = max mᵢ``, ``idx`` from the lowest split reaching ``m``,
 ``s = Σ sᵢ·exp(mᵢ − m)``. Ties keep the lowest vocabulary index. An optional
@@ -27,13 +28,16 @@ from repro_torch.kernels import build
 ARGMAX = build.counter("fused_logit_argmax")
 V_TILE = 128          # the kernel's vocabulary tile; splits are multiples
 PLAIN_V_CHUNK = 16384
+H100_SMS = 132
 
 
-def vocab_split(V: int) -> int:
-    """Columns per CTA: about 256 splits of the vocabulary (two CTAs per SM
-    of an H100 at one T tile), in whole vocabulary tiles."""
-    per = -(-V // 256)
-    return max(V_TILE, -(-per // V_TILE) * V_TILE)
+def vocab_split(V: int, n_ctas: int = H100_SMS) -> int:
+    """Columns per split: the vocabulary's 128-column tiles spread evenly
+    over at most ``n_ctas`` CTAs (the card's SM count: one CTA an SM), whole
+    tiles each. The ``ceil(V / split)`` splits cover ``[0, V)`` and none is
+    empty."""
+    tiles = -(-V // V_TILE)
+    return -(-tiles // max(1, n_ctas)) * V_TILE
 
 
 def fused_logit_argmax_plain(h, w, *, softcap: float = 0.0,
@@ -82,9 +86,10 @@ def fused_logit_argmax_call(h, w, valid, *, softcap: float = 0.0,
                          f"w{tuple(w.shape)} valid{tuple(valid.shape)}")
     if valid.dtype != torch.bool:
         raise TypeError(f"{name}: valid must be bool")
-    v_split = vocab_split(V)
-    n_splits = -(-V // v_split)
     dev = h.device
+    v_split = vocab_split(
+        V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_splits = -(-V // v_split)
     part_m = torch.empty((n_splits, T), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, T), dtype=torch.int32, device=dev)
     part_s = torch.empty((n_splits, T), dtype=torch.float32, device=dev)

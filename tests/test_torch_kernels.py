@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_refresh as FR
+from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_varlen import PAD_SEG
@@ -155,6 +156,26 @@ def test_logit_argmax_ties_pick_lowest_index():
     ids, _ = tops.fused_logit_argmax(_t(h), _t(w))
     assert (np.asarray(ids_r) == 7).all()
     assert (ids.numpy() == 7).all()
+
+
+@pytest.mark.parametrize("V", [126464, 32000, 50280, 5003])
+@pytest.mark.parametrize("n_ctas", [132, 114, 7, 1, 100000])
+def test_vocab_split_covers_the_vocabulary_in_whole_tiles(V, n_ctas):
+    """The logit kernel's persistent grid: the splits of the llada-8b,
+    zamba2-7b and mamba2-130m heads and of a ragged test vocabulary cover
+    [0, V) exactly, each a run of whole 128-column tiles (the last one
+    ragged only at V), none empty, at most one per CTA."""
+    split = LA.vocab_split(V, n_ctas)
+    n = -(-V // split)
+    assert split % LA.V_TILE == 0 and n <= max(1, n_ctas)
+    starts = [i * split for i in range(n)]
+    ends = [min(V, s + split) for s in starts]
+    assert starts[0] == 0 and ends[-1] == V
+    assert all(e == s for s, e in zip(starts[1:], ends[:-1]))
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all((e - s) % LA.V_TILE == 0 for s, e in zip(starts[:-1],
+                                                         ends[:-1]))
+    assert LA.vocab_split(V) == LA.vocab_split(V, LA.H100_SMS)
 
 
 def _gqa_rows(q, K):

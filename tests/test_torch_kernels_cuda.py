@@ -178,6 +178,41 @@ def test_logit_argmax_matches_plain(cuda, dtype, layout, T, D, V, softcap):
     torch.testing.assert_close(s[valid], rs[valid], rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,D,V", [("dv", 96, 5003), ("vd", 96, 5003),
+                                        ("dv", 64, 2040),
+                                        ("vd", 768, 50280)])
+@pytest.mark.parametrize("T", [1, 8, 40, 128])
+def test_logit_argmax_serving_buckets_match_plain(cuda, dtype, layout, D, V,
+                                                  T):
+    """The serving buckets' T (one T tile of 8-128 columns) against a
+    vocabulary ragged against the 128-wide tile: V = 5003 (rows not
+    16-byte aligned in the [D, V] layout: the plain-load path), V = 2040
+    (aligned, ragged), and mamba2-130m's tied [V, D] head (50,280 x 768).
+    Column 17 ties column V - 3 in every row: the lowest index wins."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    h = torch.randn((T, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((D, V), generator=g, device=cuda)
+         * (2.0 / D ** 0.5)).to(dtype)
+    w[:, 17] = w[:, V - 3]
+    if layout == "vd":
+        w = w.t().contiguous()
+    valid = torch.ones(T, dtype=torch.bool, device=cuda)
+    if T > 1:
+        valid[T // 2] = False                  # one padding row
+    idx, m, s = LA.fused_logit_argmax_call(h, w, valid, w_layout=layout)
+    ri, rm, rs = LA.fused_logit_argmax_plain(h, w, w_layout=layout)
+    torch.cuda.synchronize()
+    z = (h.float() @ (w.float() if layout == "dv" else w.float().t()))
+    top2 = z.topk(2, dim=1).values
+    clear = valid & ((top2[:, 0] - top2[:, 1]) > 1e-3)
+    assert torch.equal(idx[clear], ri[clear])
+    tie = valid & (ri == 17)
+    assert torch.equal(idx[tie], ri[tie])
+    torch.testing.assert_close(m[valid], rm[valid], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s[valid], rs[valid], rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("T,H,P,N", [(96, 3, 8, 16), (320, 5, 64, 64),
                                      (256, 4, 64, 128), (64, 2, 16, 32)])
 def test_ssm_segment_scan_matches_plain(cuda, T, H, P, N):
@@ -258,6 +293,30 @@ def test_flash_refresh_matches_plain(cuda, dtype, tol, G, dh, flags):
     ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, loc, **kw)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dh", FV.HEAD_DIMS)
+@pytest.mark.parametrize("S", [150, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_refresh_bf16_ragged_tail_matches_plain(cuda, dh, S, causal):
+    """The bfloat16 path (the Hopper tile) at every head_dim: a ragged last
+    KV tile (S = 150), a request whose valid keys end 37 before S, one with
+    holes, and one with no valid key (averages V over all S keys)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, K, bf = 3, 2, torch.bfloat16
+    q = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    valid = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    valid[0, S - 37:] = False
+    valid[1] = torch.rand(S, generator=g, device=cuda) < 0.7
+    valid[2] = False
+    out = FR.flash_refresh_call(q, k, v, pos, pos, valid, causal=causal)
+    ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, False,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
