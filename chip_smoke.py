@@ -20,7 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      call's where one computes the same function (a yardstick the port
      never calls), the least time the card could take (bound_ms) and, for
      the logit and flash_refresh kernels, the achieved rate (TB/s of the
-     head, TFLOP/s);
+     head, TFLOP/s); for the varlen kernels the split count of their
+     split-KV grid, the device time alone of the kernel and of the library
+     call (calls queued behind a sleep kernel), the achieved rate from it
+     (TFLOP/s of flash_varlen, TB/s of flash_varlen_cross), the wrapper's
+     host µs a call, and the cross kernel's device time at other split
+     counts;
   4. a small end-to-end check: three iterations of reduced llada-8b and of
      reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
      sparse-dllm (the padded path), on the card against the same iterations
@@ -56,6 +61,7 @@ import torch  # noqa: E402
 PEAK_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # long logs
+SLEEP_CYCLES = 40_000_000         # ~20 ms of device backlog at H100 clocks
 
 
 def log(msg: str) -> None:
@@ -69,19 +75,39 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``iters`` calls, CUDA events around a loop
+    the host enqueues: where the host's enqueue of a call outlasts its
+    device work, this reads the host. With ``queued`` the calls wait behind
+    a sleep kernel, so the device runs them back to back and the events
+    time its work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds to enqueue one call of ``fn`` (no sync inside)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bound(ops: float, nbytes: float, dtype) -> tuple:
@@ -109,6 +135,7 @@ def stream(lens, pad, dev):
 # ---------------------------------------------------------------------------
 
 def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_varlen as FV
     if small:
         # small float32, GQA G=2, every mask flag, ragged tile edges
@@ -155,19 +182,27 @@ def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
         mask = mask & (pos[:, None] >= pos[None, :])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = sum(n * (n + 1) // 2 if causal else n * n for n in lens)
-    b, by = bound(4.0 * pairs * cfg.n_heads * dh,
-                  nbytes(q, k, v, seg, pos, valid) + K * T * G * dh * 4, bf)
+    ops = 4.0 * pairs * cfg.n_heads * dh
+    b, by = bound(ops, nbytes(q, k, v, seg, pos, valid) + K * T * G * dh * 4,
+                  bf)
+    dev_ms = time_ms(call, queued=True)
+
+    def library():
+        return sdpa(q[None], k[None], v[None], attn_mask=mask)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:97",
         max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q[None], k[None], v[None],
-                                        attn_mask=mask)))
+        library_ms=time_ms(library),
+        splits=FV.kv_splits(T * G, K, T, build.sm_count(dev)),
+        device_ms=dev_ms, library_device_ms=time_ms(library, queued=True),
+        tflop_s=ops / dev_ms / 1e9, host_us=host_us(call))
 
 
 def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
                              small=True):
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_varlen as FV
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -224,14 +259,28 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
         ops = 4.0 * int(mask.sum()) * G * dh
     else:
         ops = 4.0 * R * Sb * (retain + Sb) * cfg.n_heads * dh
-    b, by = bound(ops, nbytes(*args) + q.numel() * 4, bf)
+    moved = nbytes(*args) + q.numel() * 4
+    b, by = bound(ops, moved, bf)
+    splits = FV.kv_splits(q.shape[1], K, k.shape[1], build.sm_count(dev))
+    # the kernel at other split counts than the chooser's, for PERF.md
+    sweep = [[s, time_ms(lambda s=s: FV._launch(
+        FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid,
+        k.shape[1], False, 0.0, causal, 0, splits=s), queued=True)]
+        for s in sorted({1, 2, 3, 4, splits, 2 * splits})]
+    dev_ms = time_ms(call, queued=True)
+
+    def library():
+        return sdpa(q[None], k[None], v[None], attn_mask=mask[None])
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:220",
         max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q[None], k[None], v[None],
-                                        attn_mask=mask[None])))
+        library_ms=time_ms(library), device_ms=dev_ms,
+        library_device_ms=time_ms(library, queued=True),
+        splits=splits, tb_s=moved / dev_ms / 1e9,
+        host_us=host_us(call),
+        ms_by_splits=sweep)
 
 
 def check_head_score(dev, g, cfg, serve, small=True):
@@ -867,8 +916,11 @@ def main() -> int:
                                       if isinstance(v, dict)]:
             lib = ("none" if x["library_ms"] is None
                    else f"{x['library_ms']:.4f}")
-            rate = "".join(f" {k}={x[k]:.4f}" for k in ("tflop_s", "w_tb_s")
-                           if k in x)
+            rate = "".join(f" {k}={x[k]:.4f}" for k in (
+                "device_ms", "library_device_ms", "tflop_s", "w_tb_s", "tb_s",
+                "host_us") if k in x)
+            rate += "".join(f" {k}={x[k]}" for k in ("splits", "ms_by_splits")
+                            if k in x)
             log(f"  {name}{shape}: kernel_ms={x['ms']:.4f} "
                 f"plain_ms={x['plain_ms']:.4f} library_ms={lib} "
                 f"bound_ms={x['bound_ms']:.4f} ({x['bound_by']}){rate}")

@@ -16,6 +16,7 @@ kernel launches, ``plain_calls`` the calls its plain PyTorch version served
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,9 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu, in argument order
 SIGNATURES = {
-    # q k v o q_pos q_seg kv_pos kv_seg kv_valid | K RG G Tq Tkv
-    # kv_head_stride dh dtype | scale softcap | causal window is_local | stream
-    "repro_flash_varlen": [P] * 9 + [I] * 8 + [F, F] + [I, I, I] + [P],
+    # q k v o q_pos q_seg kv_pos kv_seg kv_valid ws | K RG G Tq Tkv
+    # kv_head_stride dh dtype | scale softcap | causal window is_local splits
+    # | stream
+    "repro_flash_varlen": [P] * 10 + [I] * 8 + [F, F] + [I] * 4 + [P],
     # q k seg out | R K Rq T dh dtype | stream
     "repro_head_score_varlen": [P] * 4 + [I] * 6 + [P],
     # q k out | B K Rq S dh dtype | stream
@@ -53,6 +55,7 @@ SIGNATURES = {
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+H100_SMS = 132        # the SM count kernels size their grids by off the card
 
 
 class Counter:
@@ -169,6 +172,22 @@ def dtype_code(t) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once a device)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def require_tma(name: str, *tensors) -> None:
+    """TMA reads a tensor from a 16-byte aligned base (its rows are whole
+    16-byte units at every head_dim the kernels take)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bfloat16 kernel loads by TMA and "
+                             f"needs 16-byte aligned tensors")
 
 
 def require_cuda(name: str, *tensors) -> None:

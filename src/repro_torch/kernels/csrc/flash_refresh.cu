@@ -29,10 +29,10 @@
 // and output element went through shared memory with a row-serial softmax
 // (now register fragments, quad shuffles and one normalisation).
 // float32 inputs (a parity path on the card: reduced configs, TF32 off)
-// stay on attn_tile.cuh's tile, dispatched by dtype below; so do the varlen
-// and packed attention kernels (flash_varlen.cu, packed_flash_attention.cu).
-// Keys past S take the logit -inf, so a ragged last tile never enters Σp;
-// no KV tile is skipped (positions are data, not known to ascend).
+// stay on attn_tile.cuh's tile, dispatched by dtype below.
+// Every CTA's key window is the whole stream, [0, S): keys past S take the
+// logit -inf, so a ragged last tile never enters Σp; no KV tile is skipped
+// (positions are data, not known to ascend).
 
 #include "attn_sm90.cuh"
 #include "attn_tile.cuh"
@@ -122,20 +122,26 @@ struct Launch {
 
 // ---- bfloat16: the Hopper tile ----
 
-// The problem of attn_sm90.cuh: stream bh = b·K + head; a key's metadata
-// is (kv_pos, kv_valid), a row's datum its token's position.
+// The problem of attn_sm90.cuh: stream bh = b·K + head; a key's datum is
+// its position, its validity kv_valid; a row's datum its token's position.
 struct RefreshProb {
-  int rows, keys;               // RG, S
+  using Key = int;
+  using Row = int;
   float scale, softcap;
-  float* o;                     // [B·K, RG, dh]
+  int rows, keys;               // RG, S
   const int* q_pos;             // [B, Sq]
   const int* kv_pos;            // [B, S]
   const uint8_t* kv_valid;      // [B, S]
   int K, G, Sq, causal, window, is_local;
 
-  __device__ int2 key_meta(int bh, int key) const {
-    const size_t i = (size_t)(bh / K) * keys + key;
-    return make_int2(kv_pos[i], (int)kv_valid[i]);
+  __device__ int2 key_window(const repro::sm90::Job&, int) const {
+    return make_int2(0, keys);
+  }
+  __device__ int key_datum(int bh, int key) const {
+    return kv_pos[(size_t)(bh / K) * keys + key];
+  }
+  __device__ bool key_valid(int bh, int key) const {
+    return kv_valid[(size_t)(bh / K) * keys + key];
   }
   __device__ int row_info(int bh, int row) const {
     return row < rows ? q_pos[(size_t)(bh / K) * Sq + row / G] : 0;
@@ -148,15 +154,20 @@ struct RefreshProb {
   }
 };
 
+// One CTA: 128 rows of stream (b, head) against all S keys, normalised.
 template <int DH>
 __global__ void __launch_bounds__(repro::sm90::NTHREADS, 1)
 refresh_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
-                              const RefreshProb p) {
-  repro::sm90::attention_cta<DH>(&tq, &tk, &tv, p,
-                                 blockIdx.z * p.K + blockIdx.y,
-                                 blockIdx.x * repro::sm90::BM);
+                              const RefreshProb p, float* o) {
+  repro::sm90::Job job;
+  job.bh = blockIdx.z * p.K + blockIdx.y;
+  job.row0 = blockIdx.x * repro::sm90::BM;
+  job.rows = p.rows;
+  job.o = o + (size_t)job.bh * p.rows * DH;
+  job.ml = nullptr;
+  repro::sm90::attention_cta<DH>(&tq, &tk, &tv, p, job);
 }
 
 template <typename T, int DH>
@@ -170,16 +181,16 @@ struct LaunchSm90 {
     if (e != cudaSuccess) return e;
     RefreshProb r;
     r.rows = p.RG; r.keys = p.S; r.scale = p.scale; r.softcap = p.softcap;
-    r.o = p.o; r.q_pos = p.q_pos; r.kv_pos = p.kv_pos;
+    r.q_pos = p.q_pos; r.kv_pos = p.kv_pos;
     r.kv_valid = p.kv_valid; r.K = p.K; r.G = p.G; r.Sq = p.Sq;
     r.causal = p.causal; r.window = p.window; r.is_local = p.is_local;
-    const int smem = H::Smem<DH>::total;
+    const int smem = H::Smem<DH, RefreshProb::Key>::total;
     auto kern = refresh_attention_kernel_sm90<DH>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return e;
     kern<<<dim3((p.RG + H::BM - 1) / H::BM, p.K, B), H::NTHREADS, smem, s>>>(
-        tq, tk, tv, r);
+        tq, tk, tv, r, p.o);
     return cudaGetLastError();
   }
 };

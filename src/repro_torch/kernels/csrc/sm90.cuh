@@ -278,5 +278,21 @@ inline cudaError_t tma_map_3d(CUtensorMap* map, const void* ptr, int inner,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once a device for the
+// kernel whose flags word `done` is (one per kernel, a bit per device).
+template <class Kern>
+inline cudaError_t allow_dynamic_smem(Kern kern, int bytes,
+                                      unsigned* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = 1u << (dev & 31);
+  if (__atomic_load_n(done, __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) __atomic_fetch_or(done, bit, __ATOMIC_RELEASE);
+  return e;
+}
+
 }  // namespace sm90
 }  // namespace repro

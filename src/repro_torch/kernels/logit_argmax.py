@@ -28,7 +28,7 @@ from repro_torch.kernels import build
 ARGMAX = build.counter("fused_logit_argmax")
 V_TILE = 128          # the kernel's vocabulary tile; splits are multiples
 PLAIN_V_CHUNK = 16384
-H100_SMS = 132
+H100_SMS = build.H100_SMS
 
 
 def vocab_split(V: int, n_ctas: int = H100_SMS) -> int:
@@ -87,8 +87,7 @@ def fused_logit_argmax_call(h, w, valid, *, softcap: float = 0.0,
     if valid.dtype != torch.bool:
         raise TypeError(f"{name}: valid must be bool")
     dev = h.device
-    v_split = vocab_split(
-        V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    v_split = vocab_split(V, build.sm_count(dev))
     n_splits = -(-V // v_split)
     part_m = torch.empty((n_splits, T), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, T), dtype=torch.int32, device=dev)

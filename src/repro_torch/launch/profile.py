@@ -33,7 +33,8 @@ from repro_torch.launch.serve import run_serve
 
 SERVE_KW = dict(max_seq_len=256, block_size=8, max_slots=12,
                 max_num_batched_tokens=1024, max_num_logits=128)
-GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",)),
+GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",
+                                           "varlen_merge_kernel")),
           ("packed_flash_attention", ("packed_attention_kernel",)),
           ("flash_refresh", ("refresh_attention_kernel",)),
           ("head_score (varlen + padded)", ("head_score_kernel",)),

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_refresh as FR
+from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
 from repro_torch.kernels import ops as tops
@@ -102,6 +103,87 @@ def test_flash_varlen_cross_plain_matches_jax(H, K, flags):
         _t(q), _t(k), _t(v), q_seg=_t(q_seg), q_pos=_t(q_pos),
         kv_seg=_t(kv_seg), kv_pos=_t(kv_pos), kv_valid=_t(kv_valid), **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("RG,K,Tkv,name", [
+    (96, 32, 1632, "llada-8b Reuse (R=12 Sb=8 Cr=128)"),
+    (192, 32, 1632, "llada-8b Reuse at G=2"),
+    (384, 32, 1632, "llada-8b Reuse at G=4"),
+    (48, 32, 624, "six requests' Reuse"),
+    (1024, 32, 1024, "llada-8b and zamba2-7b Refresh (T=1024)"),
+    (8, 2, 1000, "two heads, one row tile"),
+    (600, 2, 60, "one KV tile"),
+])
+def test_kv_splits_fill_the_card_from_the_shapes(RG, K, Tkv, name):
+    """The split-KV grid: one split when the row tiles fill the 132 SMs
+    (llada-8b's Refresh), else at least one CTA an SM, and never more
+    splits than the stream has KV tiles."""
+    splits = FV.kv_splits(RG, K, Tkv)
+    ctas = -(-RG // FV.BM) * K
+    tiles = -(-Tkv // FV.BK)
+    assert 1 <= splits <= tiles
+    if ctas >= build.H100_SMS:
+        assert splits == 1
+    elif tiles * ctas >= build.H100_SMS:
+        assert ctas * splits >= build.H100_SMS
+    else:
+        assert splits == tiles
+    if name.startswith("llada-8b Reuse"):
+        assert ctas * splits >= 132
+    if name.startswith("llada-8b and"):
+        assert splits == 1
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 20])
+def test_split_merge_law_matches_plain(G, causal, splits):
+    """The bfloat16 kernel's law (row-tile key windows from the segments,
+    even shares of whole KV tiles, partials folded by (max, rescaled Σ))
+    against the whole-row softmax, float32, on a stream whose segments
+    start off the 64-key grid and straddle 128-row tiles; 20 splits leave
+    shares empty."""
+    rng = np.random.default_rng(3)
+    seg, pos, valid = (_t(a) for a in _stream([70, 9, 133, 250, 1], pad=50))
+    T, K, dh = seg.shape[0], 2, 16
+    q = _t(rng.standard_normal((K, T * G, dh)).astype(np.float32))
+    k = _t(rng.standard_normal((K, T, dh)).astype(np.float32))
+    v = _t(rng.standard_normal((K, T, dh)).astype(np.float32))
+    args = (q, k, v, pos, seg, pos.expand(K, T), seg, valid.expand(K, T),
+            False)
+    out = FV.split_merge_plain(*args, splits=splits, causal=causal)
+    ref = FV.varlen_attention_plain(*args, causal=causal)
+    rows = valid.repeat_interleave(G)
+    np.testing.assert_allclose(out[:, rows].numpy(), ref[:, rows].numpy(),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+def test_split_merge_law_empty_window_is_finite(splits):
+    """A cross stream whose last 128-row tile is all PAD_SEG rows while no
+    key carries PAD_SEG: every share of that tile is empty and its rows
+    merge to 0, not NaN; the real rows match the whole-row softmax."""
+    rng = np.random.default_rng(4)
+    R, Sb, Cr, K, dh, pad = 4, 8, 30, 2, 16, 200
+    Tq, Tkv = R * Sb + pad, R * (Cr + Sb)
+    q = _t(rng.standard_normal((K, Tq, dh)).astype(np.float32))
+    k = _t(rng.standard_normal((K, Tkv, dh)).astype(np.float32))
+    v = _t(rng.standard_normal((K, Tkv, dh)).astype(np.float32))
+    q_seg = _t(np.concatenate([np.repeat(np.arange(R), Sb),
+                               np.full(pad, PAD_SEG)]).astype(np.int32))
+    kv_seg = _t(np.repeat(np.arange(R), Cr + Sb).astype(np.int32))
+    q_pos = _t(np.concatenate([np.tile(np.arange(Sb), R) + 40,
+                               np.zeros(pad)]).astype(np.int32))
+    kv_pos = _t(rng.integers(0, 48, (K, Tkv)).astype(np.int32))
+    kv_valid = _t(rng.random((K, Tkv)) < 0.7)
+    args = (q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid, False)
+    out = FV.split_merge_plain(*args, splits=splits)
+    ref = FV.varlen_attention_plain(*args)
+    assert torch.isfinite(out).all()
+    assert (out[:, FV.BM:] == 0).all()
+    real = (q_seg != PAD_SEG).numpy()
+    np.testing.assert_allclose(out[:, real].numpy(), ref[:, real].numpy(),
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("H,K", [(4, 4), (4, 2)])

@@ -17,6 +17,10 @@ apart. The SSD
 scan is float32 on both sides, a token recurrence against the chunked form:
 1e-4 relative to the largest output.
 """
+import hashlib
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -126,6 +130,194 @@ def test_flash_varlen_cross_causal_dh112_matches_plain(cuda, dtype, tol, dh):
                                     kv_valid, False, causal=True)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() < tol
+
+
+def _cross_stream(dev, g, R, Sb, Cr, K, G, dh, pad_rows=0):
+    """A packed Reuse stream: R requests of Sb query tokens against their
+    Cr retained keys (random positions, 60% valid) and their live block
+    (valid, at the block's positions), then pad_rows PAD_SEG query tokens;
+    no key carries PAD_SEG. bfloat16."""
+    Tq, Tkv = R * Sb + pad_rows, R * (Cr + Sb)
+    bf = torch.bfloat16
+    q = torch.randn((K, Tq * G, dh), generator=g, device=dev).to(bf)
+    k = torch.randn((K, Tkv, dh), generator=g, device=dev).to(bf)
+    v = torch.randn((K, Tkv, dh), generator=g, device=dev).to(bf)
+    ar = torch.arange(R, dtype=torch.int32, device=dev)
+    pad = torch.full((pad_rows,), FV.PAD_SEG, dtype=torch.int32, device=dev)
+    q_seg = torch.cat([ar.repeat_interleave(Sb), pad])
+    kv_seg = ar.repeat_interleave(Cr + Sb)
+    blk = torch.arange(Sb, dtype=torch.int32, device=dev).repeat(R) + 200
+    q_pos = torch.cat([blk, torch.zeros_like(pad)])
+    kv_pos = torch.randint(0, 300, (K, Tkv), generator=g, device=dev,
+                           dtype=torch.int32)
+    kv_valid = torch.rand((K, Tkv), generator=g, device=dev) < 0.6
+    kv_valid.view(K, R, Cr + Sb)[:, :, Cr:] = True
+    kv_pos.view(K, R, Cr + Sb)[:, :, Cr:] = blk.view(R, Sb)
+    return q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dh", FV.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("splits", [None, 1])
+def test_flash_varlen_bf16_windows_match_plain(cuda, G, dh, causal, splits):
+    """The bfloat16 Hopper tile on windows that start off the 64-key grid
+    (segments at keys 70, 79, 212, 462) and segments that straddle the
+    128-row tile boundaries, at the chooser's split count (> 1 here: two
+    KV heads leave the card idle) and at one split."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    seg, pos, valid = _stream([70, 9, 133, 250, 1], pad=50, dev=cuda)
+    T, K, bf = seg.shape[0], 2, torch.bfloat16
+    assert FV.kv_splits(T * G, K, T, build.sm_count(cuda)) > 1
+    q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = FV._launch(FV.SELF, q, k, v, pos, seg, pos, seg, valid, 0, False,
+                     0.0, causal, 0, splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T), seg,
+                                    valid.expand(K, T), False, causal=causal)
+    torch.cuda.synchronize()
+    rows = valid.repeat_interleave(G)
+    assert torch.isfinite(out).all()
+    assert (out[:, rows] - ref[:, rows]).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_varlen_cross_bf16_empty_window_is_finite(cuda, splits, G):
+    """A cross stream whose last row tile holds only PAD_SEG rows while no
+    key carries PAD_SEG: that tile's key window is empty, and its rows
+    (junk by contract) are finite; the real rows match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    args = _cross_stream(cuda, g, R=5, Sb=8, Cr=40, K=2, G=G, dh=64,
+                         pad_rows=220)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    assert q.shape[1] > FV.BM and q_seg[FV.BM // G:].eq(FV.PAD_SEG).all()
+    out = FV._launch(FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                     kv_valid, k.shape[1], False, 0.0, False, 0,
+                     splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False)
+    torch.cuda.synchronize()
+    real = (q_seg != FV.PAD_SEG).repeat_interleave(G)
+    assert torch.isfinite(out).all()
+    assert (out[:, real] - ref[:, real]).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("splits", [2, 8, 30])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 112), (4, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_varlen_cross_bf16_splits_match_plain(cuda, splits, G, dh,
+                                                    causal):
+    """Forced split counts over a 3-tile key stream: 8 and 30 splits leave
+    shares empty (their partials are (0, -inf, 0) and fold to nothing)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    args = _cross_stream(cuda, g, R=3, Sb=8, Cr=40, K=2, G=G, dh=dh)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    out = FV._launch(FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                     kv_valid, k.shape[1], False, 0.0, causal, 0,
+                     splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False, causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_varlen_cross_llada_reuse_shape_matches_plain(cuda, G, causal):
+    """llada-8b's packed Reuse: 12 requests of an 8-token block against
+    128 retained keys each, K = 32, dh = 128, at the chooser's splits."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    args = _cross_stream(cuda, g, R=12, Sb=8, Cr=128, K=32, G=G, dh=128)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    splits = FV.kv_splits(q.shape[1], 32, k.shape[1], build.sm_count(cuda))
+    assert -(-q.shape[1] // FV.BM) * 32 * splits >= build.sm_count(cuda)
+    out = FV.flash_varlen_cross_call(*args, causal=causal)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False, causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
+def test_varlen_wrappers_refuse_what_the_tile_cannot_take(cuda):
+    """The bfloat16 kernel loads by TMA: a base that is not 16-byte aligned
+    raises with the kernel's name (no fallback); float32 takes no split."""
+    seg, pos, valid = _stream([20], pad=0, dev=cuda)
+    buf = torch.zeros(2 * 20 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    odd = buf[1:].view(1, 40, 64)              # 2 bytes past an aligned base
+    z = torch.zeros((1, 20, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="flash_varlen.*16-byte"):
+        FV.flash_varlen_call(odd[:, :20], z, z, pos, seg, valid)
+    zf = z.float()
+    with pytest.raises(ValueError, match="flash_varlen"):
+        FV._launch(FV.SELF, zf, zf, zf, pos, seg, pos, seg, valid, 0, False,
+                   0.0, False, 0, splits=2)
+
+
+REFRESH_FLAGS = {"plain": (dict(), False),
+                 "causal_softcap": (dict(causal=True, softcap=20.0), False),
+                 "window_local": (dict(window=5), True)}
+
+
+def refresh_digests(dev):
+    """sha256 (16 hex digits) of flash_refresh's bfloat16 output at every
+    head_dim and three flag sets: G = 2, S = 150 (a ragged last KV tile),
+    kv_valid holes; inputs from numpy, so any checkout's kernel can be
+    held to the same bytes."""
+    out = {}
+    for dh in FV.HEAD_DIMS:
+        for name, (kw, loc) in REFRESH_FLAGS.items():
+            rng = np.random.default_rng(11)
+            B, K, S, G = 2, 2, 150, 2
+
+            def bf(*shape):
+                x = rng.standard_normal(shape).astype(np.float32)
+                return torch.from_numpy(x).to(torch.bfloat16).to(dev)
+            q, k, v = bf(B, K, S * G, dh), bf(B, K, S, dh), bf(B, K, S, dh)
+            pos = torch.arange(S, dtype=torch.int32).repeat(B, 1).to(dev)
+            valid = torch.from_numpy(rng.random((B, S)) < 0.8).to(dev)
+            o = FR.flash_refresh_call(q, k, v, pos, pos, valid, loc, **kw)
+            out[f"{dh}/{name}"] = hashlib.sha256(
+                o.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+# refresh_digests of the tile before it took key windows (every CTA over
+# all S keys), printed by this file run as a script with PYTHONPATH at that
+# tree's src: NVIDIA H100 80GB HBM3, kernels built for sm_90a by the nvcc
+# release below. Another compiler may schedule the tile's float operations
+# otherwise; take the digests anew from the older tile with it.
+REFRESH_NVCC = "12.9"
+REFRESH_DIGESTS = {
+    "16/plain": "7b5bfb5dfd0a50d7",
+    "16/causal_softcap": "9320ab59d91029ec",
+    "16/window_local": "0a82c33fa056d908",
+    "32/plain": "f75109a04a38f20c",
+    "32/causal_softcap": "d89fe4cbe319b618",
+    "32/window_local": "9f4bc0827a84da86",
+    "64/plain": "ee5e6310c12a6530",
+    "64/causal_softcap": "41924e7866324ec4",
+    "64/window_local": "1fe64a1c858a4bfc",
+    "112/plain": "9bd926d94a32806f",
+    "112/causal_softcap": "2530ccdaeb904e69",
+    "112/window_local": "8e79e4fded7a5f28",
+    "128/plain": "6a2399cd0fc37661",
+    "128/causal_softcap": "7d40fdb6d6150a83",
+    "128/window_local": "10ddfb66c101c892",
+}
+
+
+def test_flash_refresh_bf16_bit_identical_to_the_full_window_tile(cuda):
+    """flash_refresh passes the window [0, S) to the windowed tile and
+    must give the bytes the tile gave before it took windows."""
+    out = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                         text=True).stdout
+    release = re.search(r"release (\d+\.\d+)", out)
+    if release is None or release.group(1) != REFRESH_NVCC:
+        pytest.skip(f"the digests hold for nvcc {REFRESH_NVCC}: take them "
+                    f"anew from the older tile with this toolkit")
+    assert refresh_digests(cuda) == REFRESH_DIGESTS
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -365,3 +557,9 @@ def test_launches_are_counted(cuda):
     for name in ("packed_flash_attention", "flash_refresh", "head_score"):
         c = build.COUNTERS[name]
         assert (c.launches, c.plain_calls) == (1, 0), name
+
+
+if __name__ == "__main__":
+    # the digests of whichever package PYTHONPATH names, for REFRESH_DIGESTS
+    import json
+    print(json.dumps(refresh_digests(torch.device("cuda")), indent=1))
