@@ -20,21 +20,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      call's where one computes the same function (a yardstick the port
      never calls), the least time the card could take (bound_ms) and, for
      the logit and flash_refresh kernels, the achieved rate (TB/s of the
-     head, TFLOP/s); for the varlen kernels the split count of their
-     split-KV grid, the device time alone of the kernel and of the library
-     call (calls queued behind a sleep kernel), the achieved rate from it
-     (TFLOP/s of flash_varlen, TB/s of flash_varlen_cross), the wrapper's
-     host µs a call, and the cross kernel's device time at other split
-     counts;
+     head, TFLOP/s); for the varlen kernels, packed_flash_attention and the
+     SSD scan the device time alone of the kernel (and of the library call
+     where there is one: calls queued behind a sleep kernel) and the
+     wrapper's host µs a call; for the varlen kernels also the split count
+     of their split-KV grid, the achieved rate (TFLOP/s of flash_varlen,
+     TB/s of flash_varlen_cross) and the cross kernel's device time at
+     other split counts;
   4. a small end-to-end check: three iterations of reduced llada-8b and of
      reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
      sparse-dllm (the padded path), on the card against the same iterations
      on the CPU (the plain versions);
-  5. serve: run_serve of the full llada-8b, the full zamba2-7b and the full
+  5. footprint: each llada-8b system's memory plan (the offline profiler)
+     at 24 GB and at the card's memory, and the logit stage's peak bytes
+     measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
+     serve: run_serve of the full llada-8b, the full zamba2-7b and the full
      mamba2-130m (random bfloat16 weights from a seed) through the
      dllm-serve profile, and of the full llada-8b through the three
      baselines fast-dllm, dllm-cache and sparse-dllm (the padded path), with
-     the kernels, on the wall clock; then one padded prefill of the full
+     the kernels, on the wall clock, each sized by the offline profiler at
+     the card's memory (its plan logged); then one padded prefill of the full
      llada-8b through the flash_refresh kernel, held against the same call
      without it. Each path runs with the launch counts zeroed just before
      it and read just after; every request must finish, every kernel of the
@@ -43,6 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 alone and prints the kernels line without launch counts and
+without the result line: copied into another checkout, it times that
+tree's kernels by this script's method.
 """
 from __future__ import annotations
 
@@ -410,12 +421,13 @@ def check_logit_argmax(dev, g, cfg, serve, tied):
 
 
 def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
-    """float32 on both sides: the kernel's token recurrence against the
-    plain version's chunked form; tolerance 1e-4 relative to the largest
-    output (the two sum the same terms in other orders)."""
+    """float32 on both sides: the kernel's chunked form on the tensor cores
+    (3xTF32, chunks of 64 tokens) against the plain version's chunked form
+    at other chunkings; tolerance 1e-4 relative to the largest output (the
+    two sum the same terms in other orders)."""
     from repro_torch.kernels import ssm_scan as SS
 
-    def case(lens, pad, H, P, N, block_starts):
+    def case(lens, pad, H, P, N, block_starts, resets=(), caps=()):
         seg, pos, _ = stream(lens, pad, dev)
         T = seg.shape[0]
         xdt = torch.randn((T, H, P), generator=g, device=dev)
@@ -425,8 +437,10 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
         Cm = torch.randn((T, N), generator=g, device=dev)
         cu = [sum(lens[:j]) for j in range(len(lens))]
         cap = [c + b - 1 if b > 0 else -1 for c, b in zip(cu, block_starts)]
-        return (xdt, dA, Bm, Cm, (pos == 0).float(),
-                torch.tensor(cap, dtype=torch.int32, device=dev))
+        reset = (pos == 0).float()
+        reset[list(resets)] = 1.0
+        return (xdt, dA, Bm, Cm, reset,
+                torch.tensor(cap + list(caps), dtype=torch.int32, device=dev))
 
     def compare(args, chunk):
         got = SS.ssm_segment_scan_call(*args, chunk=chunk)
@@ -434,17 +448,27 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         scale = max(1.0, max(b.abs().max().item() for b in want))
         assert err < 1e-4 * scale, (err, scale)
-        zero = args[5] < 0
-        assert not got[1][zero].any(), "a -1 capture is not zero"
+        T = args[0].shape[0]
+        zero = (args[5] < 0) | (args[5] >= T)
+        assert not got[1][zero].any(), "a capture outside the stream is not 0"
         return err, scale
 
     # small: resets inside chunks and on their edges, captures at -1, at
     # chunk edges and inside chunks, at every chunking of the plain version
+    # (T = 96 leaves the kernel a ragged second chunk)
     args = case([40, 9, 33, 1], 13, 3, 8, 16, [24, 0, 8, 0])
     for chunk in (8, 16, 32, 96):
         err, scale = compare(args, chunk)
         log(f"  ssm_segment_scan f32 T=96 chunk={chunk}: max_abs_err="
             f"{err:.3g} (tol 1e-4 x {scale:.3g})")
+    # a ragged T = 200 at N = 128: resets on the first and the last row of
+    # the kernel's second chunk, captures at -1, on the chunk edges 63/64,
+    # inside a chunk, at T - 1 and past T
+    args = case([150, 50], 0, 4, 64, 128, [100, 20], resets=(64, 127),
+                caps=(-1, 63, 64, 199, 205))
+    err, scale = compare(args, 8)
+    log(f"  ssm_segment_scan f32 T=200 N=128 resets at 64, 127: "
+        f"max_abs_err={err:.3g} (tol 1e-4 x {scale:.3g})")
     out = {}
     lens = [256, 250, 240, 230]
     T = serve.max_num_batched_tokens
@@ -458,13 +482,15 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
         b, by = bound(4.0 * T * H * P * N,
                       nbytes(*args) + 4 * (T * H * P + (R + 1) * H * P * N),
                       torch.float32)
+        call = lambda args=args: SS.ssm_segment_scan_call(*args)  # noqa
         out[cfg.name] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/ssm_scan.cu",
             replaces="src/repro/kernels/ssm_scan.py:128", max_abs_err=err,
-            ms=time_ms(lambda: SS.ssm_segment_scan_call(*args)),
+            ms=time_ms(call),
             plain_ms=time_ms(lambda: SS.ssm_segment_scan_plain(*args),
                              iters=3),
-            bound_ms=b, bound_by=by, library_ms=None)
+            bound_ms=b, bound_by=by, library_ms=None,
+            device_ms=time_ms(call, queued=True), host_us=host_us(call))
     main_row = out.pop(zamba.name)
     return dict(main_row, **out)
 
@@ -472,11 +498,13 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
 def check_packed_flash_attention(dev, g, cfg, retains):
     """Row 6 at small float32 shapes with every flag (GQA rows reading mask
     row r // G, a one-row mask, softcap, a fully masked head, ragged KV
-    tiles), then at llada-8b's padded Reuse in bfloat16: B = 16 (the pow2
-    bucket of 12 slots), K = 32, Sb = 8, the retained T of each baseline
-    and the engine's one-row mask. Tolerances: m to 1e-4; s and o relative
-    to the row sums, 1e-4 (float32) and 2e-2 (bfloat16: P rounded before
-    P·V)."""
+    tiles) on the first tile; at small bfloat16 shapes on the Hopper tile
+    (R = 8, 16, 64 rows, Sm = 1 or Sb, softcap, head dims 64 and 112, T =
+    40 and 1000, a fully masked head); then at llada-8b's padded Reuse in
+    bfloat16: B = 16 (the pow2 bucket of 12 slots), K = 32, Sb = 8, the
+    retained T of each baseline and the engine's one-row mask. Tolerances:
+    m to 1e-4; s and o relative to the row sums, 1e-4 (float32) and 2e-2
+    (bfloat16: P rounded before P·V)."""
     from repro_torch.kernels import flash_attention as FA
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -496,14 +524,20 @@ def check_packed_flash_attention(dev, g, cfg, retains):
         assert err < tol, err
         return err, (m, s)
 
-    for G, Sm in ((2, 8), (1, 1), (4, 8)):
-        args = case(3, 2, 8 * G, 200, Sm, 64, torch.float32, 0.6)
-        args[3][1, 0] = False
-        for softcap in (0.0, 30.0):
-            err, (m, s) = err_of(args, softcap, 1e-4)
-            assert (m[1, 0] == -1e30).all() and (s[1, 0] == 200).all()
-            log(f"  packed_flash_attention f32 G={G} Sm={Sm} T=200 softcap="
-                f"{softcap}: max_err={err:.3g} (tol 1e-4 rel.)")
+    for dtype, tol, shapes in (
+            (torch.float32, 1e-4, ((2, 8, 200, 64), (1, 1, 200, 64),
+                                   (4, 8, 200, 64))),
+            (torch.bfloat16, 2e-2, ((1, 8, 40, 64), (2, 1, 1000, 112),
+                                    (8, 8, 1000, 64), (8, 1, 40, 112)))):
+        for G, Sm, T, dh in shapes:
+            args = case(3, 2, 8 * G, T, Sm, dh, dtype, 0.6)
+            args[3][1, 0] = False
+            for softcap in (0.0, 30.0):
+                err, (m, s) = err_of(args, softcap, tol)
+                assert (m[1, 0] == -1e30).all() and (s[1, 0] == T).all()
+                log(f"  packed_flash_attention {str(dtype)[6:]} R={8 * G} "
+                    f"Sm={Sm} T={T} dh={dh} softcap={softcap}, a fully "
+                    f"masked head: max_err={err:.3g} (tol {tol} rel.)")
     out = {}
     K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
     B, Sb = 16, 8
@@ -522,16 +556,23 @@ def check_packed_flash_attention(dev, g, cfg, retains):
         pairs = int(mask.sum()) * R
         b, by = bound(4.0 * pairs * dh,
                       nbytes(q, k, v, mask) + B * K * R * (dh + 2) * 4, bf)
+        call = lambda args=args: FA.packed_flash_attention_call(*args)  # noqa
+
+        def library(q=q, k=k, v=v, full=full):
+            return sdpa(q, k, v, attn_mask=full)
         out[f"T={T}"] = dict(
             route="cuda",
             source="src/repro_torch/kernels/csrc/packed_flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:70",
             max_abs_err=err,
-            ms=time_ms(lambda: FA.packed_flash_attention_call(*args)),
+            ms=time_ms(call),
             plain_ms=time_ms(lambda: FA.packed_attention_plain(*args),
                              iters=5),
             bound_ms=b, bound_by=by,
-            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=full)))
+            library_ms=time_ms(library),
+            device_ms=time_ms(call, queued=True),
+            library_device_ms=time_ms(library, queued=True),
+            host_us=host_us(call))
     main_row = out.pop(f"T={next(iter(by_T))}")
     return dict(main_row, **out)
 
@@ -711,20 +752,42 @@ PATH_KERNELS = {
 }
 
 
-def serve_full(arch, system, n_req, serve_kw, card):
-    """run_serve of the full arch under a system with the launch counts
-    zeroed just before and read just after; returns the counts."""
+def serve_plan(arch, system, serve_kw, hbm_gb):
+    """The plan run_serve sizes a kernels serve with (its own helper on the
+    same ServeConfig)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.baselines import system_profiles
+    from repro_torch.launch.serve import profile_slots
+
+    base = ServeConfig(max_refresh_per_iter=4, pipeline=False, **serve_kw)
+    serve = dataclasses.replace(system_profiles(base)[system],
+                                use_flash_kernel=True, logit_mode="fused")
+    plan, _ = profile_slots(get_config(arch), serve, serve_kw["max_slots"],
+                            hbm_gb)
+    return plan
+
+
+def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
+    """run_serve of the full arch under a system, its slots sized by the
+    offline profiler at the card's memory, with the launch counts zeroed
+    just before and read just after; returns the counts."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import run_serve
 
+    plan = serve_plan(arch, system, serve_kw, hbm_gb)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_counters()
     res = run_serve(arch, system, "livebench", 50.0, n_req,
                     use_reduced=False, kernels=True, clock="wall",
-                    size_by_profiler=False, device="cuda", **serve_kw)
+                    size_by_profiler=True, hbm_gb=hbm_gb, device="cuda",
+                    **serve_kw)
     counts = {n: (c.launches, c.plain_calls)
               for n, c in build.COUNTERS.items()}
+    assert res["plan_slots_logical"] == plan.max_slots, (res, plan)
+    assert res["max_slots"] == plan.phys_slots, (res, plan)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     keep = ("n_finished", "n_submitted", "committed_tokens", "iterations",
@@ -733,9 +796,11 @@ def serve_full(arch, system, n_req, serve_kw, card):
             "sync_wait_s", "warmup_s", "refresh_tokens_real",
             "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec",
             "refresh_waste", "reuse_waste", "padded_refresh_calls",
-            "padded_reuse_calls")
+            "padded_reuse_calls", "max_slots", "plan_slots_logical",
+            "plan_slots_phys", "plan_slot_bytes")
     log(json.dumps(dict(phase="serve", arch=arch, system=system,
-                        **{k: res[k] for k in keep},
+                        **{k: res[k] for k in keep}, hbm_gb=hbm_gb,
+                        plan=plan.summary(),
                         max_memory_allocated=peak, launches=counts)))
     tag = arch if system == "dllm-serve" else f"{arch}_{system}"
     with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{tag}.json"),
@@ -749,6 +814,46 @@ def serve_full(arch, system, n_req, serve_kw, card):
         assert plain == 0, f"{arch} {system}: {plain} plain-version calls " \
             f"of {name}"
     return {n: launches for n, (launches, _) in counts.items()}
+
+
+def footprint(dev, hbm_gb):
+    """The C1 footprint: each llada-8b system's plan (its profile's own
+    logit mode) at the reference's 24 GB and at the card's memory, at the
+    plan geometry; then the logit stage's measured peak in each C1 mode at
+    128 and 4000 rows beside the profiler's bill for it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core import budgeting as BG
+    from repro_torch.core.baselines import system_profiles
+    from repro_torch.launch.serve import PLAN_GEOMETRY
+
+    cfg = get_config("llada-8b")
+    profiles = system_profiles(ServeConfig(
+        block_size=8, steps_per_block=8, max_slots=12,
+        max_refresh_per_iter=4, pipeline=False, **PLAN_GEOMETRY))
+    for system, serve in profiles.items():
+        for gb in (24, hbm_gb):
+            plan = BG.plan_memory(cfg, serve, gb << 30)
+            log(json.dumps(dict(phase="footprint", arch=cfg.name,
+                                system=system, logit_mode=serve.logit_mode,
+                                hbm_gb=gb, slots=plan.max_slots,
+                                slot_bytes=plan.slot_bytes,
+                                logit_bytes=plan.logit_bytes,
+                                plan=plan.summary())))
+    serve = profiles["dllm-serve"]
+    for n in (128, 4000):
+        torch.cuda.empty_cache()
+        peak = BG.measure_logit_peak(cfg, serve, n, device=dev)
+        billed = {m: BG.logit_activation_bytes(
+            cfg, dataclasses.replace(serve, logit_mode=m), n) for m in peak}
+        log(json.dumps(dict(phase="footprint", arch=cfg.name, rows=n,
+                            rows_billed=BG.logit_exec_tokens(serve, n),
+                            max_num_logits=serve.max_num_logits,
+                            measured_peak_bytes=peak,
+                            logit_activation_bytes=billed)))
+        assert all(v > 0 for v in peak.values()), peak
+    torch.cuda.empty_cache()
 
 
 def prefill_full(dev, serve):
@@ -838,7 +943,8 @@ def prefill_full(dev, serve):
     return {n: c for n, (c, _) in counts.items()}
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = "--kernels-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA card", file=sys.stderr)
@@ -925,6 +1031,13 @@ def main() -> int:
                 f"plain_ms={x['plain_ms']:.4f} library_ms={lib} "
                 f"bound_ms={x['bound_ms']:.4f} ({x['bound_by']}){rate}")
     log(f"phase kernels: {time.perf_counter() - t0:.3f} s")
+    if kernels_only:
+        # the kernel phase alone, for timing another tree's kernels with
+        # this script's method: no serve, so no launch counts, no result
+        print(json.dumps({"kernels": [dict(name=n, **r)
+                                      for n, r in results.items()]}))
+        print(card)
+        return 0
 
     # 4. small end-to-end checks
     t0 = time.perf_counter()
@@ -934,8 +1047,13 @@ def main() -> int:
         check_reduced_iteration(dev, arch, system)
     log(f"phase reduced-check: {time.perf_counter() - t0:.3f} s")
 
-    # 5. serve the full models through the kernels, each path counted alone
+    # 5. the C1 footprint, then serve the full models through the kernels,
+    # each path counted alone, their slots sized at the card's memory
     del g
+    hbm_gb = torch.cuda.get_device_properties(0).total_memory >> 30
+    t0 = time.perf_counter()
+    footprint(dev, hbm_gb)
+    log(f"phase footprint: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
     for arch, system, n_req in (("llada-8b", "dllm-serve", 8),
                                 ("zamba2-7b", "dllm-serve", 8),
@@ -944,7 +1062,7 @@ def main() -> int:
                                 ("llada-8b", "dllm-cache", 8),
                                 ("llada-8b", "sparse-dllm", 8)):
         t0 = time.perf_counter()
-        counts = serve_full(arch, system, n_req, serve_kw, card)
+        counts = serve_full(arch, system, n_req, serve_kw, card, hbm_gb)
         for name in PATH_KERNELS[(arch, system)]:
             launches[name][f"{arch} {system}"] = counts[name]
         log(f"phase serve {arch} {system}: {time.perf_counter() - t0:.3f} s")
@@ -973,4 +1091,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

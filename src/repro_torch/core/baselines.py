@@ -2,13 +2,17 @@
 profiles, as in ``repro.core.baselines``. Every system runs through the same
 Engine, so differences come only from the policies the paper varies:
 scheduler granularity, KV selection, refresh cadence, logit handling, and
-padded versus token-packed execution (``varlen_pack``)."""
+padded versus token-packed execution (``varlen_pack``). Slot capacity per
+system comes from the offline profiler (:func:`size_slots`): systems that
+reserve a monolithic logit buffer or keep dense caches fit fewer concurrent
+requests in the same memory."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ServeConfig
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.core.budgeting import plan_memory
 
 
 def system_profiles(base: ServeConfig) -> Dict[str, ServeConfig]:
@@ -41,3 +45,11 @@ def ablation_profiles(base: ServeConfig) -> Dict[str, ServeConfig]:
     budget = r(sched, logit_mode="chunked")               # + logit budgeting
     return {"baseline": baseline, "+engine": engine,
             "+scheduler": sched, "+budgeting": budget}
+
+
+def size_slots(cfg: ModelConfig, serve: ServeConfig,
+               hbm_bytes: int) -> ServeConfig:
+    """Clamp ``max_slots`` to what the profiler says fits ``hbm_bytes``
+    (at least one slot)."""
+    fit = plan_memory(cfg, serve, hbm_bytes).max_slots
+    return dataclasses.replace(serve, max_slots=max(1, fit))

@@ -50,8 +50,9 @@ SIGNATURES = {
     # h w valid part_m part_idx part_s idx m s | T D V v_split n_splits
     # w_layout_vd dtype | softcap | stream
     "repro_logit_argmax": [P] * 9 + [I] * 7 + [F] + [P],
-    # xdt dA B C reset cap_rows y captured final | T H P N R | stream
-    "repro_ssm_segment_scan": [P] * 9 + [I] * 5 + [P],
+    # xdt dA B C reset cap_rows y captured final states carry gram | T H P
+    # N R | stream
+    "repro_ssm_segment_scan": [P] * 12 + [I] * 5 + [P],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

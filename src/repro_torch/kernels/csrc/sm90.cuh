@@ -1,10 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's redesigned kernels
-// (attn_sm90.cuh's attention tile, logit_argmax.cu): mbarriers, TMA loads
-// and the host-side TMA maps, wgmma descriptors and products.
+// (attn_sm90.cuh's attention tile, logit_argmax.cu, packed_flash_attention.cu,
+// ssm_scan.cu): mbarriers, TMA loads and the host-side TMA maps, wgmma
+// descriptors and products; cp.async copies and the warp-level mma.sync
+// products (bf16 m16n8k16, tf32 m16n8k8 with a 3xTF32 split) for tiles too
+// narrow for a 64-row wgmma.
 #pragma once
 
 #include <cuda.h>
 #include <dlfcn.h>
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -232,6 +237,127 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
 }
 
 // ---------------------------------------------------------------------------
+// cp.async copies and warp-level products (mma.sync)
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared; `bytes` < 16 zero-fills the rest (0: all zero,
+// `src` is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; `trans` hands each thread the transpose
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+               "[%4];\n" : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n" : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]),
+               "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// the transpose of an 8x8 b16 matrix held one 32-bit pair a thread
+// (thread l: row l / 4, columns 2(l % 4), +1)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d) : "r"(a));
+  return d;
+}
+
+// D[16 x 8] += A[16 x 16] · B[16 x 8], bf16 in, f32 accumulate. Thread l
+// (g = l / 4, t = l % 4) holds a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo, each a tf32 value: the 3xTF32 split. hi keeps x's top 10
+// mantissa bits (truncated, so x - hi is exact in float32) and lo the next
+// 10 or 11: hi + lo is x to ~2^-20 relative.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// D[16 x 8] += A[16 x 8] · B[8 x 8] in tf32, f32 accumulate. Thread l
+// (g, t as above) holds a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
+// b = {B[t][g], B[t+4][g]}, d as in mma_bf16_16816.
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[16 x 8·NT] += A[16 x K] · B[K x 8·NT] over k in [k0, k1) (multiples
+// of 8) and the first `nv` column tiles, float32 operands through the
+// 3xTF32 split (a_hi·b_hi + a_hi·b_lo + a_lo·b_hi: products to ~2^-19
+// relative, where one tf32 product keeps ~2^-11). `a(i, k)` and `b(k, n)`
+// read the operands (shared memory, with any scaling or mask folded in);
+// each warp calls it for its own tile. The next step's operands load while
+// this step's products run.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4], int nv, int k0,
+                                          int k1, FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float ar[4], br[NT][2];
+  auto load = [&](int k) {
+    ar[0] = a(g, k + t);
+    ar[1] = a(g + 8, k + t);
+    ar[2] = a(g, k + t + 4);
+    ar[3] = a(g + 8, k + t + 4);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nv) {
+        br[j][0] = b(k + t, 8 * j + g);
+        br[j][1] = b(k + t + 4, 8 * j + g);
+      }
+    }
+  };
+  if (k0 < k1) load(k0);
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(ar[e], ah[e], al[e]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_tf32(br[j][0], bh[j][0], bl[j][0]);
+      split_tf32(br[j][1], bh[j][1], bl[j][1]);
+    }
+    if (k + 8 < k1) load(k + 8);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nv) break;
+      mma_tf32_1688(acc[j], al, bh[j]);
+      mma_tf32_1688(acc[j], ah, bl[j]);
+      mma_tf32_1688(acc[j], ah, bh[j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: TMA maps, made in the C entry point at each launch
 // ---------------------------------------------------------------------------
 
@@ -291,6 +417,24 @@ inline cudaError_t allow_dynamic_smem(Kern kern, int bytes,
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes);
   if (e == cudaSuccess) __atomic_fetch_or(done, bit, __ATOMIC_RELEASE);
+  return e;
+}
+
+// Raise the kernel's dynamic shared memory bound to `bytes` when a launch
+// needs more than it was allowed on this device so far (`allowed`: one
+// entry a device, one array a kernel); the bound only grows.
+template <class Kern>
+inline cudaError_t grow_dynamic_smem(Kern kern, int bytes, int* allowed) {
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) dev = 63;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) allowed[dev] = bytes;
   return e;
 }
 

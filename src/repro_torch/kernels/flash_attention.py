@@ -1,7 +1,10 @@
 """Padded Reuse attention over head-major packed KV with an explicit mask.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
-packed_flash_attention_call`` with ``csrc/packed_flash_attention.cu``.
+packed_flash_attention_call`` with ``csrc/packed_flash_attention.cu``:
+bfloat16 runs a warp per (request, KV head, 8 or 16 query rows) on
+mma.sync with the rows on the narrow side and a cp.async K/V ring a warp;
+float32 (the reduced checks) runs the first tile.
 
 Contract, as in the Pallas kernel: q ``[B, K, R, dh]`` (R = Sb·G query rows
 per KV head, row = sb·G + g), k/v ``[B, K, T, dh]`` (the request's packed
@@ -61,6 +64,11 @@ def packed_flash_attention_call(q, k, v, mask, *, softcap: float = 0.0):
                          f"mask{tuple(mask.shape)}")
     if mask.dtype != torch.bool:
         raise TypeError(f"{name}: mask must be bool")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(f"{name}: the bfloat16 kernel copies q/k/v 16 "
+                         f"bytes at a time and needs 16-byte aligned "
+                         f"tensors")
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((B, K, R, dh), **f32)
     m = torch.empty((B, K, R), **f32)

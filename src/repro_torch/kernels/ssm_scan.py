@@ -18,7 +18,11 @@ The plain version is the Pallas kernel's chunked SSD math on whole tensors
 (intra-chunk quadratic term under the reset-count mask ``cnt[i] ==
 cnt[j]``, chunk-to-chunk state carry, in-chunk captures); ``chunk`` is a
 tiling choice that y and the captures do not depend on. The CUDA kernel
-(``csrc/ssm_scan.cu``) runs the token recurrence and ignores ``chunk``.
+(``csrc/ssm_scan.cu``) computes the same chunked form on the tensor cores
+(3xTF32) in its own chunks of 64 tokens, a ragged last one included, and
+ignores ``chunk``: four launches (each chunk's C·Bᵀ, its end states, a pass
+that carries the state over the chunks, each chunk's output and captures)
+that count as one call.
 The wrapper runs the plain version only for CPU tensors; on a CUDA tensor
 it launches the kernel or raises.
 """
@@ -29,7 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 SCAN = build.counter("ssm_segment_scan")
-STATE_DIMS = (16, 32, 64, 128)     # N instances of csrc/ssm_scan.cu
+STATE_DIMS = (16, 32, 64, 128)     # state sizes the kernel takes
+KERNEL_CHUNK = 64                  # tokens a chunk of csrc/ssm_scan.cu
 
 
 def ssm_segment_scan_plain(xdt, dA, Bm, Cm, reset, cap_rows, chunk: int = 64):
@@ -113,13 +118,20 @@ def ssm_segment_scan_call(xdt, dA, Bm, Cm, reset, cap_rows, *,
         raise ValueError(f"{name}: xdt, B and C must be 16-byte aligned "
                          f"(the kernel copies them 16 bytes at a time)")
     dev = xdt.device
-    y = torch.empty((T, H, P), dtype=torch.float32, device=dev)
-    cap = torch.empty((R, H, P, N), dtype=torch.float32, device=dev)
-    final = torch.empty((H, P, N), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((T, H, P), **f32)
+    cap = torch.empty((R, H, P, N), **f32)
+    final = torch.empty((H, P, N), **f32)
+    n_chunks = -(-T // KERNEL_CHUNK)
+    # the kernel's scratch: chunk-end then incoming states, carries, C·B^T
+    states = torch.empty((n_chunks, H, P, N), **f32)
+    carry = torch.empty((n_chunks, H), **f32)
+    gram = torch.empty((n_chunks, KERNEL_CHUNK, KERNEL_CHUNK), **f32)
     code = build.library().repro_ssm_segment_scan(
         xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         reset.data_ptr(), cap_rows.data_ptr(), y.data_ptr(), cap.data_ptr(),
-        final.data_ptr(), T, H, P, N, R,
+        final.data_ptr(), states.data_ptr(), carry.data_ptr(), gram.data_ptr(),
+        T, H, P, N, R,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, name)
     SCAN.launches += 1

@@ -6,7 +6,8 @@
 
 Serves the full arch (default llada-8b; random bfloat16 weights from a
 seed) through a system's profile (default dllm-serve) with the kernels, the
-configuration chip_smoke.py drives, once to warm and once under the
+configuration chip_smoke.py drives (slots sized by the offline profiler at
+the card's memory), once to warm and once under the
 profiler (CUDA
 activity only: the script reads device events alone, and CPU events would
 double the events of a run that enqueues thousands of small ops per
@@ -40,7 +41,7 @@ GROUPS = (("flash_varlen (self + cross)", ("varlen_attention_kernel",
           ("head_score (varlen + padded)", ("head_score_kernel",)),
           ("fused_logit_argmax", ("logit_partial_kernel",
                                   "logit_merge_kernel")),
-          ("ssm_segment_scan", ("ssm_scan_kernel",)),
+          ("ssm_segment_scan", ("ssm_",)),
           ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
           ("memcpy", ("Memcpy", "Memset")))
 
@@ -57,7 +58,9 @@ def profile_serve(arch: str, n: int, seed: int = 0,
     if not torch.cuda.is_available():
         raise RuntimeError("the profile measures the card; no CUDA device")
     kw = dict(use_reduced=False, kernels=True, clock="wall", seed=seed,
-              size_by_profiler=False, device="cuda", **SERVE_KW)
+              size_by_profiler=True, device="cuda",
+              hbm_gb=torch.cuda.get_device_properties(0).total_memory >> 30,
+              **SERVE_KW)
     warm = run_serve(arch, system, "livebench", 50.0, n, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -19,9 +19,12 @@ CPU only. ``--arch`` takes any arch of ``repro_torch.configs.ARCHS``:
 llada-8b, zamba2-7b (hybrid) and mamba2-130m (ssm); the scan families serve
 under dllm-serve with ``--kernels`` only.
 
-Keys whose feature the port does not have yet carry the reference's "off"
-value: ``compile_counts={}``, ``compiles_*=0``, ``mesh_devices=1``,
-``plan_*=None``.
+As in the reference, the offline memory profiler sizes each system's slots
+by default (``size_by_profiler=True`` at ``hbm_gb=24``), planned on the full
+config at the paper's geometry whatever size is served. The one default
+that differs is ``pipeline=False``: the pipelined loop is not ported. Keys
+whose feature the port does not have yet carry the reference's "off" value:
+``compile_counts={}``, ``compiles_*=0``, ``mesh_devices=1``.
 """
 from __future__ import annotations
 
@@ -36,10 +39,27 @@ import numpy as np
 
 from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.configs.base import ServeConfig
-from repro_torch.core.baselines import system_profiles
+from repro_torch.core.baselines import size_slots, system_profiles
+from repro_torch.core.budgeting import plan_memory
 from repro_torch.core.engine import Engine
 from repro_torch.core.request import State
 from repro_torch.data.workloads import make_trace, trace_prompts
+
+
+# the paper's Table 3 geometry, at which the profiler plans every run
+PLAN_GEOMETRY = dict(max_seq_len=2048, max_num_batched_tokens=4000,
+                     max_num_logits=2048)
+
+
+def profile_slots(full_cfg, serve: ServeConfig, max_slots: int, hbm_gb: int):
+    """The offline profiler (§4.2) on the full model at the plan geometry:
+    monolithic logit reservations and dense caches buy fewer slots. Returns
+    the plan and ``serve`` with ``max_slots`` clamped to it."""
+    plan_serve = dataclasses.replace(serve, max_slots=max_slots,
+                                     **PLAN_GEOMETRY)
+    plan = plan_memory(full_cfg, plan_serve, hbm_gb << 30)
+    sized = size_slots(full_cfg, plan_serve, hbm_gb << 30)
+    return plan, dataclasses.replace(serve, max_slots=sized.max_slots)
 
 
 def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
@@ -48,7 +68,7 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               steps_per_block: int = 8, max_slots: int = 12,
               max_num_batched_tokens: int = 1024, max_num_logits: int = 128,
               time_scale: float = 1.0, length_scale: float = 0.15,
-              size_by_profiler: bool = False,
+              size_by_profiler: bool = True, hbm_gb: int = 24,
               clock: str = "modeled", quiet: bool = True,
               queue_cap: int = 0, queue_policy: str = "reject",
               deadline_slack: float = float("inf"),
@@ -56,14 +76,12 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               kernels: Optional[bool] = None,
               pipeline: bool = False,
               device: str = "cuda") -> dict:
-    """The reference's ``run_serve`` on the port, without the options of
-    features not ported yet (mesh, faults, sharing, int8 KV, streaming);
+    """The reference's ``run_serve`` on the port, with its defaults except
+    ``pipeline``, and without the options of features not ported yet
+    (mesh, faults, sharing, int8 KV, streaming);
     ``device`` picks where the engine runs."""
-    if size_by_profiler:
-        raise NotImplementedError(
-            "the offline memory profiler (plan_memory/size_slots) is not "
-            "ported yet (ROADMAP Queue A); run with size_by_profiler=False")
     cfg = get_config(arch)
+    full_cfg = cfg
     if use_reduced:
         cfg = reduced(cfg)
     base = ServeConfig(
@@ -82,6 +100,9 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
                                     logit_mode="chunked")
     trace = make_trace(workload, n, rps, seed=seed, scale=length_scale,
                        deadline_slack=deadline_slack)
+    plan = None
+    if size_by_profiler:
+        plan, serve = profile_slots(full_cfg, serve, max_slots, hbm_gb)
     eng = Engine(cfg, serve, seed=seed, clock=clock, device=device)
     warmup_s = eng.warmup()
     prompts = trace_prompts(trace, cfg.vocab_size, seed=seed)
@@ -162,9 +183,9 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         shared_hits=stats.shared_hits,
         shared_cow_promotes=stats.shared_cow_promotes,
         phys_slots_peak=stats.phys_slots_peak,
-        plan_slots_logical=None,
-        plan_slots_phys=None,
-        plan_slot_bytes=None,
+        plan_slots_logical=plan.max_slots if plan else None,
+        plan_slots_phys=plan.phys_slots if plan else None,
+        plan_slot_bytes=plan.slot_bytes if plan else None,
         mesh_shape=list(serve.mesh_shape) if serve.mesh_shape else None,
         mesh_devices=eng.mesh_devices,
         kernels_active=eng.kernels_active,

@@ -213,9 +213,13 @@ def test_unported_engine_options_raise():
                 dict(prefix_sharing=True), dict(kv_quant="int8")):
         with pytest.raises(NotImplementedError):
             TEngine(tcfg, dataclasses.replace(base, **bad), device="cpu")
-    with pytest.raises(NotImplementedError):
-        trun_serve("llada-8b", "dllm-serve", "burst", 4.0, 2,
-                   size_by_profiler=True, device="cpu", kernels=True)
+    # the profiler bills what it can serve, and raises on the rest
+    from repro_torch.core.budgeting import plan_memory
+    for bad in (dict(kv_quant="int8"), dict(prefix_sharing=True),
+                dict(mesh_shape=(1, 2))):
+        with pytest.raises(NotImplementedError):
+            plan_memory(get_config("llada-8b"),
+                        dataclasses.replace(base, **bad), 24 << 30)
 
 
 def test_cuda_engine_requires_the_kernel_paths(monkeypatch):

@@ -14,8 +14,9 @@ the P·V product, as the reference kernels do, and sums in another order:
 2e-2 (the unnormalised output of ``packed_flash_attention``: 2e-2 relative
 to its row sums). Argmax ids must match where the top two logits are
 apart. The SSD
-scan is float32 on both sides, a token recurrence against the chunked form:
-1e-4 relative to the largest output.
+scan is float32 on both sides, the kernel's chunks of 64 on the tensor
+cores (3xTF32) against the plain chunked form at other chunkings: 1e-4
+relative to the largest output.
 """
 import hashlib
 import re
@@ -539,6 +540,84 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         FA.packed_flash_attention_call(z, z.cpu(), z, mask)
     with pytest.raises(TypeError):
         FA.packed_flash_attention_call(z, z, z, mask.float())
+
+
+@pytest.mark.parametrize("dh", FV.HEAD_DIMS)
+@pytest.mark.parametrize("T", [40, 128, 248, 1000])
+@pytest.mark.parametrize("mask_rows", ["one", "Sb"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_packed_flash_attention_bf16_tile_matches_plain(cuda, G, mask_rows,
+                                                        T, dh):
+    """The bfloat16 Hopper tile (query rows on the narrow side of mma.sync,
+    a cp.async K/V ring a warp): R = 8, 16, 64 rows, a one-row or an Sb-row
+    mask, ragged key tails, every head dim, softcap, and a fully masked
+    head (m = -1e30, s = T)."""
+    g = torch.Generator(device=cuda).manual_seed(7 * T + dh + G)
+    B, K, Sb = 3, 2, 8
+    R, Sm = Sb * G, 1 if mask_rows == "one" else Sb
+    bf = torch.bfloat16
+    q = torch.randn((B, K, R, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    mask = torch.rand((B, K, Sm, T), generator=g, device=cuda) < 0.6
+    mask[1, 0] = False
+    for softcap in (0.0, 30.0):
+        o, m, s = FA.packed_flash_attention_call(q, k, v, mask,
+                                                 softcap=softcap)
+        ro, rm, rs = FA.packed_attention_plain(q, k, v, mask, softcap=softcap)
+        torch.cuda.synchronize()
+        assert (m[1, 0] == -1e30).all() and (s[1, 0] == T).all()
+        assert (m - rm).abs().max().item() < 1e-4
+        assert ((s - rs).abs() / rs).max().item() < 2e-2
+        assert ((o - ro).abs() / rs[..., None]).max().item() < 2e-2
+
+
+@pytest.mark.parametrize("B,K", [(2, 3), (16, 40)])
+def test_packed_flash_attention_bf16_below_and_above_one_wave(cuda, B, K):
+    """llada-8b's padded Reuse rows (R = 8, dh = 128, T = 248, one mask
+    row) with 6 groups, a few warps of one CTA, and with 640 groups, more
+    than one CTA of four warps on each of 132 SMs."""
+    g = torch.Generator(device=cuda).manual_seed(B * K)
+    R, T, dh, bf = 8, 248, 128, torch.bfloat16
+    q = torch.randn((B, K, R, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    mask = torch.rand((B, K, 1, T), generator=g, device=cuda) < 0.97
+    o, m, s = FA.packed_flash_attention_call(q, k, v, mask)
+    ro, rm, rs = FA.packed_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (m - rm).abs().max().item() < 1e-4
+    assert ((s - rs).abs() / rs).max().item() < 2e-2
+    assert ((o - ro).abs() / rs[..., None]).max().item() < 2e-2
+
+
+@pytest.mark.parametrize("T,H,P,N,chunk", [(200, 4, 64, 128, 8),
+                                           (333, 3, 8, 16, 9),
+                                           (1024, 112, 64, 64, 32),
+                                           (1024, 24, 64, 128, 16)])
+def test_ssm_segment_scan_kernel_chunks_match_plain(cuda, T, H, P, N, chunk):
+    """The kernel's chunks of 64 against the plain version at another
+    chunking: T not a multiple of 64, a reset on the first (64) and on the
+    last (127) row of a kernel chunk, captures at -1, on the chunk edge
+    (63, 64), inside a chunk, at T - 1 and past T; N = 128; the zamba2-7b
+    (H = 112, P = N = 64) and mamba2-130m (H = 24, P = 64, N = 128)
+    widths."""
+    g = torch.Generator(device=cuda).manual_seed(T + H)
+    xdt = torch.randn((T, H, P), generator=g, device=cuda)
+    dA = -0.01 - torch.rand((T, H), generator=g, device=cuda)
+    Bm = torch.randn((T, N), generator=g, device=cuda)
+    Cm = torch.randn((T, N), generator=g, device=cuda)
+    reset = torch.zeros(T, device=cuda)
+    reset[[0, 64, 127, 150, T - 1]] = 1.0
+    cap_rows = torch.tensor([-1, 63, 64, 100, T - 1, T + 5], dtype=torch.int32,
+                            device=cuda)
+    got = SS.ssm_segment_scan_call(xdt, dA, Bm, Cm, reset, cap_rows)
+    want = SS.ssm_segment_scan_plain(xdt, dA, Bm, Cm, reset, cap_rows, chunk)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() < 1e-4 * scale
+    assert not got[1][0].any() and not got[1][5].any()
 
 
 def test_launches_are_counted(cuda):
