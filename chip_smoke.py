@@ -26,7 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      wrapper's host µs a call; for the varlen kernels also the split count
      of their split-KV grid, the achieved rate (TFLOP/s of flash_varlen,
      TB/s of flash_varlen_cross) and the cross kernel's device time at
-     other split counts;
+     other split counts; for the head-score kernels (also at the paper's
+     geometry, R = 12 slots in T = 4096) the device time warm and with a
+     cold L2 (calls rotating over input sets past 100 MB, the library
+     call's too), the TB/s of the cold time, the wrapper's host µs, and the
+     device time and host µs of the model-layer call (ops.head_score_varlen
+     / ops.head_score), which hands over the keys as a strided view, no
+     copy;
   4. a small end-to-end check: three iterations of reduced llada-8b and of
      reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
      sparse-dllm (the padded path), on the card against the same iterations
@@ -57,6 +63,7 @@ tree's kernels by this script's method.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -119,6 +126,22 @@ def host_us(fn, n: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / n * 1e6
+
+
+def cold_ms(fn, sets) -> float:
+    """Device ms of one ``fn(*inputs)``, the calls queued and rotating over
+    ``sets``, which together outgrow the card's 50 MB L2 (``cold_sets``):
+    each call reads its inputs from device memory, as the first call on a
+    fresh input does."""
+    calls = [lambda s=s: fn(*s) for s in sets]
+    turn = itertools.cycle(calls)
+    return time_ms(lambda: next(turn)(), iters=max(20, 2 * len(sets)),
+                   queued=True)
+
+
+def cold_sets(nbytes_a_set: float) -> int:
+    """Input sets whose bytes together pass 100 MB, twice the L2."""
+    return int(100e6 // nbytes_a_set) + 2
 
 
 def bound(ops: float, nbytes: float, dtype) -> tuple:
@@ -295,7 +318,18 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
 
 
 def check_head_score(dev, g, cfg, serve, small=True):
+    """Row 3 against its plain version: float32 (GQA Rq = 16, dh = 64, a
+    one-token request, a PAD_SEG tail, requests that own nothing), then in
+    bfloat16 at the main path's Refresh stream (R = 4 slots filling the
+    max_num_batched_tokens bucket), its keys contiguous and, through
+    ``ops.head_score_varlen``, as the [K, T, dh] view of the layer's
+    [T, K, dh] keys (the kernel reads them in place); with ``small`` also
+    at the paper's geometry (R = 12 slots, T = 4096). -inf where the plain
+    version has it; else 1e-3 (float32) and 1e-2 (bfloat16: |scores| ~ 30,
+    float32 sums of exact products in another order)."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels import select_pack as SP
+    bf = torch.bfloat16
 
     def case(lens, pad, R, K, Rq, dh, dtype):
         seg, _, _ = stream(lens, pad, dev)
@@ -309,39 +343,72 @@ def check_head_score(dev, g, cfg, serve, small=True):
         fin = torch.isfinite(ref)
         return (out[fin] - ref[fin]).abs().max().item()
 
+    def measure(lens, T):
+        R, K, dh = len(lens), cfg.n_kv_heads, cfg.resolved_head_dim
+        G, Sb = cfg.n_heads // K, serve.block_size
+        Rq = Sb * G
+        q, k, seg = case(lens, T - sum(lens), R, K, Rq, dh, bf)
+        err = err_of(SP.head_score_varlen_call(q, k, seg),
+                     SP.head_score_varlen_plain(q, k, seg))
+        log(f"  head_score_varlen bf16 {cfg.name} R={R} T={T} dh={dh}: "
+            f"max_abs_err={err:.3g} (tol 1e-2)")
+        assert err < 1e-2, err
+        # the Refresh layer's call: block queries [R, Sb, H, dh] and the
+        # [T, K, dh] keys, read in place as their [K, T, dh] view
+        q_block = torch.randn((R, Sb, cfg.n_heads, dh), generator=g,
+                              device=dev).to(bf)
+        k_flat = k.permute(1, 0, 2).contiguous()
+        qr = (q_block.reshape(R, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
+              .reshape(R, K, Rq, dh))
+        via_ops = lambda: ops.head_score_varlen(q_block, k_flat, seg)  # noqa
+        err_ops = err_of(via_ops(), SP.head_score_varlen_plain(
+            qr, k_flat.permute(1, 0, 2), seg))
+        log(f"  head_score_varlen bf16 {cfg.name} R={R} T={T} through "
+            f"ops.head_score_varlen, keys as the [K, T, dh] view of "
+            f"[T, K, dh]: max_abs_err={err_ops:.3g} (tol 1e-2)")
+        assert err_ops < 1e-2, err_ops
+        own = seg[None, :] == torch.arange(R, device=dev,
+                                           dtype=torch.int32)[:, None]
+
+        def library(q, k, seg):
+            z = torch.matmul(q, k.transpose(1, 2)[None])    # [R, K, Rq, T]
+            return z.amax(dim=2).masked_fill(~own[:, None, :], float("-inf"))
+
+        # what the function needs: the owned keys, q, seg, the scores
+        moved = nbytes(q, seg) + K * sum(lens) * dh * 2 + R * K * T * 4
+        b, by = bound(2.0 * sum(lens) * Rq * K * dh, moved, bf)
+        sets = [(q, k, seg)] + [case(lens, T - sum(lens), R, K, Rq, dh, bf)
+                                for _ in range(cold_sets(moved) - 1)]
+        call = lambda: SP.head_score_varlen_call(q, k, seg)  # noqa: E731
+        cold = cold_ms(SP.head_score_varlen_call, sets)
+        return dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/head_score.cu",
+            replaces="src/repro/kernels/select_pack.py:82",
+            max_abs_err=max(err, err_ops), ms=time_ms(call),
+            plain_ms=time_ms(lambda: SP.head_score_varlen_plain(q, k, seg),
+                             iters=5),
+            bound_ms=b, bound_by=by, library_ms=time_ms(
+                lambda: library(q, k, seg)),
+            device_ms=time_ms(call, queued=True), cold_device_ms=cold,
+            library_device_ms=time_ms(lambda: library(q, k, seg),
+                                      queued=True),
+            library_cold_device_ms=cold_ms(library, sets),
+            tb_s=moved / cold / 1e9, host_us=host_us(call),
+            ops_device_ms=time_ms(via_ops, queued=True),
+            ops_host_us=host_us(via_ops))
+
     if small:
         args = case([70, 9, 133, 1, 64], 43, 8, 3, 16, 64, torch.float32)
         err = err_of(SP.head_score_varlen_call(*args),
                      SP.head_score_varlen_plain(*args))
         log(f"  head_score_varlen f32: max_abs_err={err:.3g} (tol 1e-3)")
         assert err < 1e-3, err
-    lens = [256, 250, 240, 230]
-    T = serve.max_num_batched_tokens
-    K, dh, Sb = cfg.n_kv_heads, cfg.resolved_head_dim, serve.block_size
-    Rq = Sb * cfg.n_heads // K
-    args = case(lens, T - sum(lens), len(lens), K, Rq, dh, torch.bfloat16)
-    q, k, seg = args
-    err = err_of(SP.head_score_varlen_call(*args),
-                 SP.head_score_varlen_plain(*args))
-    log(f"  head_score_varlen bf16 {cfg.name} R={len(lens)} T={T} dh={dh}: "
-        f"max_abs_err={err:.3g} (tol 1e-2: |scores| ~ 30, float32 sums)")
-    assert err < 1e-2, err
-    R = len(lens)
-    own = seg[None, :] == torch.arange(R, device=dev, dtype=torch.int32)[:, None]
-
-    def library():
-        z = torch.matmul(q, k.transpose(1, 2)[None])       # [R, K, Rq, T]
-        return z.amax(dim=2).masked_fill(~own[:, None, :], float("-inf"))
-
-    ops = 2.0 * sum(lens) * Sb * cfg.n_heads * dh
-    b, by = bound(ops, nbytes(q, k, seg) + R * K * T * 4, torch.bfloat16)
-    return dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/head_score.cu",
-        replaces="src/repro/kernels/select_pack.py:82",
-        max_abs_err=err,
-        ms=time_ms(lambda: SP.head_score_varlen_call(*args)),
-        plain_ms=time_ms(lambda: SP.head_score_varlen_plain(*args), iters=5),
-        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+    row = measure([256, 250, 240, 230], serve.max_num_batched_tokens)
+    if small:
+        # the paper's geometry: 12 slots in the bucket of
+        # max_num_batched_tokens = 4000
+        row["R=12 T=4096"] = measure([333] * 12, 4096)
+    return row
 
 
 def check_logit_argmax(dev, g, cfg, serve, tied):
@@ -645,38 +712,68 @@ def check_flash_refresh(dev, g, cfg):
 def check_head_score_padded(dev, g, cfg, serve):
     """Row 8 against its plain version: float32 GQA (Rq = 40, dh = 16, a
     ragged key tile), then llada-8b's padded Refresh in bfloat16: B = 4
-    refresh slots, S = max_seq_len = 256, Rq = Sb = 8, dh = 128.
-    Tolerances: 1e-4 and 1e-3 relative to the largest score (float32 sums
-    of exact products in another order)."""
+    refresh slots, S = max_seq_len = 256, Rq = Sb = 8, dh = 128, its keys
+    contiguous and, through ``ops.head_score``, as the [B, K, S, dh] view
+    of [B, S, K, dh] keys. Tolerances: 1e-4 and 1e-3 relative to the
+    largest score (float32 sums of exact products in another order)."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels import select_pack as SP
 
-    def compare(B, K, Rq, S, dh, dtype, tol):
+    def case(B, K, Rq, S, dh, dtype):
         q = torch.randn((B, K, Rq, dh), generator=g, device=dev).to(dtype)
         k = torch.randn((B, K, S, dh), generator=g, device=dev).to(dtype)
-        out, ref = SP.head_score_call(q, k), SP.head_score_plain(q, k)
+        return q, k
+
+    def compare(out, ref, tol):
         scale = max(1.0, ref.abs().max().item())
         err = (out - ref).abs().max().item()
         assert err < tol * scale, (err, scale)
-        return q, k, err, scale
+        return err, scale
 
-    _, _, err, scale = compare(3, 3, 40, 100, 16, torch.float32, 1e-4)
+    q, k = case(3, 3, 40, 100, 16, torch.float32)
+    err, scale = compare(SP.head_score_call(q, k), SP.head_score_plain(q, k),
+                         1e-4)
     log(f"  head_score f32 B=3 Rq=40 S=100 dh=16: max_abs_err={err:.3g} "
         f"(tol 1e-4 x {scale:.3g})")
     B, S, K, dh = 4, serve.max_seq_len, cfg.n_kv_heads, cfg.resolved_head_dim
-    Rq = serve.block_size * cfg.n_heads // K
-    q, k, err, scale = compare(B, K, Rq, S, dh, torch.bfloat16, 1e-3)
+    Sb, G, bf = serve.block_size, cfg.n_heads // K, torch.bfloat16
+    Rq = Sb * G
+    q, k = case(B, K, Rq, S, dh, bf)
+    err, scale = compare(SP.head_score_call(q, k), SP.head_score_plain(q, k),
+                         1e-3)
     log(f"  head_score bf16 {cfg.name} B={B} S={S} Rq={Rq} dh={dh}: "
         f"max_abs_err={err:.3g} (tol 1e-3 x {scale:.3g})")
-    b, by = bound(2.0 * B * K * Rq * S * dh, nbytes(q, k) + B * K * S * 4,
-                  torch.bfloat16)
+    q_block = torch.randn((B, Sb, cfg.n_heads, dh), generator=g,
+                          device=dev).to(bf)
+    k_full = k.permute(0, 2, 1, 3).contiguous()          # [B, S, K, dh]
+    qr = (q_block.reshape(B, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
+          .reshape(B, K, Rq, dh))
+    via_ops = lambda: ops.head_score(q_block, k_full)  # noqa: E731
+    err_ops, scale = compare(via_ops(), SP.head_score_plain(qr, k), 1e-3)
+    log(f"  head_score bf16 {cfg.name} B={B} S={S} through ops.head_score, "
+        f"keys as the [B, K, S, dh] view of [B, S, K, dh]: max_abs_err="
+        f"{err_ops:.3g} (tol 1e-3 x {scale:.3g})")
+    moved = nbytes(q, k) + B * K * S * 4
+    b, by = bound(2.0 * B * K * Rq * S * dh, moved, bf)
+    sets = [(q, k)] + [case(B, K, Rq, S, dh, bf)
+                       for _ in range(cold_sets(moved) - 1)]
+    call = lambda: SP.head_score_call(q, k)  # noqa: E731
+
+    def library(q, k):
+        return torch.matmul(q, k.transpose(2, 3)).amax(dim=2)
+    cold = cold_ms(SP.head_score_call, sets)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/head_score.cu",
-        replaces="src/repro/kernels/select_pack.py:56", max_abs_err=err,
-        ms=time_ms(lambda: SP.head_score_call(q, k)),
+        replaces="src/repro/kernels/select_pack.py:56",
+        max_abs_err=max(err, err_ops), ms=time_ms(call),
         plain_ms=time_ms(lambda: SP.head_score_plain(q, k), iters=5),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.matmul(
-            q, k.transpose(2, 3)).amax(dim=2)),
+        bound_ms=b, bound_by=by, library_ms=time_ms(lambda: library(q, k)),
+        device_ms=time_ms(call, queued=True), cold_device_ms=cold,
+        library_device_ms=time_ms(lambda: library(q, k), queued=True),
+        library_cold_device_ms=cold_ms(library, sets),
+        tb_s=moved / cold / 1e9, host_us=host_us(call),
+        ops_device_ms=time_ms(via_ops, queued=True),
+        ops_host_us=host_us(via_ops),
         note="no path reaches it in the reference: its padded scoring "
              "(models/sparse_select.head_scores) is plain jnp")
 
@@ -1023,8 +1120,9 @@ def main(argv) -> int:
             lib = ("none" if x["library_ms"] is None
                    else f"{x['library_ms']:.4f}")
             rate = "".join(f" {k}={x[k]:.4f}" for k in (
-                "device_ms", "library_device_ms", "tflop_s", "w_tb_s", "tb_s",
-                "host_us") if k in x)
+                "device_ms", "cold_device_ms", "library_device_ms",
+                "library_cold_device_ms", "tflop_s", "w_tb_s", "tb_s",
+                "host_us", "ops_device_ms", "ops_host_us") if k in x)
             rate += "".join(f" {k}={x[k]}" for k in ("splits", "ms_by_splits")
                             if k in x)
             log(f"  {name}{shape}: kernel_ms={x['ms']:.4f} "

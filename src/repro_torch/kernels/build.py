@@ -32,16 +32,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L = ctypes.c_longlong
 # C signatures of csrc/*.cu, in argument order
 SIGNATURES = {
     # q k v o q_pos q_seg kv_pos kv_seg kv_valid ws | K RG G Tq Tkv
     # kv_head_stride dh dtype | scale softcap | causal window is_local splits
     # | stream
     "repro_flash_varlen": [P] * 10 + [I] * 8 + [F, F] + [I] * 4 + [P],
-    # q k seg out | R K Rq T dh dtype | stream
-    "repro_head_score_varlen": [P] * 4 + [I] * 6 + [P],
-    # q k out | B K Rq S dh dtype | stream
-    "repro_head_score": [P] * 3 + [I] * 6 + [P],
+    # q k seg out | R K Rq T dh | k_head_stride k_token_stride | dtype |
+    # stream
+    "repro_head_score_varlen": [P] * 4 + [I] * 5 + [L] * 2 + [I, P],
+    # q k out | B K Rq S dh | k_batch_stride k_head_stride k_token_stride |
+    # dtype | stream
+    "repro_head_score": [P] * 3 + [I] * 5 + [L] * 3 + [I, P],
     # q k v mask o m s | B K R T Sm dh dtype | scale softcap | stream
     "repro_packed_flash_attention": [P] * 7 + [I] * 7 + [F, F] + [P],
     # q k v o q_pos kv_pos kv_valid | B K RG Sq S dh dtype | scale softcap |

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's redesigned kernels
 // (attn_sm90.cuh's attention tile, logit_argmax.cu, packed_flash_attention.cu,
-// ssm_scan.cu): mbarriers, TMA loads and the host-side TMA maps, wgmma
-// descriptors and products; cp.async copies and the warp-level mma.sync
-// products (bf16 m16n8k16, tf32 m16n8k8 with a 3xTF32 split) for tiles too
-// narrow for a 64-row wgmma.
+// ssm_scan.cu, head_score.cu): mbarriers, TMA loads and the host-side TMA
+// maps, wgmma descriptors and products; cp.async copies and the warp-level
+// mma.sync products (bf16 m16n8k16, tf32 m16n8k8 with a 3xTF32 split) for
+// tiles too narrow for a 64-row wgmma.
 #pragma once
 
 #include <cuda.h>
@@ -261,6 +261,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
                "[%4];\n" : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+// two 8x8 b16 matrices, lanes 0-15 giving the row addresses (the others'
+// are ignored)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "

@@ -124,27 +124,27 @@ def flash_refresh_attention(q, k, v, *, q_pos, kv_pos, kv_valid, mask_mode,
 
 def head_score(q_block, k_full):
     """q_block [B, Sb, H, dh]; k_full [B, S, K, dh] -> [B, K, S] f32 raw
-    (pre-maxpool) importance scores of a padded batch."""
+    (pre-maxpool) importance scores of a padded batch. The kernel reads
+    k_full in place, as its [B, K, S, dh] view."""
     B, Sb, H, dh = q_block.shape
     K = k_full.shape[2]
     G = H // K
     qr = (q_block.reshape(B, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
           .reshape(B, K, Sb * G, dh))
-    return SP.head_score_call(qr.contiguous(),
-                              k_full.permute(0, 2, 1, 3).contiguous())
+    return SP.head_score_call(qr.contiguous(), k_full.permute(0, 2, 1, 3))
 
 
 def head_score_varlen(q_block, k_flat, seg_ids):
     """q_block [R, Sb, H, dh]; k_flat [T, K, dh]; seg_ids [T] ->
-    [R, K, T] f32 raw scores (-inf off-segment)."""
+    [R, K, T] f32 raw scores (-inf off-segment). The kernel reads k_flat in
+    place, as its [K, T, dh] view."""
     R, Sb, H, dh = q_block.shape
     K = k_flat.shape[1]
     G = H // K
     qr = (q_block.reshape(R, Sb, K, G, dh).permute(0, 2, 1, 3, 4)
           .reshape(R, K, Sb * G, dh))
-    return SP.head_score_varlen_call(
-        qr.contiguous(), k_flat.permute(1, 0, 2).contiguous(),
-        _i32(seg_ids))
+    return SP.head_score_varlen_call(qr.contiguous(), k_flat.permute(1, 0, 2),
+                                     _i32(seg_ids))
 
 
 def ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap_rows, *, chunk: int = 64):

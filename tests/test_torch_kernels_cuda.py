@@ -321,20 +321,46 @@ def test_flash_refresh_bf16_bit_identical_to_the_full_window_tile(cuda):
     assert refresh_digests(cuda) == REFRESH_DIGESTS
 
 
+# streams for row 3: ragged segments with an empty request (2), a PAD_SEG
+# tail and requests that own nothing (6, 7), T = 320; a tile of 64
+# one-token owners; T = 135 (not a multiple of the 64-key tile or of 4)
+HEAD_SCORE_STREAMS = {"ragged": ([70, 9, 0, 133, 1, 64], 43, 8),
+                      "one_token": ([1] * 150 + [3], 0, 151),
+                      "odd_T": ([50, 77, 3], 5, 4)}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)])
-@pytest.mark.parametrize("Rq,dh", [(8, 128), (40, 16), (8, 112)])
-def test_head_score_matches_plain(cuda, dtype, tol, Rq, dh):
+@pytest.mark.parametrize("Rq,dh,sign", [(8, 128, 1), (40, 16, 1),
+                                        (8, 112, 1), (8, 72, 1),
+                                        (8, 256, 1), (12, 128, -1),
+                                        (40, 64, -1)])
+@pytest.mark.parametrize("stream", list(HEAD_SCORE_STREAMS))
+@pytest.mark.parametrize("keys", ["contiguous", "permuted"])
+def test_head_score_matches_plain(cuda, dtype, tol, Rq, dh, sign, stream,
+                                  keys):
+    """Row 3. ``sign = -1``: every score negative (q = -|q|, k = |k|), so
+    a padded query column that scored 0 would win the max. ``permuted``:
+    the keys as the [K, T, dh] view of a [T, K, dh] tensor, read in
+    place."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    seg, _, _ = _stream([70, 9, 133, 1, 64], pad=43, dev=cuda)
-    R, K, T = 8, 3, seg.shape[0]                  # requests 5..7 own nothing
-    q = torch.randn((R, K, Rq, dh), generator=g, device=cuda).to(dtype)
-    k = torch.randn((K, T, dh), generator=g, device=cuda).to(dtype)
+    lens, pad, R = HEAD_SCORE_STREAMS[stream]
+    seg, _, _ = _stream(lens, pad=pad, dev=cuda)
+    K, T = 3, seg.shape[0]
+    q = torch.randn((R, K, Rq, dh), generator=g, device=cuda)
+    k = torch.randn((K, T, dh), generator=g, device=cuda)
+    if sign < 0:
+        q, k = -q.abs(), k.abs()
+    q, k = q.to(dtype), k.to(dtype)
+    if keys == "permuted":
+        k = k.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+        assert not k.is_contiguous()
     out = SP.head_score_varlen_call(q, k, seg)
     ref = SP.head_score_varlen_plain(q, k, seg)
     torch.cuda.synchronize()
     assert torch.equal(torch.isinf(out), torch.isinf(ref))
     fin = torch.isfinite(ref)
+    assert fin.sum().item() == K * sum(lens)
     # products of bf16 values are exact in float32; only sum order differs
     scale = ref[fin].abs().max().item()
     assert (out[fin] - ref[fin]).abs().max().item() < tol * max(1.0, scale)
@@ -514,13 +540,25 @@ def test_flash_refresh_bf16_ragged_tail_matches_plain(cuda, dh, S, causal):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)])
-@pytest.mark.parametrize("Rq,S,dh", [(8, 256, 128), (40, 100, 16),
-                                     (8, 77, 112)])
-def test_head_score_padded_matches_plain(cuda, dtype, tol, Rq, S, dh):
+@pytest.mark.parametrize("B,Rq,S,dh,sign", [
+    (4, 8, 256, 128, 1), (4, 40, 100, 16, 1), (4, 8, 77, 112, 1),
+    (4, 8, 300, 72, 1), (2, 8, 130, 256, 1), (3, 12, 100, 128, -1),
+    (3, 40, 33, 64, -1), (1, 8, 1, 128, 1)])
+@pytest.mark.parametrize("keys", ["contiguous", "permuted"])
+def test_head_score_padded_matches_plain(cuda, dtype, tol, B, Rq, S, dh,
+                                         sign, keys):
+    """Row 8, as row 3: all-negative scores with ``sign = -1``, ragged key
+    tiles, B = S = 1, and the keys as the [B, K, S, dh] view of a
+    [B, S, K, dh] tensor with ``permuted``."""
     g = torch.Generator(device=cuda).manual_seed(8)
-    B, K = 4, 3
-    q = torch.randn((B, K, Rq, dh), generator=g, device=cuda).to(dtype)
-    k = torch.randn((B, K, S, dh), generator=g, device=cuda).to(dtype)
+    K = 3
+    q = torch.randn((B, K, Rq, dh), generator=g, device=cuda)
+    k = torch.randn((B, K, S, dh), generator=g, device=cuda)
+    if sign < 0:
+        q, k = -q.abs(), k.abs()
+    q, k = q.to(dtype), k.to(dtype)
+    if keys == "permuted":
+        k = k.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
     out = SP.head_score_call(q, k)
     ref = SP.head_score_plain(q, k)
     torch.cuda.synchronize()
@@ -530,7 +568,8 @@ def test_head_score_padded_matches_plain(cuda, dtype, tol, Rq, S, dh):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """No fallback on the card: an unsupported head_dim, a CPU tensor in a
-    CUDA call or a non-bool mask raises."""
+    CUDA call, a non-bool mask or a key view the 16-byte loads cannot read
+    raises."""
     z = torch.zeros((1, 1, 8, 96), device=cuda)
     mask = torch.ones((1, 1, 8, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -540,6 +579,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         FA.packed_flash_attention_call(z, z.cpu(), z, mask)
     with pytest.raises(TypeError):
         FA.packed_flash_attention_call(z, z, z, mask.float())
+    # head scores read keys in place: a token step of 3·65 bf16 (390
+    # bytes) or a base 2 bytes past a boundary raises, with no copy made
+    bf = torch.bfloat16
+    seg = torch.zeros(10, dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 3, 8, 64), dtype=bf, device=cuda)
+    step = torch.zeros((10, 3, 65), dtype=bf, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="head_score_varlen: k.*16-byte"):
+        SP.head_score_varlen_call(q, step.permute(1, 0, 2), seg)
+    with pytest.raises(ValueError, match="head_score: k.*16-byte"):
+        SP.head_score_call(q, step.permute(1, 0, 2)[None])
+    base = torch.zeros(3 * 10 * 64 + 1, dtype=bf, device=cuda)[1:]
+    with pytest.raises(ValueError, match="head_score_varlen: k.*16-byte"):
+        SP.head_score_varlen_call(q, base.view(3, 10, 64), seg)
 
 
 @pytest.mark.parametrize("dh", FV.HEAD_DIMS)
