@@ -40,16 +40,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. footprint: each llada-8b system's memory plan (the offline profiler)
      at 24 GB and at the card's memory, and the logit stage's peak bytes
      measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
+     graphs: the full llada-8b under dllm-serve and sparse-dllm and the
+     full zamba2-7b under dllm-serve, on the modeled clock, by an engine
+     whose stage entries are captured CUDA graphs and by one running the
+     same entries eagerly, on the same weights: ids, counters, modeled
+     clock and launches identical, nothing built after warmup (warmup
+     seconds, captures, the graph pool's bytes and the plan's activation
+     reservation logged);
      serve: run_serve of the full llada-8b, the full zamba2-7b and the full
      mamba2-130m (random bfloat16 weights from a seed) through the
      dllm-serve profile, and of the full llada-8b through the three
      baselines fast-dllm, dllm-cache and sparse-dllm (the padded path), with
-     the kernels, on the wall clock, each sized by the offline profiler at
-     the card's memory (its plan logged); then one padded prefill of the full
-     llada-8b through the flash_refresh kernel, held against the same call
-     without it. Each path runs with the launch counts zeroed just before
-     it and read just after; every request must finish, every kernel of the
-     path must have launched, and no plain version may have run;
+     the kernels, at the launcher's defaults (the pipelined loop, the
+     captured stage entries), on the wall clock, each sized by the offline
+     profiler at the card's memory (its plan logged); then one padded
+     prefill of the full llada-8b through the flash_refresh kernel, held
+     against the same call without it. Each path runs with the launch
+     counts zeroed just before it and read just after; every request must
+     finish, every kernel of the path must have launched (warmup's eager
+     runs and the run's graph replays), nothing may be built after warmup,
+     and no plain version may have run;
   6. the kernels line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -63,6 +73,7 @@ tree's kernels by this script's method.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -851,19 +862,18 @@ PATH_KERNELS = {
 
 def serve_plan(arch, system, serve_kw, hbm_gb):
     """The plan run_serve sizes a kernels serve with (its own helper on the
-    same ServeConfig)."""
+    same ServeConfig), and that ServeConfig with its slots sized."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.core.baselines import system_profiles
     from repro_torch.launch.serve import profile_slots
 
-    base = ServeConfig(max_refresh_per_iter=4, pipeline=False, **serve_kw)
+    base = ServeConfig(max_refresh_per_iter=4, **serve_kw)
     serve = dataclasses.replace(system_profiles(base)[system],
                                 use_flash_kernel=True, logit_mode="fused")
-    plan, _ = profile_slots(get_config(arch), serve, serve_kw["max_slots"],
-                            hbm_gb)
-    return plan
+    return profile_slots(get_config(arch), serve, serve_kw["max_slots"],
+                         hbm_gb)
 
 
 def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
@@ -873,7 +883,8 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
     from repro_torch.kernels import build
     from repro_torch.launch.serve import run_serve
 
-    plan = serve_plan(arch, system, serve_kw, hbm_gb)
+    plan, _ = serve_plan(arch, system, serve_kw, hbm_gb)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_counters()
@@ -894,10 +905,15 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
             "refresh_tokens_exec", "reuse_tokens_exec", "logit_tokens_exec",
             "refresh_waste", "reuse_waste", "padded_refresh_calls",
             "padded_reuse_calls", "max_slots", "plan_slots_logical",
-            "plan_slots_phys", "plan_slot_bytes")
+            "plan_slots_phys", "plan_slot_bytes", "pipeline",
+            "compile_counts", "compiles_post_warmup", "dispatched_ahead",
+            "overlap_frac")
+    replays = res["graph_replays"]
     log(json.dumps(dict(phase="serve", arch=arch, system=system,
                         **{k: res[k] for k in keep}, hbm_gb=hbm_gb,
                         plan=plan.summary(),
+                        graph_replays=sum(replays.values()),
+                        graph_entries_replayed=len(replays),
                         max_memory_allocated=peak, launches=counts)))
     tag = arch if system == "dllm-serve" else f"{arch}_{system}"
     with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{tag}.json"),
@@ -905,12 +921,113 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
         json.dump(dict(res, arch=arch, max_memory_allocated=peak,
                        launches=counts, card=card), f, indent=2)
     assert res["n_finished"] == n_req, (arch, system, res["n_finished"])
+    # every stage call of the run replayed a graph captured in warmup
+    assert res["pipeline"] and res["dispatched_ahead"] > 0, res
+    assert res["compiles_post_warmup"] == 0, res["compile_counts"]
+    assert sum(replays.values()) >= res["iterations"], replays
     for name in PATH_KERNELS[(arch, system)]:
         assert counts[name][0] > 0, f"{arch} {system}: {name} never launched"
     for name, (_, plain) in counts.items():
         assert plain == 0, f"{arch} {system}: {plain} plain-version calls " \
             f"of {name}"
     return {n: launches for n, (launches, _) in counts.items()}
+
+
+GRAPH_COUNTERS = (
+    "iterations", "refresh_steps", "reuse_steps", "committed_tokens",
+    "deferred_steps", "peak_query_tokens", "refresh_tokens_real",
+    "refresh_tokens_exec", "reuse_tokens_real", "reuse_tokens_exec",
+    "logit_tokens_real", "logit_tokens_exec", "packed_refresh_calls",
+    "padded_refresh_calls", "packed_reuse_calls", "padded_reuse_calls",
+    "submitted", "finished", "dispatched_ahead")
+
+
+def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
+    """The full arch under a system (its slots sized as ``run_serve`` sizes
+    them, the launcher's pipelined loop, the modeled clock, the livebench
+    trace ``run_serve`` draws), served by two engines on the same weights:
+    with the stage entries captured as CUDA graphs and with the same
+    entries run eagerly. Ids, counters and the modeled clock must be
+    identical, and so must each kernel's launches over the run (counted
+    from after warmup: the graphs' warmup runs every bucket once); the
+    graphed engine builds nothing after warmup. Logs warmup seconds, the
+    captures, the graph pool's bytes and the peak the captures add beside
+    the plan's activation reservation."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import Engine
+    from repro_torch.data.workloads import make_trace, trace_prompts
+    from repro_torch.kernels import build
+    from repro_torch.params import init_params
+
+    plan, serve = serve_plan(arch, system, serve_kw, hbm_gb)
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    trace = make_trace("livebench", n_req, 50.0, seed=0, scale=0.15)
+    prompts = trace_prompts(trace, cfg.vocab_size, seed=0)
+    S, Sb = serve.max_seq_len, serve.block_size
+    out = {}
+    for graphs in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, serve, params=params, clock="modeled",
+                     device="cuda", graphs=graphs)
+        warmup_s = eng.warmup()
+        warm_peak = torch.cuda.max_memory_allocated() - base
+        reqs = []
+        for i, (t, p) in enumerate(zip(trace, prompts)):
+            gl = max(Sb, min(t.gen_len, S - len(p) - Sb))
+            reqs.append(eng.submit(p[: min(len(p), S - gl - Sb)],
+                                   gen_len=gl, arrival=t.arrival, rid=i))
+        build.reset_counters()
+        st = eng.run()
+        torch.cuda.synchronize()
+        out[graphs] = dict(
+            tokens=[r.tokens.copy() for r in reqs], vtime=eng.vtime,
+            counters={k: getattr(st, k) for k in GRAPH_COUNTERS},
+            launches={n: (c.launches, c.plain_calls)
+                      for n, c in build.COUNTERS.items()},
+            warmup_s=warmup_s, captures=st.compile_counts,
+            post_warmup=st.compiles_post_warmup,
+            replays=sum(st.graph_replays.values()),
+            pool_bytes=eng.graphs.pool_bytes(), warmup_peak_bytes=warm_peak,
+            run_peak_bytes=torch.cuda.max_memory_allocated() - base)
+        del eng, reqs, st
+    del params
+    e, g = out[False], out[True]
+    same_ids = all(np.array_equal(a, b) for a, b in zip(e["tokens"],
+                                                       g["tokens"]))
+    log(json.dumps(dict(
+        phase="graphs", arch=arch, system=system, n_requests=n_req,
+        max_slots=serve.max_slots, ids_equal=same_ids,
+        counters_equal=e["counters"] == g["counters"],
+        vtime_equal=e["vtime"] == g["vtime"],
+        launches_equal=e["launches"] == g["launches"],
+        iterations=g["counters"]["iterations"],
+        warmup_s_graphs=g["warmup_s"], warmup_s_eager=e["warmup_s"],
+        captures=g["captures"], compiles_post_warmup=g["post_warmup"],
+        graph_replays=g["replays"], graph_pool_bytes=g["pool_bytes"],
+        warmup_peak_bytes_graphs=g["warmup_peak_bytes"],
+        warmup_peak_bytes_eager=e["warmup_peak_bytes"],
+        run_peak_bytes_graphs=g["run_peak_bytes"],
+        run_peak_bytes_eager=e["run_peak_bytes"],
+        plan_activation_bytes=plan.activation_bytes,
+        plan_logit_bytes=plan.logit_bytes,
+        launches={n: c for n, (c, _) in g["launches"].items() if c})))
+    assert same_ids, f"{arch} {system}: graphed ids differ from eager"
+    assert e["counters"] == g["counters"], (e["counters"], g["counters"])
+    assert e["vtime"] == g["vtime"], (e["vtime"], g["vtime"])
+    assert e["launches"] == g["launches"], (e["launches"], g["launches"])
+    assert all(p == 0 for _, p in g["launches"].values()), g["launches"]
+    assert g["post_warmup"] == 0 and g["replays"] > 0, g["captures"]
+    assert sum(g["captures"].values()) > 0 and e["replays"] == 0
+    torch.cuda.empty_cache()
 
 
 def footprint(dev, hbm_gb):
@@ -1152,6 +1269,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     footprint(dev, hbm_gb)
     log(f"phase footprint: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for arch, system in (("llada-8b", "dllm-serve"),
+                         ("llada-8b", "sparse-dllm"),
+                         ("zamba2-7b", "dllm-serve")):
+        graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb)
+    log(f"phase graphs: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
     for arch, system, n_req in (("llada-8b", "dllm-serve", 8),
                                 ("zamba2-7b", "dllm-serve", 8),

@@ -6,7 +6,7 @@
 
 Frozen dataclasses, so a config hashes and compares by value. The port keeps
 every field of the reference, including the ones it does not serve yet
-(mesh, sharing, int8 KV, the pipelined loop): the engine raises on those, so
+(mesh, sharing, int8 KV): the engine raises on those, so
 a config means the same thing in both packages.
 """
 from __future__ import annotations
@@ -147,7 +147,7 @@ class ServeConfig:
     kv_quant: str = "none"
     iter_log_cap: int = 0                # keep only the last N iter_log rows
     clock: str = "wall"                  # "wall" (host time) | "modeled"
-    pipeline: bool = True                # dispatch-ahead loop (not ported)
+    pipeline: bool = True                # dispatch-ahead loop
     donate_buffers: bool = True          # a JAX buffer-lifetime hint
     queue_cap: int = 0                   # bounded waiting queue (0 = unbounded)
     queue_policy: str = "reject"         # "reject" new arrivals | "evict" oldest

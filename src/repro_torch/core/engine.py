@@ -11,12 +11,19 @@ One engine iteration (§4.1 workflow), as in ``repro.core.engine``:
      the gathered slot caches,
   4. every active block's hidden rows are decoded through the budgeted logit
      stage (C1: ``max_num_logits`` sub-batches of the fused argmax kernel),
-  5. ONE device->host copy brings the ids and confidences back, commits are
-     applied host-side and the request state machines advance.
+  5. ONE device->host copy brings the ids and confidences back into pinned
+     memory behind an event; the request state machines advance at
+     dispatch from commit counts alone, and the sync lands the values.
 
-Stage streams are filled in numpy and copied to the device once per stream;
-the pool write and gather stay on the device. Two execution paths, as in the
-reference:
+Each stage runs through a per-bucket entry (``core/graphs.py``), the
+port's counterpart of the reference's per-bucket jits: its streams are
+filled in numpy straight into the entry's pinned staging, reach its static
+device inputs in one copy, and on the card replay one CUDA graph per
+(stage, bucket) that holds the whole stage, the slot pool's scatter
+(Refresh) or gather (Reuse) included. :meth:`Engine.warmup` captures every
+bucket the runtime can request (:func:`stage_keys`). ``graphs=False`` runs
+the same entries eagerly (the oracle the graphs are held to), and the CPU
+always does. Two execution paths, as in the reference:
 
 * token-packed (``varlen_pack=True``): one ragged stream per stage, as
   above;
@@ -29,8 +36,14 @@ reference:
 On CUDA the stages run their kernels: ``use_flash_kernel=True`` and
 ``logit_mode="fused"`` are required (``--kernels``); the plain fallbacks
 and the other logit modes run on the CPU only. The scan families serve on
-the packed path only. The pipelined loop, mesh serving, fault injection,
-prefix sharing and int8 KV raise ``NotImplementedError`` (ROADMAP Queue A).
+the packed path only. Mesh serving, fault injection, prefix sharing and
+int8 KV raise ``NotImplementedError`` (ROADMAP Queue A).
+
+``ServeConfig.pipeline`` (the default) runs the reference's dispatch-ahead
+loop: iteration i+1 is planned while iteration i runs on the device, then
+i's one device->host copy is waited for, then i+1 is filled and
+dispatched. ``pipeline=False`` syncs every iteration; both give the same
+ids, counters and modeled clock.
 
 ``clock="modeled"`` advances a virtual device clock by the reference's cost
 model (:class:`DeviceModel`) — a parity device, so the port's ``vtime``
@@ -43,11 +56,10 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig, ServeConfig
@@ -56,7 +68,8 @@ from repro_torch.core.budgeting import (admission_block_reason,
                                         can_pack_tokens,
                                         pow2_bucket as _bucket,
                                         token_bucket_round)
-from repro_torch.core.kv_pool import KVPool, tree_map
+from repro_torch.core.graphs import Field, HostResult, StageGraphs
+from repro_torch.core.kv_pool import KVPool
 from repro_torch.core.request import Outcome, Request, State
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.kernels import build as kbuild
@@ -115,6 +128,9 @@ class EngineStats:
     phys_slots_peak: int = 0
     alloc_fault_iters: int = 0
     slow_fault_s: float = 0.0
+    # stage entries built per reference entry name (on the card with
+    # graphs: captures); compiles_warmup snapshots the total when warmup
+    # returns, so anything above it was built mid-serve
     compile_counts: Dict[str, int] = field(default_factory=dict)
     compiles_warmup: int = 0
     # host side of the serving loop, on the wall clock in either clock mode
@@ -125,6 +141,8 @@ class EngineStats:
     dispatched_ahead: int = 0
     streamed_events: int = 0
     iter_log: List[dict] = field(default_factory=list)
+    # replays per captured entry, "stage[bucket]" (the port's own key)
+    graph_replays: Dict[str, int] = field(default_factory=dict)
 
     @property
     def compiles_total(self) -> int:
@@ -174,8 +192,12 @@ class _CommitEntry:
     req: Request
     row: int                  # request index in the decoded hidden stream
     block_start: int          # absolute offset of the committed block
+    block_idx: int            # block index at dispatch (stream events)
     n_commit: int             # commit width passed to commit_tokens
+    n_act: int                # positions actually unmasked (stats delta)
     epoch: int                # req.commit_epoch at dispatch
+    finished: bool            # this commit completed the request
+    t: float                  # commit timestamp (modeled vtime / wall now)
 
 
 @dataclass
@@ -193,10 +215,11 @@ class _Prepared:
 
 @dataclass
 class _Pending:
-    """A dispatched iteration: decode outputs still on the device plus the
-    commit entries its sync applies."""
-    ids: Optional[torch.Tensor]
-    conf: Optional[torch.Tensor]
+    """A dispatched iteration: the queued copy of its decode outputs (ids,
+    then the confidences' bits, over ``n_rows`` rows each) plus the commit
+    entries its sync applies."""
+    result: Optional[HostResult]
+    n_rows: int
     entries: List[_CommitEntry]
     log_row: dict
 
@@ -206,18 +229,68 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"'{item}')")
 
 
+def _pow2s(hi: int) -> List[int]:
+    out, b = [], 1
+    while b <= hi:
+        out.append(b)
+        b *= 2
+    return out
+
+
+def stage_keys(serve: ServeConfig, cfg: ModelConfig) -> Dict[str, List[tuple]]:
+    """Every (stage, bucket) key the engine can request under ``serve``,
+    ascending. :meth:`Engine.warmup` builds the stages in this order
+    (Refresh first: its warm run allocates the slot pool the Reuse entries
+    gather from), each stage's keys largest first.
+
+    The bounds: a packed Refresh fuses at most ``refresh_slots`` requests
+    (``max_slots`` under the request-level scheduler) of at most
+    ``max_seq_len`` tokens each and ``max_num_batched_tokens`` in all; a
+    padded Refresh runs chunks of ``refresh_slots``; an iteration decodes
+    distinct residents, each holding a slot, so Reuse and the logit stage
+    see at most ``max_slots`` requests. Every token bucket under those
+    bounds is listed, not only the reference's doubling."""
+    S, Sb = serve.max_seq_len, serve.block_size
+    tb = max(1, serve.token_bucket)
+    keys: Dict[str, List[tuple]] = {}
+    if serve.varlen_pack and can_pack_tokens(cfg):
+        r_fused = (serve.refresh_slots if serve.scheduler == "phase"
+                   else serve.max_slots)
+        top = lambda rp: max(tb, -(-min(  # noqa: E731
+            rp * S, serve.max_num_batched_tokens) // tb) * tb)
+        keys["refresh_packed"] = [(tp, rp) for rp in _pow2s(_bucket(r_fused))
+                                  for tp in range(tb, top(rp) + 1, tb)]
+        rb = max(1, tb // Sb)
+        keys["reuse_packed"] = sorted({(token_bucket_round(n, rb),)
+                                       for n in range(1, serve.max_slots + 1)})
+    else:
+        keys["refresh"] = [(b,) for b in _pow2s(_bucket(serve.refresh_slots))]
+        keys["reuse"] = [(b,) for b in _pow2s(_bucket(serve.max_slots))]
+    if serve.varlen_pack:
+        keys["decode_packed"] = sorted({
+            (token_bucket_round(k * Sb, tb),)
+            for k in range(1, serve.max_slots + 1)})
+    else:
+        keys["decode"] = [(Sb * b,) for b in _pow2s(
+            _bucket(serve.max_slots * Sb, lo=Sb) // Sb)]
+    return keys
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, serve: ServeConfig,
                  params=None, seed: int = 0,
                  clock: Optional[str] = None,
                  device_model: Optional[DeviceModel] = None,
-                 faults=None, device="cuda"):
+                 faults=None, stream_cb: Optional[Callable] = None,
+                 device="cuda", graphs: bool = True):
+        """``stream_cb`` is called once per committed (request, iteration)
+        at sync, when the values exist on the host, with the reference's
+        event dict. ``graphs`` captures each (stage, bucket) entry as a CUDA
+        graph on the card; ``graphs=False`` runs the same entries eagerly
+        (the oracle), as the CPU always does."""
         if faults is not None:
             raise _not_ported("fault injection",
                               "robustness and the memory multipliers")
-        if serve.pipeline:
-            raise _not_ported("the pipelined loop (pipeline=True)",
-                              "the pipelined loop")
         if serve.mesh_shape is not None:
             raise _not_ported("mesh serving", "multi-GPU")
         if serve.prefix_sharing or serve.kv_quant != "none":
@@ -267,6 +340,10 @@ class Engine:
         self.scheduler = make_scheduler(serve)
         self.pool = KVPool(serve.max_slots, self.device)
         self.scheduler.pool = self.pool
+        self._stream_cb = stream_cb
+        self.graphs = StageGraphs(self.device, graphs)
+        self._hdtype = params["embed"]["table"].dtype
+        self._ar = np.arange(serve.max_seq_len, dtype=np.int32)
         self.stats = EngineStats()
         if serve.iter_log_cap:
             self.stats.iter_log = deque(maxlen=serve.iter_log_cap)
@@ -301,64 +378,127 @@ class Engine:
         buckets above."""
         return token_bucket_round(n_rows, self.serve.token_bucket)
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        """One host->device copy of a filled numpy stream."""
-        return torch.from_numpy(a).to(self.device)
+    # ------------------------------------------------------------------
+    # per-bucket stage entries (the reference's stage jits)
+    # ------------------------------------------------------------------
+    def _entry(self, name: str, key: tuple):
+        return self.graphs.get(name, key, lambda: self._make(name, key))
 
-    # ------------------------------------------------------------------
-    # public API
-    # ------------------------------------------------------------------
+    def _make(self, name: str, key: tuple):
+        """Static input fields and function of one (stage, bucket). The
+        Refresh entries end in the slot pool's scatter and the Reuse entries
+        begin with its gather, so the captured caches never leave the
+        graph; only block hidden rows and the decode outputs are static
+        outputs."""
+        S, Sb = self.serve.max_seq_len, self.serve.block_size
+        i32, i64, b8 = torch.int32, torch.int64, torch.bool
+        # the functions close over these, never over the engine: an entry
+        # referring back to it would make a cycle only gc frees
+        pool, scratch = self.pool, self.pool.scratch_slot
+        P, cfg, ctx = self.params, self.cfg, self.ctx
+        if name == "refresh_packed":
+            tp, rp = key
+            # padding requests point at the (invalid) tail so their gathers
+            # stay in bounds; their caches land in the scratch slot
+            fields = [Field("tokens", (tp,), i32), Field("pos", (tp,), i32),
+                      Field("seg", (tp,), i32, PAD_SEG),
+                      Field("valid", (tp,), b8, False),
+                      Field("cu", (rp,), i32, max(0, tp - 1)),
+                      Field("lens", (rp,), i32), Field("bstart", (rp,), i32),
+                      Field("slots", (rp,), i64, scratch)]
+
+            def fn(x):
+                out = BB.serve_refresh_packed(
+                    P, cfg, x["tokens"], x["pos"], x["seg"], x["valid"],
+                    x["cu"], x["lens"], x["bstart"], ctx)
+                pool.write(x["slots"], out.cache)
+                return out.block_hidden
+        elif name == "refresh":
+            (n,) = key
+            fields = [Field("tokens", (n, S), i32),
+                      Field("valid", (n, S), b8, False),
+                      Field("bstart", (n,), i32),
+                      Field("slots", (n,), i64, scratch)]
+
+            def fn(x):
+                out = BB.serve_refresh(P, cfg, x["tokens"], x["bstart"], ctx,
+                                       token_valid=x["valid"])
+                pool.write(x["slots"], out.cache)
+                return out.block_hidden
+        elif name in ("reuse_packed", "reuse"):
+            (n,) = key
+            shape = (n * Sb,) if name == "reuse_packed" else (n, Sb)
+            fields = [Field("btok", shape, i32), Field("bpos", shape, i32),
+                      Field("slots", (n,), i64, scratch)]
+            stage = (BB.serve_reuse_packed if name == "reuse_packed"
+                     else BB.serve_reuse)
+
+            def fn(x):
+                return stage(P, cfg, x["btok"], x["bpos"],
+                             pool.gather(x["slots"]), ctx)
+        elif name in ("decode_packed", "decode"):
+            (n,) = key
+            fields = [Field("h", (n, cfg.d_model), self._hdtype, host=False)]
+            if name == "decode_packed":
+                # the validity mask is an input: a Python row count baked
+                # into a capture would hold for one count only
+                fields.append(Field("valid", (n,), b8, False))
+            sv = self.serve
+
+            def fn(x):
+                if name == "decode_packed":
+                    ids, conf = LM.decode_tokens_packed(
+                        P["embed"], cfg, x["h"], x["valid"],
+                        max_num_logits=sv.max_num_logits, mode=sv.logit_mode)
+                else:
+                    ids, conf = LM.decode_tokens(
+                        P["embed"], cfg, x["h"],
+                        max_num_logits=sv.max_num_logits, mode=sv.logit_mode)
+                return torch.cat([ids, conf.float().view(torch.int32)])
+        else:
+            raise KeyError(name)
+        return fields, fn
+
+    def _prepare(self, name: str, key: tuple, run: bool) -> None:
+        """Build one entry on dummy inputs (the reference warmup's: every
+        padding row at position 0, every request in the scratch slot) and
+        warm and capture it; ``run`` also runs an eager entry once."""
+        e = self._entry(name, key)
+        x = e.host()
+        if name == "refresh_packed":
+            x["valid"][...] = True
+            x["seg"][...] = 0
+            x["cu"][...] = 0
+            x["lens"][...] = min(key[0], self.serve.max_seq_len)
+        elif name in ("refresh", "decode_packed"):
+            x["valid"][...] = True
+        if e.captures:
+            e.prepare()
+        elif run:
+            e()
+
     def warmup(self) -> float:
-        """Build the kernels (on CUDA) and run each stage once at its
-        smallest bucket, on the path the engine serves, so the first served
-        iteration pays no library load, pool allocation or first-touch
-        cost. The dummy Refresh writes zeros into the scratch slot only.
-        Returns the seconds taken."""
+        """Build every stage entry the runtime can request
+        (:func:`stage_keys`), so no entry is built inside the timed run: on
+        the card with graphs each is warmed once eagerly and captured, each
+        stage's largest bucket first. The eager paths run each stage's
+        smallest bucket once (the library load and the slot pool's
+        allocation). Dummy Refreshes write into the
+        scratch slot only, which is zeroed after. Returns the seconds taken;
+        ``stats.compiles_warmup`` snapshots the entries built."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             kbuild.library()
-        S, Sb = self.serve.max_seq_len, self.serve.block_size
-        i32 = lambda n, v=0: np.full((n,), v, np.int32)  # noqa: E731
-        if self._use_packed:
-            tp = self._token_bucket(min(S, self.serve.max_num_batched_tokens))
-            out = BB.serve_refresh_packed(
-                self.params, self.cfg, self._dev(i32(tp)), self._dev(i32(tp)),
-                self._dev(i32(tp)), self._dev(np.ones((tp,), bool)),
-                self._dev(i32(1)), self._dev(i32(1, min(tp, S))),
-                self._dev(i32(1)), self.ctx)
-        else:
-            out = BB.serve_refresh(
-                self.params, self.cfg, self._dev(np.zeros((1, S), np.int32)),
-                self._dev(i32(1)), self.ctx,
-                token_valid=self._dev(np.ones((1, S), bool)))
-        self.pool.write([self.pool.scratch_slot],
-                        tree_map(torch.zeros_like, out.cache))
-        if self._use_packed:
-            rp = self._reuse_bucket(1)
-            BB.serve_reuse_packed(
-                self.params, self.cfg, self._dev(i32(rp * Sb)),
-                self._dev(i32(rp * Sb)),
-                self.pool.gather([self.pool.scratch_slot] * rp), self.ctx)
-        else:
-            blk = self._dev(np.zeros((1, Sb), np.int32))
-            BB.serve_reuse(self.params, self.cfg, blk, blk,
-                           self.pool.gather([self.pool.scratch_slot]),
-                           self.ctx)
-        h = torch.zeros((Sb, self.cfg.d_model), dtype=out.block_hidden.dtype,
-                        device=self.device)
-        if self.serve.varlen_pack:
-            n = self._logit_bucket(Sb)
-            LM.decode_tokens_packed(
-                self.params["embed"], self.cfg, F.pad(h, (0, 0, 0, n - Sb)),
-                self._dev(np.ones((n,), bool)),
-                max_num_logits=self.serve.max_num_logits,
-                mode=self.serve.logit_mode)
-        else:
-            LM.decode_tokens(self.params["embed"], self.cfg, h,
-                             max_num_logits=self.serve.max_num_logits,
-                             mode=self.serve.logit_mode)
+        for name, keys in stage_keys(self.serve, self.cfg).items():
+            # largest bucket first: the shared graph pool's blocks freed by
+            # a large capture serve the smaller ones after it
+            for key in reversed(keys):
+                self._prepare(name, key, run=key == keys[0])
+        self.pool.clear_slot(self.pool.scratch_slot)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.stats.compile_counts = dict(self.graphs.compile_counts)
+        self.stats.compiles_warmup = self.stats.compiles_total
         return time.perf_counter() - t0
 
     def submit(self, prompt: np.ndarray, gen_len: int, arrival: float = 0.0,
@@ -402,10 +542,20 @@ class Engine:
 
     def run(self, time_scale: float = 1.0, max_iters: int = 100_000,
             quiet: bool = True) -> EngineStats:
-        """Serve until every submitted request is terminal. Each lap plans,
-        dispatches and syncs one iteration. Wall clock: ``time_scale`` maps
-        trace seconds to wall seconds; modeled clock: virtual seconds."""
+        """Serve until every submitted request is terminal. Wall clock:
+        ``time_scale`` maps trace seconds to wall seconds; modeled clock:
+        virtual seconds.
+
+        Pipelined (``ServeConfig.pipeline``, the reference's loop): each lap
+        (1) plans iteration i+1, host work that overlaps iteration i still
+        running on the device, (2) waits for i's one device->host copy and
+        lands its values (they must be in ``r.tokens`` before i+1's streams
+        read them), then (3) fills and dispatches i+1, leaving its sync for
+        the next lap. The control plane advanced at dispatch and depends on
+        no token value, so scheduler, counters and vtime change in exactly
+        the synchronous loop's order. ``pipeline=False`` syncs each lap."""
         start = time.perf_counter()
+        pending: Optional[_Pending] = None
         it = 0
         while self.scheduler.has_work and it < max_iters:
             if self.clock == "modeled":
@@ -413,8 +563,19 @@ class Engine:
             else:
                 now = (time.perf_counter() - start) / time_scale
             prep = self._begin_iteration(now)
+            if pending is not None:
+                # the plan above was built while the previous dispatch was
+                # still in flight
+                self.stats.overlapped_host_s += prep.plan_s
+                self.stats.dispatched_ahead += 1
+                self._sync_iteration(pending)
+                pending = None
             if prep.has_exec:
-                self._sync_iteration(self._dispatch_iteration(prep))
+                nxt = self._dispatch_iteration(prep)
+                if self.serve.pipeline:
+                    pending = nxt
+                else:
+                    self._sync_iteration(nxt)
                 progressed = True
             else:
                 progressed = prep.lifecycle
@@ -439,9 +600,15 @@ class Engine:
                     if wait > 0:
                         time.sleep(min(wait, 0.05))
             it += 1
+        if pending is not None:
+            # the last in-flight iteration drains outside the loop: a drain
+            # lap would count one iteration more than the synchronous loop
+            self._sync_iteration(pending)
         self.stats.wall_time = (self.vtime if self.clock == "modeled"
                                 else time.perf_counter() - start)
         self.stats.iterations = it
+        self.stats.compile_counts = dict(self.graphs.compile_counts)
+        self.stats.graph_replays = self.graphs.replays
         return self.stats
 
     # -- modeled-clock cost accounting -------------------------------------
@@ -502,12 +669,24 @@ class Engine:
         return _Prepared(now, plan, layout, lifecycle, plan_s)
 
     def _dispatch_iteration(self, prep: _Prepared) -> _Pending:
-        """Fill the stage streams, launch every stage, charge the modeled
-        clock and advance the control plane."""
+        """Fill the stage streams, run every stage's entry, queue the
+        decode outputs' copy to the host, charge the modeled clock and
+        advance the control plane. Each stage's block hidden rows are copied
+        into the logit entry's static input right after its replay."""
         t0 = time.perf_counter()
         now, plan, layout = prep.now, prep.plan, prep.layout
-        hidden_rows: List[torch.Tensor] = []
-        decoded: List[Request] = []
+        Sb = self.serve.block_size
+        packed = self.serve.varlen_pack
+        decoded: List[Request] = list(plan.refresh) + list(plan.reuse)
+        N = n_real = len(decoded) * Sb
+        dec = h = None
+        if decoded:
+            # packed: token-bucket rounding + a validity mask; padded: the
+            # pow2 row bucket
+            b = self._logit_bucket(N) if packed else _bucket(N, lo=Sb)
+            dec = self._entry("decode_packed" if packed else "decode", (b,))
+            h = dec.inputs["h"]
+        row = 0
 
         # ---- Refresh: ONE fused packed dispatch / padded per-cap chunks ----
         iter_real = iter_exec = 0
@@ -515,7 +694,9 @@ class Engine:
         if seg is not None:
             chunk = list(seg.requests)
             t_real = seg.total_tokens
-            bh, exec_tokens = self._run_refresh_packed(seg)
+            exec_tokens = self._run_refresh_packed(
+                seg, h[row: row + len(chunk) * Sb])
+            row += len(chunk) * Sb
             # the varlen kernel skips tiles of other segments: attention
             # costs Σ Sᵢ², the token-weighted mean segment length; the
             # plain fallback is billed for the whole [T, T] rectangle
@@ -524,8 +705,6 @@ class Engine:
                              for r in chunk) // max(t_real, 1)
             else:
                 kv_len = exec_tokens
-            hidden_rows.append(bh)
-            decoded.extend(chunk)
             self.stats.refresh_steps += len(chunk)
             iter_real += t_real
             iter_exec += exec_tokens
@@ -536,9 +715,9 @@ class Engine:
             for i in range(0, len(plan.refresh), cap):
                 chunk = plan.refresh[i: i + cap]
                 t_real = sum(r.refresh_len for r in chunk)
-                bh, exec_tokens = self._run_refresh(chunk)
-                hidden_rows.append(bh)
-                decoded.extend(chunk)
+                exec_tokens = self._run_refresh(
+                    chunk, h[row: row + len(chunk) * Sb])
+                row += len(chunk) * Sb
                 self.stats.refresh_steps += len(chunk)
                 iter_real += t_real
                 iter_exec += exec_tokens
@@ -549,43 +728,27 @@ class Engine:
         # ---- Reuse: one ragged block stream (packed) / pow2 batch ----
         r_real = r_exec = 0
         if plan.reuse:
-            r_real = len(plan.reuse) * self.serve.block_size
+            r_real = len(plan.reuse) * Sb
+            dst = h[row: row + r_real]
             if self._use_packed:
-                bh, r_exec = self._run_reuse_packed(layout.reuse)
+                r_exec = self._run_reuse_packed(layout.reuse, dst)
             else:
-                bh, r_exec = self._run_reuse(plan.reuse)
-            hidden_rows.append(bh)
-            decoded.extend(plan.reuse)
+                r_exec = self._run_reuse(plan.reuse, dst)
             self.stats.reuse_steps += len(plan.reuse)
             self._charge("reuse", r_exec,
                          kv_len=self.ctx.retain + self.serve.block_size,
                          actual_tokens=r_real)
 
         # ---- budgeted logit stage (C1) over every active block ----
-        n_real = n_exec = 0
-        ids = conf = None
+        n_exec = 0
+        result = None
         if decoded:
-            D = self.cfg.d_model
-            N = n_real = len(decoded) * self.serve.block_size
-            packed = self.serve.varlen_pack
-            # packed: token-bucket rounding + a validity mask; padded: the
-            # pow2 row bucket
-            b = (self._logit_bucket(N) if packed
-                 else _bucket(N, lo=self.serve.block_size))
-            h = torch.cat([r.reshape(-1, D) for r in hidden_rows], dim=0)
             if b != N:
-                h = F.pad(h, (0, 0, 0, b - N))
+                h[N:].zero_()
+            x = dec.host()
             if packed:
-                valid = torch.arange(b, device=self.device) < N
-                ids, conf = LM.decode_tokens_packed(
-                    self.params["embed"], self.cfg, h, valid,
-                    max_num_logits=self.serve.max_num_logits,
-                    mode=self.serve.logit_mode)
-            else:
-                ids, conf = LM.decode_tokens(
-                    self.params["embed"], self.cfg, h,
-                    max_num_logits=self.serve.max_num_logits,
-                    mode=self.serve.logit_mode)
+                x["valid"][:N] = True
+            result = dec.to_host(dec())
             # C1: serial sub-batches serialize on the device; monolithic
             # runs one big call (launch amortized, memory unbounded)
             if self.serve.logit_mode == "monolithic":
@@ -610,13 +773,13 @@ class Engine:
         log_row = dict(
             t=now, q_tokens=plan.query_tokens,
             n_refresh=len(plan.refresh), n_reuse=len(plan.reuse),
-            n_logits=len(decoded) * self.serve.block_size,
+            n_logits=N,
             refresh_tokens_real=iter_real, refresh_tokens_exec=iter_exec,
             reuse_tokens_real=r_real, reuse_tokens_exec=r_exec,
             logit_tokens_real=n_real, logit_tokens_exec=n_exec,
             plan_s=prep.plan_s, fill_s=fill_s, sync_s=0.0)
         self.stats.iter_log.append(log_row)
-        return _Pending(ids, conf, entries, log_row)
+        return _Pending(result, b if decoded else 0, entries, log_row)
 
     def _advance_control(self, decoded: List[Request],
                          t_commit: float) -> List[_CommitEntry]:
@@ -627,30 +790,33 @@ class Engine:
         for j, r in enumerate(decoded):
             steps_left = self.serve.steps_per_block - r.step_in_block
             n_commit = diffusion.commit_count(r.masked_left, steps_left)
-            entries.append(_CommitEntry(
-                req=r, row=j, block_start=r.block_start, n_commit=n_commit,
-                epoch=r.commit_epoch))
-            self.stats.committed_tokens += r.advance_control(n_commit,
-                                                             t_commit)
-            if r.state == State.FINISHED:
+            e = _CommitEntry(req=r, row=j, block_start=r.block_start,
+                             block_idx=r.block_idx, n_commit=n_commit,
+                             n_act=0, epoch=r.commit_epoch, finished=False,
+                             t=t_commit)
+            e.n_act = r.advance_control(n_commit, t_commit)
+            self.stats.committed_tokens += e.n_act
+            e.finished = r.state == State.FINISHED
+            if e.finished:
                 self.scheduler.finish(r)
                 self._tally(r)
+            entries.append(e)
         return entries
 
     def _sync_iteration(self, pending: _Pending) -> None:
-        """The iteration's one device->host copy: ids and the bits of the
-        confidences in one int32 buffer. Then each entry's values land in
-        its recorded block (dropped if a rollback bumped the epoch)."""
-        if pending.ids is None:
+        """The iteration's one wait: for the queued copy of the ids and the
+        confidences' bits (on the card, an event behind the copy into
+        pinned memory). Then each entry's values land in its recorded block
+        (dropped if a rollback bumped the epoch), and stream events fire."""
+        if pending.result is None:
             return
         t0 = time.perf_counter()
-        n = pending.ids.shape[0]
-        both = torch.cat([pending.ids, pending.conf.view(torch.int32)])
-        host = both.cpu().numpy()
-        ids, conf = host[:n], host[n:].view(np.float32)
+        host = pending.result.wait()
         sync_s = time.perf_counter() - t0
         self.stats.sync_wait_s += sync_s
         pending.log_row["sync_s"] = sync_s
+        n = pending.n_rows
+        ids, conf = host[:n], host[n:].view(np.float32)
         Sb = self.serve.block_size
         for e in pending.entries:
             if e.req.commit_epoch != e.epoch:
@@ -658,8 +824,16 @@ class Engine:
             rid = ids[e.row * Sb: (e.row + 1) * Sb]
             rconf = conf[e.row * Sb: (e.row + 1) * Sb]
             s = e.block_start
-            e.req.tokens[s: s + Sb] = diffusion.commit_tokens(
-                e.req.tokens[s: s + Sb], rid, rconf, e.n_commit, self.mask_id)
+            newblk = diffusion.commit_tokens(e.req.tokens[s: s + Sb], rid,
+                                             rconf, e.n_commit, self.mask_id)
+            e.req.tokens[s: s + Sb] = newblk
+            if self._stream_cb is not None:
+                self.stats.streamed_events += 1
+                self._stream_cb(dict(
+                    rid=e.req.rid, t=e.t, block_idx=e.block_idx,
+                    n_committed=e.n_act, finished=e.finished,
+                    tokens=np.array(newblk)))
+        pending.result.release()
 
     # ------------------------------------------------------------------
     def _check_slots(self, reqs: List[Request]) -> None:
@@ -675,116 +849,98 @@ class Engine:
                     f"stale slot handle: request {r.rid} holds slot "
                     f"{r.slot}@gen{r.slot_gen} but the pool is at gen {gen}")
 
-    def _run_refresh(self, chunk: List[Request]) -> Tuple[torch.Tensor, int]:
+    def _run_refresh(self, chunk: List[Request], dst: torch.Tensor) -> int:
         """Padded Refresh: a pow2 request bucket of ``[b, max_seq_len]``
-        rows; the pad rows' caches land in the scratch slot. Returns (block
-        hidden [n, Sb, D], executed tokens = b·max_seq_len)."""
+        rows; the pad rows' caches land in the scratch slot. Copies the
+        block hidden rows into ``dst`` [n·Sb, D]; returns the executed
+        tokens, b·max_seq_len."""
         n = len(chunk)
         b = _bucket(n)
         S = self.serve.max_seq_len
-        tokens = np.zeros((b, S), np.int32)
-        valid = np.zeros((b, S), bool)
-        bstart = np.zeros((b,), np.int32)
-        for j, r in enumerate(chunk):
-            tokens[j] = r.tokens
-            valid[j, : r.total_len] = True
-            bstart[j] = r.block_start
         self._check_slots(chunk)
-        out = BB.serve_refresh(self.params, self.cfg, self._dev(tokens),
-                               self._dev(bstart), self.ctx,
-                               token_valid=self._dev(valid))
-        self.pool.write([r.slot for r in chunk]
-                        + [self.pool.scratch_slot] * (b - n), out.cache)
+        e = self._entry("refresh", (b,))
+        x = e.host()
+        for j, r in enumerate(chunk):
+            x["tokens"][j] = r.tokens
+            x["valid"][j, : r.total_len] = True
+            x["bstart"][j] = r.block_start
+            x["slots"][j] = r.slot
+        dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.padded_refresh_calls += 1
         self.stats.refresh_tokens_real += sum(r.refresh_len for r in chunk)
         self.stats.refresh_tokens_exec += b * S
-        return out.block_hidden[:n], b * S
+        return b * S
 
-    def _run_refresh_packed(self, seg_layout) -> Tuple[torch.Tensor, int]:
+    def _run_refresh_packed(self, seg_layout, dst: torch.Tensor) -> int:
         """Token-packed Refresh: one ragged stream bucketed on total tokens.
-        Returns (block hidden [n, Sb, D], executed tokens)."""
+        Copies the block hidden rows into ``dst``; returns the executed
+        tokens."""
         chunk = list(seg_layout.requests)
         cu_real = seg_layout.cu_seqlens
         n = len(chunk)
         rp = _bucket(n)
         t_real = seg_layout.total_tokens
         tp = self._token_bucket(t_real)
-        tokens = np.zeros((tp,), np.int32)
-        pos = np.zeros((tp,), np.int32)
-        seg = np.full((tp,), PAD_SEG, np.int32)
-        valid = np.zeros((tp,), bool)
-        # padding requests point at the (invalid) tail so their gathers stay
-        # in bounds; their caches land in the scratch slot
-        cu = np.full((rp,), max(0, tp - 1), np.int32)
-        lens = np.zeros((rp,), np.int32)
-        bstart = np.zeros((rp,), np.int32)
+        self._check_slots(chunk)
+        e = self._entry("refresh_packed", (tp, rp))
+        x = e.host()
         for j, r in enumerate(chunk):
             off = int(cu_real[j])
             ln = r.refresh_len
             assert ln == int(cu_real[j + 1]) - off, "layout/request mismatch"
-            tokens[off: off + ln] = r.tokens[: r.total_len]
-            pos[off: off + ln] = np.arange(ln, dtype=np.int32)
-            seg[off: off + ln] = j
-            valid[off: off + ln] = True
-            cu[j] = off
-            lens[j] = ln
-            bstart[j] = r.block_start
-        self._check_slots(chunk)
-        out = BB.serve_refresh_packed(
-            self.params, self.cfg, self._dev(tokens), self._dev(pos),
-            self._dev(seg), self._dev(valid), self._dev(cu), self._dev(lens),
-            self._dev(bstart), self.ctx)
-        self.pool.write([r.slot for r in chunk]
-                        + [self.pool.scratch_slot] * (rp - n), out.cache)
+            x["tokens"][off: off + ln] = r.tokens[: r.total_len]
+            x["pos"][off: off + ln] = self._ar[:ln]
+            x["seg"][off: off + ln] = j
+            x["valid"][off: off + ln] = True
+            x["cu"][j] = off
+            x["lens"][j] = ln
+            x["bstart"][j] = r.block_start
+            x["slots"][j] = r.slot
+        dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.packed_refresh_calls += 1
         self.stats.refresh_tokens_real += t_real
         self.stats.refresh_tokens_exec += tp
-        return out.block_hidden[:n], tp
+        return tp
 
-    def _run_reuse_packed(self, seg_layout) -> Tuple[torch.Tensor, int]:
+    def _run_reuse_packed(self, seg_layout, dst: torch.Tensor) -> int:
         """Token-packed Reuse: the active blocks as one ``[R·Sb]`` stream,
         R rounded to the token-bucket granularity (scratch slots back the
-        padding segments). Returns (block hidden [n, Sb, D], rp·Sb)."""
+        padding segments). Copies the hidden rows into ``dst``; returns
+        rp·Sb."""
         reqs = list(seg_layout.requests)
         n = len(reqs)
         Sb = self.serve.block_size
         rp = self._reuse_bucket(n)
-        tq = rp * Sb
-        btok = np.zeros((tq,), np.int32)
-        bpos = np.zeros((tq,), np.int32)
-        slots = [self.pool.scratch_slot] * rp
+        self._check_slots(reqs)
+        e = self._entry("reuse_packed", (rp,))
+        x = e.host()
         for j, r in enumerate(reqs):
             off = int(seg_layout.cu_seqlens[j])
-            btok[off: off + Sb] = r.block_tokens()
-            bpos[off: off + Sb] = np.arange(r.block_start,
-                                            r.block_start + Sb)
-            slots[j] = r.slot
-        self._check_slots(reqs)
-        h = BB.serve_reuse_packed(self.params, self.cfg, self._dev(btok),
-                                  self._dev(bpos), self.pool.gather(slots),
-                                  self.ctx)
+            x["btok"][off: off + Sb] = r.block_tokens()
+            x["bpos"][off: off + Sb] = np.arange(r.block_start,
+                                                 r.block_start + Sb)
+            x["slots"][j] = r.slot
+        dst.copy_(e()[: n * Sb])
         self.stats.packed_reuse_calls += 1
         self.stats.reuse_tokens_real += n * Sb
-        self.stats.reuse_tokens_exec += tq
-        return h.reshape(rp, Sb, -1)[:n], tq
+        self.stats.reuse_tokens_exec += rp * Sb
+        return rp * Sb
 
-    def _run_reuse(self, reqs: List[Request]) -> Tuple[torch.Tensor, int]:
+    def _run_reuse(self, reqs: List[Request], dst: torch.Tensor) -> int:
         """Padded Reuse: a pow2 request bucket whose pad rows read the
-        scratch slot. Returns (block hidden [n, Sb, D], b·Sb)."""
+        scratch slot. Copies the hidden rows into ``dst``; returns b·Sb."""
         n = len(reqs)
         b = _bucket(n)
         Sb = self.serve.block_size
-        btok = np.zeros((b, Sb), np.int32)
-        bpos = np.zeros((b, Sb), np.int32)
-        slots = [self.pool.scratch_slot] * b
-        for j, r in enumerate(reqs):
-            btok[j] = r.block_tokens()
-            bpos[j] = np.arange(r.block_start, r.block_start + Sb)
-            slots[j] = r.slot
         self._check_slots(reqs)
-        h = BB.serve_reuse(self.params, self.cfg, self._dev(btok),
-                           self._dev(bpos), self.pool.gather(slots), self.ctx)
+        e = self._entry("reuse", (b,))
+        x = e.host()
+        for j, r in enumerate(reqs):
+            x["btok"][j] = r.block_tokens()
+            x["bpos"][j] = np.arange(r.block_start, r.block_start + Sb)
+            x["slots"][j] = r.slot
+        dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.padded_reuse_calls += 1
         self.stats.reuse_tokens_real += n * Sb
         self.stats.reuse_tokens_exec += b * Sb
-        return h[:n], b * Sb
+        return b * Sb

@@ -90,17 +90,27 @@ class KVPool:
                                   dtype=c.dtype, device=self.device),
             cache_example)
 
-    def _index(self, slots: Sequence[int]) -> torch.Tensor:
+    def _index(self, slots) -> torch.Tensor:
+        if isinstance(slots, torch.Tensor):
+            return slots
         return torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
 
-    def write(self, slots: Sequence[int], cache) -> None:
-        """Scatter ``cache`` (slot axis 1) into ``slots``, in place.
-        Repeated scratch-slot entries (padding rows) race, harmlessly."""
+    def write(self, slots, cache) -> None:
+        """Scatter ``cache`` (slot axis 1) into ``slots`` (a list, or an
+        int64 tensor on the pool's device, as the stage entries pass it),
+        in place. Repeated scratch-slot entries (padding rows) race,
+        harmlessly."""
         self.ensure(cache)
         idx = self._index(slots)
         for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
             dst.index_copy_(1, idx, src)
 
-    def gather(self, slots: Sequence[int]):
+    def gather(self, slots):
         idx = self._index(slots)
         return tree_map(lambda t: t.index_select(1, idx), self.cache)
+
+    def clear_slot(self, slot: int) -> None:
+        """Zero one slot in every leaf (the scratch slot after warmup)."""
+        if self.cache is not None:
+            for t in tree_leaves(self.cache):
+                t[:, slot].zero_()

@@ -1,4 +1,4 @@
-"""Where the serving time goes on the card: ``run_serve`` under
+"""Where the serving time goes on the card: ``Engine.run`` under
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b]
@@ -7,22 +7,23 @@
 Serves the full arch (default llada-8b; random bfloat16 weights from a
 seed) through a system's profile (default dllm-serve) with the kernels, the
 configuration chip_smoke.py drives (slots sized by the offline profiler at
-the card's memory), once to warm and once under the
-profiler (CUDA
-activity only: the script reads device events alone, and CPU events would
-double the events of a run that enqueues thousands of small ops per
-iteration).
+the card's memory; the launcher's defaults, so the pipelined loop and, on
+the card, the captured stage entries), once to warm and once under the
+profiler (CUDA activity only: the script reads device events alone).
+The profiled window is ``Engine.run`` alone: engine construction (weights
+drawn on the device) and warmup (the graphs' captures) stay outside, so the
+busy time and the run's wall clock cover the same span.
 Prints one JSON object: the device seconds summed over the profiled run's
 kernels and copies; the device's idle share against that run's wall time
 and against the unprofiled warm run's (the profiler slows the host, not
-the device); and device time by group — the port's kernels, matrix
-products, device<->host copies, everything else — and by kernel name. The
-profiled window spans all of ``run_serve``, engine construction (weights
-drawn on the device) and warm-up included.
+the device); device time by group — the port's kernels, matrix products,
+device<->host copies, everything else — and by kernel name; and the host
+split, ``warmup_s`` and the graph replays of the profiled serve.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
@@ -30,6 +31,7 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core.engine import Engine
 from repro_torch.launch.serve import run_serve
 
 SERVE_KW = dict(max_seq_len=256, block_size=8, max_slots=12,
@@ -53,6 +55,28 @@ def group_of(name: str) -> str:
     return "other"
 
 
+@contextlib.contextmanager
+def _profiled_run(box: dict):
+    """Profile every ``Engine.run`` inside the block, and nothing else:
+    the device is drained before the window opens and before it closes."""
+    run = Engine.run
+
+    def wrapped(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - t0
+        box["prof"] = prof
+        return out
+    Engine.run = wrapped
+    try:
+        yield box
+    finally:
+        Engine.run = run
+
+
 def profile_serve(arch: str, n: int, seed: int = 0,
                   system: str = "dllm-serve") -> dict:
     if not torch.cuda.is_available():
@@ -63,13 +87,11 @@ def profile_serve(arch: str, n: int, seed: int = 0,
               **SERVE_KW)
     warm = run_serve(arch, system, "livebench", 50.0, n, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with _profiled_run({}) as box:
         res = run_serve(arch, system, "livebench", 50.0, n, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    wall = box["wall"]
     by_name = {}
-    for e in prof.key_averages():
+    for e in box["prof"].key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 e.self_device_time_total > 0:
             by_name[e.key] = (e.self_device_time_total / 1e3, e.count)
@@ -88,7 +110,10 @@ def profile_serve(arch: str, n: int, seed: int = 0,
         unprofiled_wall_tok_s=warm["wall_tok_s"],
         unprofiled_idle_share=1.0 - busy_s / warm["wall_clock_s"],
         host_plan_s=res["host_plan_s"], host_fill_s=res["host_fill_s"],
-        sync_wait_s=res["sync_wait_s"],
+        sync_wait_s=res["sync_wait_s"], warmup_s=res["warmup_s"],
+        unprofiled_host_fill_s=warm["host_fill_s"],
+        pipeline=res["pipeline"], dispatched_ahead=res["dispatched_ahead"],
+        graph_replays=sum(res.get("graph_replays", {}).values()),
         refresh_waste=res["refresh_waste"], reuse_waste=res["reuse_waste"],
         logit_waste=res["logit_waste"],
         padded_refresh_calls=res["padded_refresh_calls"],

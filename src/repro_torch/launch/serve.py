@@ -21,10 +21,15 @@ under dllm-serve with ``--kernels`` only.
 
 As in the reference, the offline memory profiler sizes each system's slots
 by default (``size_by_profiler=True`` at ``hbm_gb=24``), planned on the full
-config at the paper's geometry whatever size is served. The one default
-that differs is ``pipeline=False``: the pipelined loop is not ported. Keys
-whose feature the port does not have yet carry the reference's "off" value:
-``compile_counts={}``, ``compiles_*=0``, ``mesh_devices=1``.
+config at the paper's geometry whatever size is served, and the engine runs
+the pipelined loop (``--no-pipeline``: the synchronous one; ``--stream``
+prints each commit event at its sync). On the card every (stage, bucket)
+entry is captured as a CUDA graph in warmup and replayed (the engine's
+``graphs=False`` runs the same entries eagerly, as the oracle).
+``compile_counts`` counts the entries built (captures, on the card), and the
+JSON adds ``graph_replays`` (replays per entry). Keys whose feature the
+port does not have yet carry the reference's "off" value:
+``mesh_devices=1``, sharing and faults at zero.
 """
 from __future__ import annotations
 
@@ -74,12 +79,12 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               deadline_slack: float = float("inf"),
               preempt_starvation_s: float = 0.0,
               kernels: Optional[bool] = None,
-              pipeline: bool = False,
+              pipeline: bool = True,
+              stream: bool = False,
               device: str = "cuda") -> dict:
-    """The reference's ``run_serve`` on the port, with its defaults except
-    ``pipeline``, and without the options of features not ported yet
-    (mesh, faults, sharing, int8 KV, streaming);
-    ``device`` picks where the engine runs."""
+    """The reference's ``run_serve`` on the port, with its defaults, and
+    without the options of features not ported yet (mesh, faults, sharing,
+    int8 KV); ``device`` picks where the engine runs."""
     cfg = get_config(arch)
     full_cfg = cfg
     if use_reduced:
@@ -103,7 +108,18 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
     plan = None
     if size_by_profiler:
         plan, serve = profile_slots(full_cfg, serve, max_slots, hbm_gb)
-    eng = Engine(cfg, serve, seed=seed, clock=clock, device=device)
+    stream_cb = None
+    if stream:
+        # one event per request per iteration, fired at its sync: the first
+        # host-side sight of the token values
+        def stream_cb(ev):
+            if not quiet:
+                tok = ev["tokens"][:4]
+                print(f"  stream rid={ev['rid']} block={ev['block_idx']} "
+                      f"+{ev['n_committed']} tok "
+                      f"{'FIN ' if ev['finished'] else ''}{tok}...")
+    eng = Engine(cfg, serve, seed=seed, clock=clock, stream_cb=stream_cb,
+                 device=device)
     warmup_s = eng.warmup()
     prompts = trace_prompts(trace, cfg.vocab_size, seed=seed)
     reqs = []
@@ -195,6 +211,7 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         / eng.work_split,
         logit_tokens_exec_per_device=stats.logit_tokens_exec
         / eng.work_split,
+        graph_replays=dict(stats.graph_replays),
     )
 
 
@@ -217,12 +234,20 @@ def main():
     ap.add_argument("--clock", default="modeled", choices=["modeled", "wall"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu runs the kernels' plain versions")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="the synchronous loop (sync every iteration) in "
+                         "place of the dispatch-ahead pipelined loop; same "
+                         "ids, counters and modeled clock")
+    ap.add_argument("--stream", action="store_true",
+                    help="print a commit event per request at each "
+                         "iteration's sync")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     res = run_serve(args.arch, args.system, args.workload, args.rps, args.n,
                     use_reduced=not args.full, seed=args.seed, quiet=False,
                     kernels=True if args.kernels else None,
-                    clock=args.clock, device=args.device)
+                    clock=args.clock, pipeline=not args.no_pipeline,
+                    stream=args.stream, device=args.device)
     print(json.dumps(res, indent=2))
     if args.out:
         with open(args.out, "w") as f:

@@ -9,7 +9,8 @@ reference.
 * The slot pool the engine allocates holds ``kv_slot_bytes`` a slot.
 * ``run_serve`` at both packages' keyword defaults (the profiler on, 24 GB)
   gives the same ids, counters, modeled clock, slots and plan.
-* The two ``run_serve`` signatures share their defaults, but ``pipeline``.
+* The two ``run_serve`` signatures share every default (``pipeline=True``
+  included).
 """
 import dataclasses
 import inspect
@@ -79,18 +80,11 @@ def test_pool_slot_bytes_are_kv_slot_bytes(arch, system):
     assert pool_bytes % (serve.max_slots + 1) == 0
 
 
-# keys of the reference's pipelined loop: the port runs the synchronous
-# loop, which the reference's pipelined loop equals in ids, counters and
-# modeled clock by construction
-PIPELINE_ONLY = {
-    "pipeline": "the port's default is the synchronous loop",
-    "dispatched_ahead": "iterations the pipelined loop dispatched ahead",
-    "overlapped_host_s": "host seconds the pipelined loop hid",
-    "overlap_frac": "the share of host time the pipelined loop hid",
-}
 HOST_CLOCK = {"host_plan_s", "host_fill_s", "sync_wait_s", "warmup_s",
-              "wall_clock_s", "wall_tok_s"}     # the host's clock
+              "wall_clock_s", "wall_tok_s", "overlapped_host_s",
+              "overlap_frac"}     # the host's clock
 JAX_ONLY = {"compile_counts", "compiles_warmup", "compiles_post_warmup"}
+PORT_ONLY = {"graph_replays"}     # replays per captured stage entry
 
 
 @pytest.mark.parametrize("system,slots", [("dllm-serve", 6),
@@ -98,23 +92,25 @@ JAX_ONLY = {"compile_counts", "compiles_warmup", "compiles_post_warmup"}
 def test_run_serve_defaults_match_reference(system, slots):
     want = jrun_serve("llada-8b", system, "burst", 4.0, 3)
     got = trun_serve("llada-8b", system, "burst", 4.0, 3, device="cpu")
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_ONLY
     assert got["max_slots"] == slots and got["n_finished"] == 3
     assert got["plan_slots_phys"] == slots and got["plan_slot_bytes"] > 0
-    for k in sorted(set(want) - set(PIPELINE_ONLY) - HOST_CLOCK - JAX_ONLY):
+    assert got["pipeline"] is True and got["dispatched_ahead"] > 0
+    for k in sorted(set(want) - HOST_CLOCK - JAX_ONLY):
         assert got[k] == want[k], k
 
 
 def test_run_serve_signatures_share_defaults():
-    """Every parameter of both launchers has the reference's default, but
-    ``pipeline``: the pipelined loop is not ported (ROADMAP Queue C 1)."""
+    """Every parameter of both launchers has the reference's default, the
+    pipelined loop and streaming included."""
     jsig = inspect.signature(jrun_serve).parameters
     tsig = inspect.signature(trun_serve).parameters
     shared = set(jsig) & set(tsig)
-    assert {"size_by_profiler", "hbm_gb", "kernels", "clock"} <= shared
+    assert {"size_by_profiler", "hbm_gb", "kernels", "clock", "pipeline",
+            "stream"} <= shared
     differ = {n for n in shared if jsig[n].default != tsig[n].default}
-    assert differ == {"pipeline"}, differ
-    assert tsig["pipeline"].default is False
+    assert differ == set(), differ
+    assert tsig["pipeline"].default is True
 
 
 def test_measure_logit_peak_refuses_the_cpu():

@@ -174,16 +174,24 @@ def test_request_level_scheduler_plans_match_reference():
     assert n_plans > 10
 
 
+# the port's own key: replays per captured stage entry (none on the CPU)
+PORT_ONLY = {"graph_replays"}
+
+
 @pytest.mark.parametrize("workload", ["burst", "livebench"])
 def test_run_serve_json_matches_reference(workload):
+    """Both launchers on the pipelined loop with streaming: the dispatched-
+    ahead iterations and the streamed events are compared too."""
     kw = dict(use_reduced=True, seed=1, kernels=True, clock="modeled",
-              size_by_profiler=False, pipeline=False, max_seq_len=128,
-              max_num_batched_tokens=384, max_slots=6)
+              size_by_profiler=False, pipeline=True, stream=True,
+              max_seq_len=128, max_num_batched_tokens=384, max_slots=6)
     want = jrun_serve("llada-8b", "dllm-serve", workload, 4.0, 4, **kw)
     got = trun_serve("llada-8b", "dllm-serve", workload, 4.0, 4,
                      device="cpu", **kw)
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_ONLY
     assert got["n_finished"] == 4
+    assert got["pipeline"] is True and got["dispatched_ahead"] > 0
+    assert got["streamed_events"] > 0 and got["graph_replays"] == {}
     skip = HOST_TIMES | JAX_ONLY | {"warmup_s", "wall_clock_s", "wall_tok_s",
                                     "overlap_frac", "compiles_post_warmup"}
     for k in sorted(set(want) - skip):
@@ -200,6 +208,7 @@ def test_run_serve_baseline_json_matches_reference():
     got = trun_serve("llada-8b", "sparse-dllm", "burst", 4.0, 3,
                      device="cpu", **kw)
     assert got["n_finished"] == 3 and got["padded_reuse_calls"] > 0
+    assert set(got) == set(want) | PORT_ONLY
     skip = HOST_TIMES | JAX_ONLY | {"warmup_s", "wall_clock_s", "wall_tok_s",
                                     "overlap_frac", "compiles_post_warmup"}
     for k in sorted(set(want) - skip):
@@ -209,7 +218,10 @@ def test_run_serve_baseline_json_matches_reference():
 def test_unported_engine_options_raise():
     tcfg = treduced(get_config("llada-8b"))
     base = _serve(TServe, tprofiles)
-    for bad in (dict(pipeline=True), dict(mesh_shape=(1, 2)),
+    # the pipelined loop is ported: the reference's default constructs
+    assert TEngine(tcfg, dataclasses.replace(base, pipeline=True),
+                   device="cpu").serve.pipeline
+    for bad in (dict(mesh_shape=(1, 2)),
                 dict(prefix_sharing=True), dict(kv_quant="int8")):
         with pytest.raises(NotImplementedError):
             TEngine(tcfg, dataclasses.replace(base, **bad), device="cpu")
