@@ -15,7 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      shared block's causal attention at head_dim 112; the float32 SSD scan
      at zamba2-7b's and mamba2-130m's widths; the padded path's kernels at
      llada-8b's padded Reuse, padded prefill (also with a ragged kv_valid
-     tail and a request with no valid key) and padded Refresh scoring),
+     tail and a request with no valid key) and padded Refresh scoring;
+     the dense archs' heads: rows 1-3 at gemma-2b's head_dim 256 on one
+     KV head and at gemma2-27b's G = 2 with softcap 50 and a window of 64
+     that cuts, row 1 at qwen2.5-14b's G = 5 and qwen2-72b's H = 64, K =
+     8, row 4 on gemma2-27b's tied 256,000-row head with softcap 30, rows
+     6-8 at gemma-2b's head_dim 256),
      with the kernel's time, the plain version's, one PyTorch library
      call's where one computes the same function (a yardstick the port
      never calls), the least time the card could take (bound_ms) and, for
@@ -34,28 +39,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      / ops.head_score), which hands over the keys as a strided view, no
      copy;
   4. a small end-to-end check: three iterations of reduced llada-8b and of
-     reduced zamba2-7b under dllm-serve, and of reduced llada-8b under
-     sparse-dllm (the padded path), on the card against the same iterations
-     on the CPU (the plain versions);
+     reduced zamba2-7b under dllm-serve, of reduced llada-8b under
+     sparse-dllm (the padded path), of reduced gemma2-27b (two KV heads)
+     and of reduced gemma-2b (head_dim 256, also under sparse-dllm), on
+     the card against the same iterations on the CPU (the plain versions);
   5. footprint: each llada-8b system's memory plan (the offline profiler)
      at 24 GB and at the card's memory, and the logit stage's peak bytes
      measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
      graphs: the full llada-8b under dllm-serve and sparse-dllm and the
-     full zamba2-7b under dllm-serve, on the modeled clock, by an engine
+     full zamba2-7b, gemma2-27b and gemma-2b under dllm-serve, on the
+     modeled clock, by an engine
      whose stage entries are captured CUDA graphs and by one running the
      same entries eagerly, on the same weights: ids, counters, modeled
      clock and launches identical, nothing built after warmup (warmup
      seconds, captures, the graph pool's bytes and the plan's activation
      reservation logged);
-     serve: run_serve of the full llada-8b, the full zamba2-7b and the full
-     mamba2-130m (random bfloat16 weights from a seed) through the
-     dllm-serve profile, and of the full llada-8b through the three
-     baselines fast-dllm, dllm-cache and sparse-dllm (the padded path), with
-     the kernels, at the launcher's defaults (the pipelined loop, the
-     captured stage entries), on the wall clock, each sized by the offline
-     profiler at the card's memory (its plan logged); then one padded
-     prefill of the full llada-8b through the flash_refresh kernel, held
-     against the same call without it. Each path runs with the launch
+     serve: run_serve of the full llada-8b, zamba2-7b, mamba2-130m,
+     qwen2.5-14b, gemma2-27b and gemma-2b (random bfloat16 weights from a
+     seed) through the dllm-serve profile, and of the full llada-8b
+     through the three baselines fast-dllm, dllm-cache and sparse-dllm and
+     the full gemma-2b through sparse-dllm (the padded path), with the
+     kernels, at the launcher's defaults (the pipelined loop, the captured
+     stage entries), on the wall clock, each sized by the offline profiler
+     at the card's memory (its plan and the graph pool's bytes logged);
+     then one padded prefill each of the full llada-8b and gemma-2b
+     through the flash_refresh kernel, held against the same call without
+     it. Each path runs with the launch
      counts zeroed just before it and read just after; every request must
      finish, every kernel of the path must have launched (warmup's eager
      runs and the run's graph replays), nothing may be built after warmup,
@@ -84,12 +93,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # long logs
+# torch.compile (flex_attention, the softcapped rows' library call) keeps
+# its caches inside the checkout and compiles in this process
+os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(OUT_DIR, "inductor")
+os.environ["TRITON_CACHE_DIR"] = os.path.join(OUT_DIR, "triton")
+os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
 
 import torch  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # long logs
 SLEEP_CYCLES = 40_000_000         # ~20 ms of device backlog at H100 clocks
 
 
@@ -179,13 +193,53 @@ def stream(lens, pad, dev):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
+def gqa_heads(q, G):
+    """Token-major GQA rows [..., K, T·G, dh] as query heads [..., K·G, T,
+    dh] (head k·G + g reads KV head k), for SDPA's enable_gqa."""
+    *lead, K, RG, dh = q.shape
+    T = RG // G
+    return (q.reshape(*lead, K, T, G, dh).transpose(-3, -2)
+            .reshape(*lead, K * G, T, dh))
+
+
+def flex_library(dev, qh, k, v, keep, softcap, G):
+    """One call of PyTorch's ``flex_attention`` that computes the kernel's
+    function where SDPA cannot (a softcap): the softcap as its score_mod
+    (on the scaled scores, as the kernel applies it), ``keep(h, q, kv)`` as
+    its block mask. Compiled, and the block mask built, before it is
+    timed."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    flex = torch.compile(flex_attention, dynamic=False)
+    H, Tq, Tkv = qh.shape[1], qh.shape[2], k.shape[-2]
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return keep(h, q_idx, kv_idx)
+    block_mask = create_block_mask(mask_mod, 1, H, Tq, Tkv, device=dev)
+    return lambda: flex(qh, k[None], v[None], score_mod=capped,  # noqa
+                        block_mask=block_mask, enable_gqa=G > 1)
+
+
+def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True,
+                       window=0):
+    """Row 1: small float32 shapes with every flag (dh 64, and dh 256 on one
+    KV head), then the main path's full Refresh stream in bfloat16 at the
+    arch's heads, with its attention softcap and, with ``window``, a local
+    layer's sliding window (ragged segments of 230-256 tokens, so a window
+    of 64 cuts them). The SDPA
+    yardstick takes GQA heads by ``enable_gqa``; where a softcap applies,
+    which SDPA has not, ``flex_attention`` is the library call, held to the
+    plain version first."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_varlen as FV
-    if small:
-        # small float32, GQA G=2, every mask flag, ragged tile edges
+    # small float32, GQA, every mask flag, ragged tile edges, at dh 64 and
+    # at gemma-2b's dh 256 on one KV head
+    for K, G, dh in ((2, 2, 64), (1, 8, 256)) if small else ():
         seg, pos, valid = stream([70, 9, 133, 1], 43, dev)
-        T, K, G, dh = seg.shape[0], 2, 2, 64
+        T = seg.shape[0]
         q = torch.randn((K, T * G, dh), generator=g, device=dev)
         k = torch.randn((K, T, dh), generator=g, device=dev)
         v = torch.randn((K, T, dh), generator=g, device=dev)
@@ -197,8 +251,8 @@ def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
                                             pos.expand(K, T), seg,
                                             valid.expand(K, T), loc, **kw)
             err = (out[:, rows] - ref[:, rows]).abs().max().item()
-            log(f"  flash_varlen f32 {kw or 'plain'} local={loc}: "
-                f"max_abs_err={err:.3g} (tol 1e-4)")
+            log(f"  flash_varlen f32 G={G} dh={dh} {kw or 'plain'} "
+                f"local={loc}: max_abs_err={err:.3g} (tol 1e-4)")
             assert err < 1e-4, err
     # the main path's full Refresh stream: 4 refresh slots x max_seq_len
     # filling the max_num_batched_tokens bucket, bf16, the arch's heads
@@ -206,47 +260,71 @@ def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True):
     T = serve.max_num_batched_tokens
     seg, pos, valid = stream(lens, T - sum(lens), dev)
     K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
-    G = cfg.n_heads // K
+    G, softcap, local = cfg.n_heads // K, cfg.attn_softcap, bool(window)
     q = torch.randn((K, T * G, dh), generator=g, device=dev, dtype=bf)
     k = torch.randn((K, T, dh), generator=g, device=dev, dtype=bf)
     v = torch.randn((K, T, dh), generator=g, device=dev, dtype=bf)
     kvp, kvv = pos.expand(K, T), valid.expand(K, T)
+    kw = dict(softcap=softcap, causal=causal, window=window)
     call = lambda: FV.flash_varlen_call(q, k, v, pos, seg, valid,  # noqa
-                                        causal=causal)
+                                        local, **kw)
     plain = lambda: FV.varlen_attention_plain(  # noqa: E731
-        q, k, v, pos, seg, kvp, seg, kvv, False, causal=causal)
+        q, k, v, pos, seg, kvp, seg, kvv, local, **kw)
     out, ref = call(), plain()
     rows = valid.repeat_interleave(G)
     err = (out[:, rows] - ref[:, rows]).abs().max().item()
-    log(f"  flash_varlen bf16 {cfg.name} T={T} K={K} dh={dh} causal="
-        f"{causal}: max_abs_err={err:.3g} (tol 2e-2)")
+    log(f"  flash_varlen bf16 {cfg.name} T={T} K={K} G={G} dh={dh} causal="
+        f"{causal} softcap={softcap} window={window}: max_abs_err={err:.3g} "
+        f"(tol 2e-2)")
     assert err < 2e-2, err
-    assert G == 1, "the SDPA yardstick below takes one query head per KV head"
     mask = (seg[:, None] == seg[None, :]) & valid[None, :]
     if causal:
         mask = mask & (pos[:, None] >= pos[None, :])
+    if window:
+        mask = mask & ((pos[:, None] - pos[None, :]).abs() <= window)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = sum(n * (n + 1) // 2 if causal else n * n for n in lens)
-    ops = 4.0 * pairs * cfg.n_heads * dh
+    ops = 4.0 * int(mask.sum()) * cfg.n_heads * dh
     b, by = bound(ops, nbytes(q, k, v, seg, pos, valid) + K * T * G * dh * 4,
                   bf)
     dev_ms = time_ms(call, queued=True)
+    qh = gqa_heads(q, G)[None]
 
     def library():
-        return sdpa(q[None], k[None], v[None], attn_mask=mask)
+        return sdpa(qh, k[None], v[None], attn_mask=mask, enable_gqa=G > 1)
+    if softcap:
+        def keep(h, i, j):
+            ok = (seg[i] == seg[j]) & valid[j]
+            if causal:
+                ok = ok & (pos[i] >= pos[j])
+            if window:
+                ok = ok & ((pos[i] - pos[j]).abs() <= window)
+            return ok
+        library = flex_library(dev, qh, k, v, keep, softcap, G)
+        hrows = valid.expand(cfg.n_heads, T)
+        lib_err = (library()[0].float()[hrows]
+                   - gqa_heads(ref, G)[hrows]).abs().max().item()
+        log(f"  flash_varlen {cfg.name} library flex_attention: "
+            f"max_abs_err={lib_err:.3g} (tol 2e-2)")
+        assert lib_err < 2e-2, lib_err
+    lib = dict(library_ms=time_ms(library),
+               library_device_ms=time_ms(library, queued=True))
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:97",
         max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(library),
-        splits=FV.kv_splits(T * G, K, T, build.sm_count(dev)),
-        device_ms=dev_ms, library_device_ms=time_ms(library, queued=True),
-        tflop_s=ops / dev_ms / 1e9, host_us=host_us(call))
+        bound_ms=b, bound_by=by, **lib,
+        splits=FV.kv_splits(T * G, K, T, build.sm_count(dev), dh=dh),
+        device_ms=dev_ms, tflop_s=ops / dev_ms / 1e9, host_us=host_us(call))
 
 
 def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
-                             small=True):
+                             small=True, window=0):
+    """Row 2: small float32 shapes with every flag (dh 64 and 256), then the
+    main path's largest Reuse stream in bfloat16 at the arch's heads, with
+    its softcap and, with ``window``, a local layer's window (retained keys at
+    positions 0-299 against a block at 200-207: a window of 64 cuts); the
+    chooser's split count and a sweep of others. SDPA, or
+    ``flex_attention`` where a softcap applies, as for row 1."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_varlen as FV
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -268,8 +346,8 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
         kv_pos.view(K, R, Cr + Sb)[:, :, Cr:] = q_pos.view(R, Sb)
         return q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid
 
-    if small:
-        args = case(5, 8, 40, 2, 2, 64, torch.float32)
+    for K, G, dh in ((2, 2, 64), (1, 8, 256)) if small else ():
+        args = case(5, 8, 40, K, G, dh, torch.float32)
         q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
         for kw in (dict(), dict(softcap=20.0), dict(causal=True),
                    dict(window=30)):
@@ -278,51 +356,73 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
             ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos,
                                             kv_seg, kv_valid, loc, **kw)
             err = (out - ref).abs().max().item()
-            log(f"  flash_varlen_cross f32 {kw or 'plain'}: max_abs_err="
-                f"{err:.3g} (tol 1e-4)")
+            log(f"  flash_varlen_cross f32 G={G} dh={dh} {kw or 'plain'}: "
+                f"max_abs_err={err:.3g} (tol 1e-4)")
             assert err < 1e-4, err
     # the main path's largest Reuse stream: every slot decoding a block
     R, Sb = serve.max_slots, serve.block_size
     K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
-    G = cfg.n_heads // K
+    G, softcap, local = cfg.n_heads // K, cfg.attn_softcap, bool(window)
     args = case(R, Sb, retain, K, G, dh, bf)
     q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
-    call = lambda: FV.flash_varlen_cross_call(*args,  # noqa: E731
-                                              causal=causal)
+    kw = dict(softcap=softcap, causal=causal, window=window)
+    call = lambda: FV.flash_varlen_cross_call(*args, local,  # noqa: E731
+                                              **kw)
     plain = lambda: FV.varlen_attention_plain(  # noqa: E731
-        q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid, False, causal=causal)
+        q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid, local, **kw)
     out, ref = call(), plain()
     err = (out - ref).abs().max().item()
     log(f"  flash_varlen_cross bf16 {cfg.name} R={R} Tq={R * Sb} "
-        f"Tkv={k.shape[1]} dh={dh} causal={causal}: max_abs_err={err:.3g} "
-        f"(tol 2e-2)")
+        f"Tkv={k.shape[1]} K={K} G={G} dh={dh} causal={causal} softcap="
+        f"{softcap} window={window}: max_abs_err={err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
     mask = (q_seg[:, None] == kv_seg[None, :])[None] & kv_valid[:, None, :]
     if causal:
         mask = mask & (q_pos[None, :, None] >= kv_pos[:, None, :])
-        # the causal mask removes pairs: count the ones this data keeps
+    if window:
+        mask = mask & ((q_pos[None, :, None] - kv_pos[:, None, :]).abs()
+                       <= window)
+    if causal or window:
+        # the mask removes pairs: count the ones this data keeps
         ops = 4.0 * int(mask.sum()) * G * dh
     else:
         ops = 4.0 * R * Sb * (retain + Sb) * cfg.n_heads * dh
     moved = nbytes(*args) + q.numel() * 4
     b, by = bound(ops, moved, bf)
-    splits = FV.kv_splits(q.shape[1], K, k.shape[1], build.sm_count(dev))
+    splits = FV.kv_splits(q.shape[1], K, k.shape[1], build.sm_count(dev),
+                          dh=dh)
     # the kernel at other split counts than the chooser's, for PERF.md
     sweep = [[s, time_ms(lambda s=s: FV._launch(
         FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid,
-        k.shape[1], False, 0.0, causal, 0, splits=s), queued=True)]
+        k.shape[1], local, softcap, causal, window, splits=s), queued=True)]
         for s in sorted({1, 2, 3, 4, splits, 2 * splits})]
     dev_ms = time_ms(call, queued=True)
+    qh, mh = gqa_heads(q, G)[None], mask.repeat_interleave(G, 0)[None]
 
     def library():
-        return sdpa(q[None], k[None], v[None], attn_mask=mask[None])
+        return sdpa(qh, k[None], v[None], attn_mask=mh, enable_gqa=G > 1)
+    if softcap:
+        def keep(h, i, j):
+            kh = h // G
+            ok = (q_seg[i] == kv_seg[j]) & kv_valid[kh, j]
+            if causal:
+                ok = ok & (q_pos[i] >= kv_pos[kh, j])
+            if window:
+                ok = ok & ((q_pos[i] - kv_pos[kh, j]).abs() <= window)
+            return ok
+        library = flex_library(dev, qh, k, v, keep, softcap, G)
+        lib_err = (library()[0].float()
+                   - gqa_heads(ref, G)).abs().max().item()
+        log(f"  flash_varlen_cross {cfg.name} library flex_attention: "
+            f"max_abs_err={lib_err:.3g} (tol 2e-2)")
+        assert lib_err < 2e-2, lib_err
+    lib = dict(library_ms=time_ms(library),
+               library_device_ms=time_ms(library, queued=True))
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
         replaces="src/repro/kernels/flash_varlen.py:220",
         max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=5),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(library), device_ms=dev_ms,
-        library_device_ms=time_ms(library, queued=True),
+        bound_ms=b, bound_by=by, **lib, device_ms=dev_ms,
         splits=splits, tb_s=moved / dev_ms / 1e9,
         host_us=host_us(call),
         ms_by_splits=sweep)
@@ -422,7 +522,15 @@ def check_head_score(dev, g, cfg, serve, small=True):
     return row
 
 
-def check_logit_argmax(dev, g, cfg, serve, tied):
+def check_logit_argmax(dev, g, cfg, serve, tied, heads):
+    """Row 4: float32 in both layouts with a softcap; then in bfloat16 one
+    max_num_logits chunk and the serving buckets T = 8 and 40 against the
+    main path's [D, V] head (``cfg``), the same buckets against each of
+    ``heads``' own head, in its layout and with its final softcap
+    (gemma2-27b's tied [V, D] head: V = 256,000, D = 4608, softcap 30;
+    qwen2.5-14b's untied [D, V] head: D = 5120, V = 152,064; gemma-2b's
+    tied one: D = 2048), and one chunk against ``tied``'s tied head (V not
+    a multiple of the 128-wide vocabulary tile)."""
     from repro_torch.kernels import logit_argmax as LA
 
     def compare(h, w, valid, layout, softcap, tol):
@@ -454,32 +562,49 @@ def check_logit_argmax(dev, g, cfg, serve, tied):
         err, n = compare(h, w, valid, layout, 15.0, 1e-3)
         log(f"  fused_logit_argmax f32 {layout} softcap: max_err={err:.3g} "
             f"(tol 1e-3), {n} ids compared")
-    # one max_num_logits chunk of the main path against the llada-8b head,
-    # then the serving buckets T = 8 and 40 against the same head
-    D, V, bf = cfg.d_model, cfg.vocab_size, torch.bfloat16
-    w = torch.empty((D, V), device=dev, dtype=bf).normal_(0, 0.02,
-                                                          generator=g)
-    rows = {}
-    for T in sorted({serve.max_num_logits, 8, 40}, reverse=True):
-        h = torch.randn((T, D), generator=g, device=dev, dtype=bf)
-        valid = torch.ones(T, dtype=torch.bool, device=dev)
-        err, n = compare(h, w, valid, "dv", 0.0, 2e-3)
-        log(f"  fused_logit_argmax bf16 T={T} D={D} V={V}: max_err={err:.3g} "
-            f"(tol 2e-3), {n}/{T} ids compared")
+    bf = torch.bfloat16
 
-        def library(h=h):
-            z = (h @ w).float()
-            return z.argmax(dim=1), torch.logsumexp(z, dim=1)
+    def buckets(c, layout, softcap):
+        # one max_num_logits chunk, then the serving buckets T = 8 and 40,
+        # against c's head in the layout
+        D, V = c.d_model, c.vocab_size
+        w = torch.empty((D, V) if layout == "dv" else (V, D), device=dev,
+                        dtype=bf).normal_(0, 0.02, generator=g)
+        wm = w if layout == "dv" else w.t()
+        rows = {}
+        for T in sorted({serve.max_num_logits, 8, 40}, reverse=True):
+            h = torch.randn((T, D), generator=g, device=dev, dtype=bf)
+            valid = torch.ones(T, dtype=torch.bool, device=dev)
+            err, n = compare(h, w, valid, layout, softcap, 2e-3)
+            log(f"  fused_logit_argmax bf16 {layout} {c.name} T={T} D={D} "
+                f"V={V} softcap={softcap}: max_err={err:.3g} (tol 2e-3), "
+                f"{n}/{T} ids compared")
 
-        b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
-        ms = time_ms(lambda h=h, valid=valid: LA.fused_logit_argmax_call(
-            h, w, valid))
-        rows[T] = dict(
-            max_abs_err=err, ms=ms,
-            plain_ms=time_ms(lambda h=h: LA.fused_logit_argmax_plain(h, w),
-                             iters=3),
-            bound_ms=b, bound_by=by, library_ms=time_ms(library),
-            w_tb_s=nbytes(w) / ms / 1e9, ids_compared=n)
+            def library(h=h):
+                z = (h @ wm).float()
+                if softcap:
+                    z = softcap * torch.tanh(z / softcap)
+                return z.argmax(dim=1), torch.logsumexp(z, dim=1)
+
+            b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
+            ms = time_ms(lambda h=h, valid=valid: LA.fused_logit_argmax_call(
+                h, w, valid, softcap=softcap, w_layout=layout))
+            rows[T] = dict(
+                max_abs_err=err, ms=ms,
+                plain_ms=time_ms(lambda h=h: LA.fused_logit_argmax_plain(
+                    h, w, softcap=softcap, w_layout=layout), iters=3),
+                bound_ms=b, bound_by=by, library_ms=time_ms(library),
+                w_tb_s=nbytes(w) / ms / 1e9, ids_compared=n)
+        del w, wm
+        return rows
+
+    rows = buckets(cfg, "dv", 0.0)
+    head_rows = {}
+    for c in heads:
+        layout = "vd" if c.tie_embeddings else "dv"
+        for t, r in sorted(buckets(c, layout, c.final_softcap).items(),
+                           reverse=True):
+            head_rows[f"{c.name} {layout} T={t}"] = r
     # the tied [V, D] head of the attention-free arch, V not a multiple of
     # the 128-wide vocabulary tile
     T = serve.max_num_logits
@@ -495,7 +620,8 @@ def check_logit_argmax(dev, g, cfg, serve, tied):
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/logit_argmax.cu",
         replaces="src/repro/kernels/logit_argmax.py:80",
-        **main, **{f"T={t}": r for t, r in sorted(rows.items())})
+        **main, **{f"T={t}": r for t, r in sorted(rows.items())},
+        **head_rows)
 
 
 def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
@@ -573,14 +699,16 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
     return dict(main_row, **out)
 
 
-def check_packed_flash_attention(dev, g, cfg, retains):
+def check_packed_flash_attention(dev, g, cfg, retains, small=True):
     """Row 6 at small float32 shapes with every flag (GQA rows reading mask
     row r // G, a one-row mask, softcap, a fully masked head, ragged KV
     tiles) on the first tile; at small bfloat16 shapes on the Hopper tile
-    (R = 8, 16, 64 rows, Sm = 1 or Sb, softcap, head dims 64 and 112, T =
-    40 and 1000, a fully masked head); then at llada-8b's padded Reuse in
-    bfloat16: B = 16 (the pow2 bucket of 12 slots), K = 32, Sb = 8, the
-    retained T of each baseline and the engine's one-row mask. Tolerances:
+    (R = 8, 16, 64 rows, Sm = 1 or Sb, softcap, head dims 64, 112 and 256,
+    T = 40, 200 and 1000, a fully masked head); then at llada-8b's padded
+    Reuse in bfloat16: B = 16 (the pow2 bucket of 12 slots), K = 32, Sb =
+    8, the retained T of each baseline and the engine's one-row mask (with
+    ``small=False`` only this, at ``cfg``'s heads: gemma-2b's K = 1, R = 64
+    rows, dh = 256). Tolerances:
     m to 1e-4; s and o relative to the row sums, 1e-4 (float32) and 2e-2
     (bfloat16: P rounded before P·V)."""
     from repro_torch.kernels import flash_attention as FA
@@ -604,9 +732,11 @@ def check_packed_flash_attention(dev, g, cfg, retains):
 
     for dtype, tol, shapes in (
             (torch.float32, 1e-4, ((2, 8, 200, 64), (1, 1, 200, 64),
-                                   (4, 8, 200, 64))),
+                                   (4, 8, 200, 64), (8, 1, 200, 256))),
             (torch.bfloat16, 2e-2, ((1, 8, 40, 64), (2, 1, 1000, 112),
-                                    (8, 8, 1000, 64), (8, 1, 40, 112)))):
+                                    (8, 8, 1000, 64), (8, 1, 40, 112),
+                                    (8, 1, 200, 256)))
+    ) if small else ():
         for G, Sm, T, dh in shapes:
             args = case(3, 2, 8 * G, T, Sm, dh, dtype, 0.6)
             args[3][1, 0] = False
@@ -629,7 +759,7 @@ def check_packed_flash_attention(dev, g, cfg, retains):
         q, k, v, mask = args
         err, _ = err_of(args, 0.0, 2e-2)
         log(f"  packed_flash_attention bf16 {cfg.name} B={B} K={K} R={R} "
-            f"T={T} ({name}): max_err={err:.3g} (tol 2e-2 rel.)")
+            f"T={T} dh={dh} ({name}): max_err={err:.3g} (tol 2e-2 rel.)")
         full = mask.expand(B, K, R, T)
         pairs = int(mask.sum()) * R
         b, by = bound(4.0 * pairs * dh,
@@ -655,12 +785,14 @@ def check_packed_flash_attention(dev, g, cfg, retains):
     return dict(main_row, **out)
 
 
-def check_flash_refresh(dev, g, cfg):
+def check_flash_refresh(dev, g, cfg, small=True):
     """Row 7 at small float32 shapes with every flag (GQA, causal, window
     on and off a local layer, softcap, kv_valid holes, a batch row with no
-    valid key, a ragged last tile), then at the padded prefill of llada-8b
-    in bfloat16: B = 2, S = 2048, K = 32, dh = 128. Tolerances 1e-4
-    (float32) and 2e-2 (bfloat16)."""
+    valid key, a ragged last tile; dh 64, and dh 256 on one KV head), then
+    at the padded prefill of ``cfg`` in bfloat16: B = 2, S = 2048, its
+    heads (llada-8b: K = 32, dh = 128; gemma-2b: K = 1, G = 8, dh = 256);
+    ``small=False`` skips the float32 shapes. SDPA takes GQA heads by
+    ``enable_gqa``. Tolerances 1e-4 (float32) and 2e-2 (bfloat16)."""
     from repro_torch.kernels import flash_refresh as FR
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -671,18 +803,20 @@ def check_flash_refresh(dev, g, cfg):
         pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
         return q, k, v, pos
 
-    q, k, v, pos = case(3, 2, 150, 2, 64, torch.float32)
-    valid = torch.rand((3, 150), generator=g, device=dev) < 0.8
-    valid[2] = False
-    for kw, loc in ((dict(), False), (dict(softcap=20.0), False),
-                    (dict(causal=True), False), (dict(window=5), True),
-                    (dict(window=5), False)):
-        out = FR.flash_refresh_call(q, k, v, pos, pos, valid, loc, **kw)
-        ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, loc, **kw)
-        err = (out - ref).abs().max().item()
-        log(f"  flash_refresh f32 G=2 S=150 {kw or 'plain'} local={loc}: "
-            f"max_abs_err={err:.3g} (tol 1e-4)")
-        assert err < 1e-4, err
+    for K, G, dh in ((2, 2, 64), (1, 8, 256)) if small else ():
+        q, k, v, pos = case(3, K, 150, G, dh, torch.float32)
+        valid = torch.rand((3, 150), generator=g, device=dev) < 0.8
+        valid[2] = False
+        for kw, loc in ((dict(), False), (dict(softcap=20.0), False),
+                        (dict(causal=True), False), (dict(window=5), True),
+                        (dict(window=5), False)):
+            out = FR.flash_refresh_call(q, k, v, pos, pos, valid, loc, **kw)
+            ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, loc,
+                                             **kw)
+            err = (out - ref).abs().max().item()
+            log(f"  flash_refresh f32 G={G} dh={dh} S=150 {kw or 'plain'} "
+                f"local={loc}: max_abs_err={err:.3g} (tol 1e-4)")
+            assert err < 1e-4, err
     B, S, K, dh = 2, 2048, cfg.n_kv_heads, cfg.resolved_head_dim
     G, bf = cfg.n_heads // K, torch.bfloat16
     # a ragged kv_valid tail, holes, and a request with no valid key
@@ -707,26 +841,28 @@ def check_flash_refresh(dev, g, cfg):
     log(f"  flash_refresh bf16 {cfg.name} B={B} S={S} K={K} dh={dh}: "
         f"max_abs_err={err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
-    assert G == 1, "the SDPA yardstick takes one query head per KV head"
     mask = valid[:, None, None, :].expand(B, 1, S, S)
     ops = 4.0 * B * cfg.n_heads * S * S * dh
     b, by = bound(ops, nbytes(q, k, v, pos, pos, valid) + q.numel() * 4, bf)
     ms = time_ms(call, iters=10)
+    qh = gqa_heads(q, G)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_refresh.cu",
         replaces="src/repro/kernels/flash_refresh.py:89", max_abs_err=err,
         ms=ms, plain_ms=time_ms(plain, iters=3), bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10),
+        library_ms=time_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
+                                        enable_gqa=G > 1), iters=10),
         tflop_s=ops / ms / 1e9)
 
 
-def check_head_score_padded(dev, g, cfg, serve):
+def check_head_score_padded(dev, g, cfg, serve, small=True):
     """Row 8 against its plain version: float32 GQA (Rq = 40, dh = 16, a
     ragged key tile), then llada-8b's padded Refresh in bfloat16: B = 4
     refresh slots, S = max_seq_len = 256, Rq = Sb = 8, dh = 128, its keys
     contiguous and, through ``ops.head_score``, as the [B, K, S, dh] view
     of [B, S, K, dh] keys. Tolerances: 1e-4 and 1e-3 relative to the
-    largest score (float32 sums of exact products in another order)."""
+    largest score (float32 sums of exact products in another order).
+    ``small=False`` skips the float32 shape."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import select_pack as SP
 
@@ -741,11 +877,12 @@ def check_head_score_padded(dev, g, cfg, serve):
         assert err < tol * scale, (err, scale)
         return err, scale
 
-    q, k = case(3, 3, 40, 100, 16, torch.float32)
-    err, scale = compare(SP.head_score_call(q, k), SP.head_score_plain(q, k),
-                         1e-4)
-    log(f"  head_score f32 B=3 Rq=40 S=100 dh=16: max_abs_err={err:.3g} "
-        f"(tol 1e-4 x {scale:.3g})")
+    if small:
+        q, k = case(3, 3, 40, 100, 16, torch.float32)
+        err, scale = compare(SP.head_score_call(q, k),
+                             SP.head_score_plain(q, k), 1e-4)
+        log(f"  head_score f32 B=3 Rq=40 S=100 dh=16: max_abs_err={err:.3g} "
+            f"(tol 1e-4 x {scale:.3g})")
     B, S, K, dh = 4, serve.max_seq_len, cfg.n_kv_heads, cfg.resolved_head_dim
     Sb, G, bf = serve.block_size, cfg.n_heads // K, torch.bfloat16
     Rq = Sb * G
@@ -793,12 +930,12 @@ def check_head_score_padded(dev, g, cfg, serve):
 # phase 4: a small end-to-end check against the CPU
 # ---------------------------------------------------------------------------
 
-def check_reduced_iteration(dev, arch, system="dllm-serve"):
-    """Three engine iterations of the reduced arch (float32) under a
-    system's profile with the kernels, on the card and on the CPU from the
-    same weights and requests: committed ids exact, the pool's retained
-    positions exact, retained keys, recurrent states and conv histories
-    within 1e-4."""
+def check_reduced_iteration(dev, arch, system="dllm-serve", **overrides):
+    """Three engine iterations of the reduced arch (float32; ``overrides``
+    to ``reduced``) under a system's profile with the kernels, on the card
+    and on the CPU from the same weights and requests: committed ids exact,
+    the pool's retained positions exact, retained keys, recurrent states
+    and conv histories within 1e-4."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config, reduced
@@ -808,7 +945,7 @@ def check_reduced_iteration(dev, arch, system="dllm-serve"):
     from repro_torch.models.hybrid import HybridCache
     from repro_torch.params import copy_to, init_params
 
-    cfg = reduced(get_config(arch))
+    cfg = reduced(get_config(arch), **overrides)
     serve = dataclasses.replace(system_profiles(ServeConfig(
         max_num_batched_tokens=512, max_num_logits=64, block_size=8,
         steps_per_block=8, max_seq_len=128, max_slots=6, pipeline=False))
@@ -838,8 +975,9 @@ def check_reduced_iteration(dev, arch, system="dllm-serve"):
         for a, b in ((pc.ssm_state, pg.ssm_state), (pc.conv, pg.conv)):
             err = max(err, (a[:, :4] - b[:, :4].cpu()).abs().max().item())
     assert err < 1e-4, err
-    log(f"  reduced {arch} {system}, 3 iterations: ids equal, retained "
-        f"positions equal, cache max_abs_err={err:.3g} (tol 1e-4)")
+    log(f"  reduced {arch} {overrides or ''} {system}, 3 iterations: ids "
+        f"equal, retained positions equal, cache max_abs_err={err:.3g} "
+        f"(tol 1e-4)")
 
 
 # ---------------------------------------------------------------------------
@@ -847,9 +985,14 @@ def check_reduced_iteration(dev, arch, system="dllm-serve"):
 # ---------------------------------------------------------------------------
 
 BASELINE_KERNELS = ("packed_flash_attention", "fused_logit_argmax")
+DENSE_KERNELS = ("flash_varlen", "flash_varlen_cross", "head_score_varlen",
+                 "fused_logit_argmax")
 PATH_KERNELS = {
-    ("llada-8b", "dllm-serve"): ("flash_varlen", "flash_varlen_cross",
-                                 "head_score_varlen", "fused_logit_argmax"),
+    ("llada-8b", "dllm-serve"): DENSE_KERNELS,
+    ("qwen2.5-14b", "dllm-serve"): DENSE_KERNELS,
+    ("gemma2-27b", "dllm-serve"): DENSE_KERNELS,
+    ("gemma-2b", "dllm-serve"): DENSE_KERNELS,
+    ("gemma-2b", "sparse-dllm"): BASELINE_KERNELS,
     ("zamba2-7b", "dllm-serve"): ("ssm_segment_scan", "flash_varlen",
                                   "flash_varlen_cross", "head_score_varlen",
                                   "fused_logit_argmax"),
@@ -907,11 +1050,12 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
             "padded_reuse_calls", "max_slots", "plan_slots_logical",
             "plan_slots_phys", "plan_slot_bytes", "pipeline",
             "compile_counts", "compiles_post_warmup", "dispatched_ahead",
-            "overlap_frac")
+            "overlap_frac", "graph_pool_bytes")
     replays = res["graph_replays"]
     log(json.dumps(dict(phase="serve", arch=arch, system=system,
                         **{k: res[k] for k in keep}, hbm_gb=hbm_gb,
                         plan=plan.summary(),
+                        plan_activation_bytes=plan.activation_bytes,
                         graph_replays=sum(replays.values()),
                         graph_entries_replayed=len(replays),
                         max_memory_allocated=peak, launches=counts)))
@@ -1070,8 +1214,8 @@ def footprint(dev, hbm_gb):
     torch.cuda.empty_cache()
 
 
-def prefill_full(dev, serve):
-    """One padded prefill of the full llada-8b (random bfloat16 weights):
+def prefill_full(dev, serve, arch="llada-8b"):
+    """One padded prefill of the full arch (random bfloat16 weights):
     serve_refresh of B = 2 sequences of S = 2048 with use_flash_refresh
     (the flash_refresh kernel in every layer), then decode_tokens of the
     active blocks in the fused mode. Counted alone. The fused decode's ids
@@ -1079,10 +1223,10 @@ def prefill_full(dev, serve):
     their top two are 2e-3 apart (the logit kernel's tolerance above).
 
     Held against the same call without the kernel (the q-chunked plain
-    attention), two ways. At one layer of llada-8b's full width in
+    attention), two ways. At one layer of the arch's full width in
     float32 (its own random weights) both compute every score in float32:
     the final-normed block hidden must agree within 1e-3 (sums in other
-    orders, TF32 off). Through the 32 bfloat16 layers the kernel keeps its
+    orders, TF32 off). Through the bfloat16 layers the kernel keeps its
     scores in float32 where the plain attention, like the reference's jnp
     path, rounds them to bfloat16, so the two drift apart layer by layer:
     the drift is reported and held under 1.0 and 0.15 on average
@@ -1095,7 +1239,7 @@ def prefill_full(dev, serve):
     from repro_torch.models import transformer as T
 
     torch.cuda.empty_cache()
-    cfg = get_config("llada-8b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(1)
     params = BB.init_params(cfg, gen, dev)
     B, S, Sb = 2, 2048, serve.block_size
@@ -1201,6 +1345,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     llada, zamba = get_config("llada-8b"), get_config("zamba2-7b")
     mamba = get_config("mamba2-130m")
+    qwen14, qwen72 = get_config("qwen2.5-14b"), get_config("qwen2-72b")
+    gemma27, gemma2b = get_config("gemma2-27b"), get_config("gemma-2b")
     serve_kw = dict(max_seq_len=256, block_size=8, max_slots=12,
                     max_num_batched_tokens=1024, max_num_logits=128)
     serve = ServeConfig(**serve_kw)
@@ -1215,7 +1361,8 @@ def main(argv) -> int:
         "flash_varlen_cross": check_flash_varlen_cross(dev, g, llada, serve,
                                                        retain),
         "head_score_varlen": check_head_score(dev, g, llada, serve),
-        "fused_logit_argmax": check_logit_argmax(dev, g, llada, serve, mamba),
+        "fused_logit_argmax": check_logit_argmax(
+            dev, g, llada, serve, mamba, (gemma27, qwen14, gemma2b)),
         "ssm_segment_scan": check_ssm_segment_scan(dev, g, zamba, mamba,
                                                    serve),
         "packed_flash_attention": check_packed_flash_attention(
@@ -1230,6 +1377,29 @@ def main(argv) -> int:
         dev, g, zamba, serve, retain, causal=True, small=False)
     results["head_score_varlen"]["zamba2-7b"] = check_head_score(
         dev, g, zamba, serve, small=False)
+    # the dense archs: gemma-2b's head_dim 256 on one KV head (G = 8),
+    # gemma2-27b's G = 2 with its softcap 50 and a window of 64 that cuts
+    # (its own 4096 never cuts at max_seq_len 256), qwen2.5-14b's G = 5
+    # (128-row tiles cut tokens' query groups), qwen2-72b's H = 64, K = 8
+    # (its weights do not fit the card; its heads do)
+    for c, window in ((gemma2b, 0), (gemma27, 64), (qwen14, 0)):
+        tag = f"{c.name} window={window}" if window else c.name
+        results["flash_varlen"][tag] = check_flash_varlen(
+            dev, g, c, serve, small=False, window=window)
+        results["flash_varlen_cross"][tag] = check_flash_varlen_cross(
+            dev, g, c, serve, retain, small=False, window=window)
+        results["head_score_varlen"][c.name] = check_head_score(
+            dev, g, c, serve, small=False)
+    results["flash_varlen"][qwen72.name] = check_flash_varlen(
+        dev, g, qwen72, serve, small=False)
+    results["packed_flash_attention"]["gemma-2b T=128"] = \
+        check_packed_flash_attention(
+            dev, g, gemma2b, [("sparse-dllm", dict(base_retain)[
+                "sparse-dllm"])], small=False)
+    results["flash_refresh"]["gemma-2b"] = check_flash_refresh(
+        dev, g, gemma2b, small=False)
+    results["head_score"]["gemma-2b"] = check_head_score_padded(
+        dev, g, gemma2b, serve, small=False)
     torch.cuda.synchronize()
     for name, r in results.items():
         for shape, x in [("", r)] + [(f" {k}", v) for k, v in r.items()
@@ -1256,10 +1426,15 @@ def main(argv) -> int:
 
     # 4. small end-to-end checks
     t0 = time.perf_counter()
-    for arch, system in (("llada-8b", "dllm-serve"),
-                         ("zamba2-7b", "dllm-serve"),
-                         ("llada-8b", "sparse-dllm")):
-        check_reduced_iteration(dev, arch, system)
+    for arch, system, over in (("llada-8b", "dllm-serve", {}),
+                               ("zamba2-7b", "dllm-serve", {}),
+                               ("llada-8b", "sparse-dllm", {}),
+                               ("gemma2-27b", "dllm-serve",
+                                dict(n_kv_heads=2)),
+                               ("gemma-2b", "dllm-serve", dict(head_dim=256)),
+                               ("gemma-2b", "sparse-dllm",
+                                dict(head_dim=256))):
+        check_reduced_iteration(dev, arch, system, **over)
     log(f"phase reduced-check: {time.perf_counter() - t0:.3f} s")
 
     # 5. the C1 footprint, then serve the full models through the kernels,
@@ -1272,7 +1447,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     for arch, system in (("llada-8b", "dllm-serve"),
                          ("llada-8b", "sparse-dllm"),
-                         ("zamba2-7b", "dllm-serve")):
+                         ("zamba2-7b", "dllm-serve"),
+                         ("gemma2-27b", "dllm-serve"),
+                         ("gemma-2b", "dllm-serve")):
         graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb)
     log(f"phase graphs: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
@@ -1281,17 +1458,22 @@ def main(argv) -> int:
                                 ("mamba2-130m", "dllm-serve", 4),
                                 ("llada-8b", "fast-dllm", 8),
                                 ("llada-8b", "dllm-cache", 8),
-                                ("llada-8b", "sparse-dllm", 8)):
+                                ("llada-8b", "sparse-dllm", 8),
+                                ("qwen2.5-14b", "dllm-serve", 8),
+                                ("gemma2-27b", "dllm-serve", 8),
+                                ("gemma-2b", "dllm-serve", 8),
+                                ("gemma-2b", "sparse-dllm", 8)):
         t0 = time.perf_counter()
         counts = serve_full(arch, system, n_req, serve_kw, card, hbm_gb)
         for name in PATH_KERNELS[(arch, system)]:
             launches[name][f"{arch} {system}"] = counts[name]
         log(f"phase serve {arch} {system}: {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    counts = prefill_full(dev, serve)
-    launches["flash_refresh"]["llada-8b padded prefill"] = \
-        counts["flash_refresh"]
-    log(f"phase prefill llada-8b: {time.perf_counter() - t0:.3f} s")
+    for arch in ("llada-8b", "gemma-2b"):
+        t0 = time.perf_counter()
+        counts = prefill_full(dev, serve, arch)
+        launches["flash_refresh"][f"{arch} padded prefill"] = \
+            counts["flash_refresh"]
+        log(f"phase prefill {arch}: {time.perf_counter() - t0:.3f} s")
     launches["head_score"] = {}
     for name, r in results.items():
         r["launches"] = sum(launches[name].values())

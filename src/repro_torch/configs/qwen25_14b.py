@@ -1,0 +1,17 @@
+"""qwen2.5-14b [hf:Qwen/Qwen2.5 family; hf] — dense GQA(kv=8), QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab_size=152_064,
+    head_dim=128,
+    qkv_bias=True,
+    activation="silu",
+    rope_theta=1_000_000.0,
+)

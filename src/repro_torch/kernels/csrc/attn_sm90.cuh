@@ -4,12 +4,16 @@
 //
 // One CTA owns 128 query rows of one stream against one window [lo, hi) of
 // that stream's keys: two consumer warpgroups of 64 rows each and one
-// producer warp (288 threads).
+// producer warp (288 threads). Above head_dim 128 (gemma-2b's 256) a CTA
+// computes the whole S = Q·Kᵀ but the P·V of 128 of V's columns only, and
+// the grid holds one CTA for each 128 columns (Job::col0): the O
+// accumulator stays at the 64 registers a thread of dh 128, at the cost of
+// computing the scores once for each column half.
 //  * Loads: the producer issues the CTA's Q tile, then finds the window
 //    (the problem's, e.g. a search of the stream's segments) while Q flies,
 //    and publishes it through Q's barrier. It then brings K and V tiles of
 //    BK = 64 keys, starting at key lo (any offset: TMA coordinates need no
-//    alignment), into a ring of ST = 4 stages with TMA
+//    alignment), into a ring of ST stages (4; 3 above dh 128) with TMA
 //    (cp.async.bulk.tensor, 128-byte swizzle, columns in atoms of 64; rows
 //    past the stream's end and columns past dh come in as zeros). Each
 //    stage is guarded by a "full" mbarrier (the TMA's bytes and the
@@ -26,7 +30,8 @@
 //    probability tile touches shared memory.
 //  * P·V: P is rounded to bfloat16 in registers and fed as the register A
 //    operand of wgmma m64n{64,128}k16 against V read N-major from shared
-//    memory; O is a float32 register accumulator, rescaled in registers.
+//    memory (the CTA's 64 or 128 columns of V); O is a float32 register
+//    accumulator, rescaled in registers.
 //    The P·V of tile j is issued right after the scores of tile j + 1, so
 //    it runs on the tensor cores while the softmax of tile j + 1 runs on
 //    the other units. Every wgmma is issued and retired on every path, and
@@ -56,7 +61,6 @@ namespace sm90 {
 
 constexpr int BM = 128;            // query rows per CTA (two consumer warpgroups)
 constexpr int BK = 64;             // keys per KV tile
-constexpr int ST = 4;              // stages of the K/V ring
 constexpr int NTHREADS = 288;      // two consumer warpgroups + a producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG2 = -1e30f * LOG2E;   // a masked logit, -1e30, in log2 units
@@ -68,33 +72,42 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Shared memory of one CTA: Q (atoms of 128 rows x 64 columns), the K and V
-// rings (atoms of BK keys x 64 columns), each ring key's bias and datum
-// (KD: the problem's key datum), the barriers.
+// rings (atoms of BK keys x 64 columns; V's only of the CTA's columns), each
+// ring key's bias and datum (KD: the problem's key datum), the barriers. At
+// dh 256: 64 KB of Q and three stages of 32 KB of K and 16 KB of V, 211 KB
+// in all (four stages would pass the 227 KB a block can use).
 template <int DH, class KD>
 struct Smem {
-  static constexpr int NA = DH > 64 ? 2 : 1;       // 64-column atoms
-  static constexpr int NPV = NA * 64;              // P·V width (dh padded)
+  static constexpr int NA = (DH + 63) / 64;        // 64-column atoms of Q, K
+  static constexpr int NAV = NA < 2 ? NA : 2;      // of V, a CTA
+  static constexpr int NPV = NAV * 64;             // P·V width (dh padded)
+  static constexpr int DSPLIT = NA / NAV;          // CTAs across V's columns
+  static constexpr int ST = DH > 128 ? 3 : 4;      // stages of the K/V ring
   static constexpr int Q_ATOM = BM * 128;
   static constexpr int KV_ATOM = BK * 128;
-  static constexpr int KV_STAGE = NA * KV_ATOM;
+  static constexpr int K_STAGE = NA * KV_ATOM;
+  static constexpr int V_STAGE = NAV * KV_ATOM;
   static constexpr int q = 0;
   static constexpr int k = q + NA * Q_ATOM;
-  static constexpr int v = k + ST * KV_STAGE;
-  static constexpr int bias = v + ST * KV_STAGE;
+  static constexpr int v = k + ST * K_STAGE;
+  static constexpr int bias = v + ST * V_STAGE;
   static constexpr int kdat = bias + ST * BK * 4;
   static constexpr int bars = kdat + ST * BK * (int)sizeof(KD);
   static constexpr int win = bars + (2 * ST + 1) * 8;   // the key window
   static constexpr int total = win + 8 + 1024;          // + alignment
+  static_assert(NA % NAV == 0, "V's columns split evenly across CTAs");
+  static_assert(total <= 232448, "a block's shared memory is 227 KB");
 };
 
 // What one CTA computes: query rows [row0, row0 + BM) of stream bh against
-// the problem's key window of them. Rows at or past `rows` are computed on
-// TMA's zeros and not written. With ml == nullptr the rows are normalised
-// into o (the stream's [rows][DH]); otherwise o takes them unnormalised and
-// ml (the stream's [rows][2]) their (max in log2 units, Σp): one split's
-// partial.
+// the problem's key window of them, in output columns [col0, col0 + NPV)
+// (col0 = 0 unless Smem::DSPLIT > 1). Rows at or past `rows` are computed
+// on TMA's zeros and not written. With ml == nullptr the rows are
+// normalised into o (the stream's [rows][DH]); otherwise o takes them
+// unnormalised and ml (the stream's [rows][2]) their (max in log2 units,
+// Σp): one split's partial, written by the col0 = 0 CTA.
 struct Job {
-  int bh, row0, rows;
+  int bh, row0, rows, col0;
   float* o;
   float* ml;
 };
@@ -126,7 +139,8 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
   using Key = typename Prob::Key;
   using Row = typename Prob::Row;
   using L = Smem<DH, Key>;
-  constexpr int NA = L::NA, NPV = L::NPV;
+  constexpr int NA = L::NA, NAV = L::NAV, NPV = L::NPV, ST = L::ST;
+  constexpr int NCOL = DH < NPV ? DH : NPV;   // output columns a CTA writes
   constexpr int NJ = BK / 8;         // n8 blocks of a score tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -185,13 +199,13 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       const int s = it % ST;
       mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
       if (lane == 0) {
-        mbar_arrive_tx(full(s), 2 * L::KV_STAGE);
-        for (int a = 0; a < NA; ++a) {
-          tma_load_3d(sK + s * L::KV_STAGE + a * L::KV_ATOM, tk, full(s),
+        mbar_arrive_tx(full(s), L::K_STAGE + L::V_STAGE);
+        for (int a = 0; a < NA; ++a)
+          tma_load_3d(sK + s * L::K_STAGE + a * L::KV_ATOM, tk, full(s),
                       a * 64, lo + it * BK, bh);
-          tma_load_3d(sV + s * L::KV_STAGE + a * L::KV_ATOM, tv, full(s),
-                      a * 64, lo + it * BK, bh);
-        }
+        for (int a = 0; a < NAV; ++a)
+          tma_load_3d(sV + s * L::V_STAGE + a * L::KV_ATOM, tv, full(s),
+                      job.col0 + a * 64, lo + it * BK, bh);
       }
 #pragma unroll
       for (int x = 0; x < BK / 32; ++x) {
@@ -226,7 +240,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) { sc[i] = 0.f; fence_reg(sc[i]); }
         wgmma_fence();
-        const uint32_t ks = sK + s * L::KV_STAGE;
+        const uint32_t ks = sK + s * L::K_STAGE;
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
           const uint32_t off = (kk & 3) * 32;
@@ -239,7 +253,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       // O += P · V of stage s: V N-major, 16 keys (2048 B) a k16 step, the
       // two 64-column atoms BK·128 B apart
       auto issue_pv = [&](int s) {
-        const uint32_t vs = sV + s * L::KV_STAGE;
+        const uint32_t vs = sV + s * L::V_STAGE;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t dv = make_desc(vs + kk * 2048, L::KV_ATOM, 1024);
@@ -388,16 +402,16 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     if (job.ml == nullptr) {
       sa = 1.f / fmaxf(la, 1e-30f);
       sb = 1.f / fmaxf(lb, 1e-30f);
-    } else if (q4 == 0) {
+    } else if (q4 == 0 && job.col0 == 0) {
       if (ra < job.rows)
         *reinterpret_cast<float2*>(job.ml + 2 * ra) = make_float2(ma, la);
       if (rb < job.rows)
         *reinterpret_cast<float2*>(job.ml + 2 * rb) = make_float2(mb, lb);
     }
-    float* oa = job.o + (size_t)ra * DH;
+    float* oa = job.o + (size_t)ra * DH + job.col0;
     float* ob = oa + 8 * DH;
 #pragma unroll
-    for (int jb = 0; jb < DH / 8; ++jb) {
+    for (int jb = 0; jb < NCOL / 8; ++jb) {
       const int c = 8 * jb + 2 * q4;
       if (ra < job.rows)
         *reinterpret_cast<float2*>(oa + c) =

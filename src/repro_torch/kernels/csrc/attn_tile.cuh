@@ -1,14 +1,15 @@
-// The attention tile shared by the port's flash-attention kernels
-// (flash_varlen.cu, packed_flash_attention.cu, and flash_refresh.cu for
-// float32 inputs; flash_refresh.cu's bfloat16 path runs on attn_sm90.cuh):
-// one CTA of four warps owns 64 query rows, walks the keys in tiles of 64
-// and keeps a float32 online softmax per row. Only the mask differs between
-// the kernels; each passes its own as a functor to softmax_tile.
+// The float32 attention tile shared by the port's flash-attention kernels
+// (flash_varlen.cu, packed_flash_attention.cu and flash_refresh.cu; their
+// bfloat16 paths run on attn_sm90.cuh or, for packed_flash_attention.cu,
+// on mma.sync): one CTA of four warps owns 64 query rows, walks the keys in
+// tiles of kv_tile<DH>() and keeps a float32 online softmax per row. Only
+// the mask differs between the kernels; each passes its own as a functor
+// to softmax_tile.
 //
-// bf16 products run on the tensor cores (WMMA 16x16x16, float32
-// accumulators); float32 inputs on the CUDA cores in full precision. The
-// attention probabilities are rounded to the input type before the P·V
-// product, as the Pallas kernels do.
+// The products run on the CUDA cores in full float32: this tile is the
+// parity path of the reduced configs on the card (TF32 off), not a fast
+// one. The attention probabilities are stored in the input type before the
+// P·V product, as the Pallas kernels do.
 #pragma once
 
 #include "common.cuh"
@@ -16,36 +17,39 @@
 namespace repro {
 namespace attn {
 
-using namespace nvcuda;
-
 constexpr int BQ = 64;          // query rows per CTA
-constexpr int BK = 64;          // keys per KV tile
 constexpr int NWARP = 4;        // each warp owns 16 query rows
 constexpr int NTHREADS = NWARP * 32;
 
+// Keys per KV tile: 64, or 32 above head_dim 128, where a 64-key tile's
+// K and V beside Q and the output accumulator (256 KB in float32 at
+// head_dim 256) would pass the 227 KB a block can use; 32 keys need ~209 KB.
+template <int DH>
+__host__ __device__ constexpr int kv_tile() { return DH > 128 ? 32 : 64; }
+
 // Shared-memory carve-up of one CTA: the Q, K and V tiles, the scores, the
-// probabilities, the float32 output accumulator, a 16x16 scratch tile per
-// warp, three float and two int values per row, and three int values per
-// key plus two.
+// probabilities, the float32 output accumulator, three float and two int
+// values per row, and three int values per key plus two.
 template <typename T, int DH>
 struct Layout {
+  static constexpr int BK = kv_tile<DH>();
   static constexpr size_t q = 0;
   static constexpr size_t k = align128(q + BQ * DH * sizeof(T));
   static constexpr size_t v = align128(k + BK * DH * sizeof(T));
   static constexpr size_t s = align128(v + BK * DH * sizeof(T));
   static constexpr size_t p = align128(s + BQ * BK * sizeof(float));
   static constexpr size_t o = align128(p + BQ * BK * sizeof(T));
-  static constexpr size_t w = align128(o + BQ * DH * sizeof(float));
-  static constexpr size_t rowf = align128(w + NWARP * 256 * sizeof(float));
+  static constexpr size_t rowf = align128(o + BQ * DH * sizeof(float));
   static constexpr size_t rowi = align128(rowf + 3 * BQ * sizeof(float));
   static constexpr size_t key = align128(rowi + 2 * BQ * sizeof(int));
   static constexpr size_t total = align128(key + (3 * BK + 2) * sizeof(int));
+  static_assert(total <= 232448, "a block's shared memory is 227 KB");
 };
 
 // Typed pointers into one CTA's shared memory.
 template <typename T, int DH>
 struct Tile {
-  T* Qs; T* Ks; T* Vs; float* Ss; T* Ps; float* Os; float* scratch;
+  T* Qs; T* Ks; T* Vs; float* Ss; T* Ps; float* Os;
   float* row_m; float* row_l; float* row_a;
   int* row_i0; int* row_i1;             // two per-row ints, kernel-defined
   int* key_i0; int* key_i1; int* key_i2; // three per-key ints, kernel-defined
@@ -53,13 +57,13 @@ struct Tile {
 
   __device__ explicit Tile(unsigned char* smem) {
     using Lay = Layout<T, DH>;
+    constexpr int BK = Lay::BK;
     Qs = reinterpret_cast<T*>(smem + Lay::q);
     Ks = reinterpret_cast<T*>(smem + Lay::k);
     Vs = reinterpret_cast<T*>(smem + Lay::v);
     Ss = reinterpret_cast<float*>(smem + Lay::s);
     Ps = reinterpret_cast<T*>(smem + Lay::p);
     Os = reinterpret_cast<float*>(smem + Lay::o);
-    scratch = reinterpret_cast<float*>(smem + Lay::w);
     row_m = reinterpret_cast<float*>(smem + Lay::rowf);
     row_l = row_m + BQ;
     row_a = row_l + BQ;
@@ -75,32 +79,15 @@ struct Tile {
 // S[BQ][BK] = Q[BQ][DH] · K[BK][DH]^T, unscaled
 template <typename T, int DH>
 __device__ __forceinline__ void scores(const T* Qs, const T* Ks, float* Ss,
-                                       int warp, int tid) {
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * DH + kk * 16, DH);
-        wmma::load_matrix_sync(b, Ks + n * 16 * DH + kk * 16, DH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * BK + n * 16, acc, BK,
-                              wmma::mem_row_major);
-    }
-  } else {
-    for (int e = tid; e < BQ * BK; e += NTHREADS) {
-      const int r = e / BK, c = e % BK;
-      float acc = 0.f;
+                                       int tid) {
+  constexpr int BK = kv_tile<DH>();
+  for (int e = tid; e < BQ * BK; e += NTHREADS) {
+    const int r = e / BK, c = e % BK;
+    float acc = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < DH; ++d)
-        acc = fmaf(Qs[r * DH + d], Ks[c * DH + d], acc);
-      Ss[e] = acc;
-    }
+    for (int d = 0; d < DH; ++d)
+      acc = fmaf(to_f32(Qs[r * DH + d]), to_f32(Ks[c * DH + d]), acc);
+    Ss[e] = acc;
   }
 }
 
@@ -108,39 +95,15 @@ __device__ __forceinline__ void scores(const T* Qs, const T* Ks, float* Ss,
 template <typename T, int DH>
 __device__ __forceinline__ void accumulate_pv(const T* Ps, const T* Vs,
                                               float* Os, const float* alpha,
-                                              float* scratch, int warp,
-                                              int lane, int tid) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    float* mine = scratch + warp * 256;
-#pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(b, Vs + kk * 16 * DH + n * 16, DH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(mine, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = warp * 16 + (e >> 4);
-        float* o = Os + r * DH + n * 16 + (e & 15);
-        *o = *o * alpha[r] + mine[e];
-      }
-      __syncwarp();
-    }
-  } else {
-    for (int e = tid; e < BQ * DH; e += NTHREADS) {
-      const int r = e / DH, c = e % DH;
-      float acc = 0.f;
+                                              int tid) {
+  constexpr int BK = kv_tile<DH>();
+  for (int e = tid; e < BQ * DH; e += NTHREADS) {
+    const int r = e / DH, c = e % DH;
+    float acc = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < BK; ++j) acc = fmaf(Ps[r * BK + j], Vs[j * DH + c], acc);
-      Os[e] = Os[e] * alpha[r] + acc;
-    }
+    for (int j = 0; j < BK; ++j)
+      acc = fmaf(to_f32(Ps[r * BK + j]), to_f32(Vs[j * DH + c]), acc);
+    Os[e] = Os[e] * alpha[r] + acc;
   }
 }
 
@@ -165,6 +128,7 @@ __device__ __forceinline__ void init_rows(const Tile<T, DH>& t, const T* q,
 template <typename T, int DH>
 __device__ __forceinline__ void load_kv(const Tile<T, DH>& t, const T* k,
                                         const T* v, int kv0, int nk, int tid) {
+  constexpr int BK = kv_tile<DH>();
   const T zero = from_f32<T>(0.f);
   for (int i = tid; i < BK * DH; i += NTHREADS) {
     const bool in = (i / DH) < nk;
@@ -174,31 +138,39 @@ __device__ __forceinline__ void load_kv(const Tile<T, DH>& t, const T* k,
 }
 
 // One KV tile of the online softmax, scores already in Ss. Warp w owns rows
-// [16w, 16w + 16), two keys a lane. logit(r, c, z) returns the logit of row
-// r against key c given its scaled, softcapped score z: z itself, -1e30
+// [16w, 16w + 16), BK / 32 keys a lane. logit(r, c, z) returns the logit of
+// row r against key c given its scaled, softcapped score z: z itself, -1e30
 // where the mask removes the pair, or -inf for a key past the end of the
 // stream (probability exactly 0 whatever the row's running max).
-template <typename T, typename Logit>
+template <int BK, typename T, typename Logit>
 __device__ __forceinline__ void softmax_tile(float* Ss, T* Ps, float* row_m,
                                              float* row_l, float* row_a,
                                              float scale, float softcap,
                                              int warp, int lane, Logit logit) {
+  constexpr int KPL = BK / 32;
   for (int rr = 0; rr < 16; ++rr) {
     const int r = warp * 16 + rr;
-    float z[2];
+    float z[KPL];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < KPL; ++hh) {
       const int c = lane + 32 * hh;
       float zz = Ss[r * BK + c] * scale;
       if (softcap != 0.f) zz = softcap * tanhf(zz / softcap);
       z[hh] = logit(r, c, zz);
     }
+    float mx = z[0];
+#pragma unroll
+    for (int hh = 1; hh < KPL; ++hh) mx = fmaxf(mx, z[hh]);
     const float m_old = row_m[r];
-    const float m_new = fmaxf(m_old, warp_max(fmaxf(z[0], z[1])));
-    const float p0 = expf(z[0] - m_new), p1 = expf(z[1] - m_new);
-    Ps[r * BK + lane] = from_f32<T>(p0);
-    Ps[r * BK + lane + 32] = from_f32<T>(p1);
-    const float sum = warp_sum(p0 + p1);
+    const float m_new = fmaxf(m_old, warp_max(mx));
+    float sum = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < KPL; ++hh) {
+      const float pr = expf(z[hh] - m_new);
+      Ps[r * BK + lane + 32 * hh] = from_f32<T>(pr);
+      sum = hh ? sum + pr : pr;
+    }
+    sum = warp_sum(sum);
     if (lane == 0) {
       const float a = expf(m_old - m_new);
       row_a[r] = a;
@@ -217,6 +189,7 @@ cudaError_t dispatch_dh(int dh, A&&... args) {
     case 64: return Launch<T, 64>::run(args...);
     case 112: return Launch<T, 112>::run(args...);   // zamba2-7b: 7 x 16
     case 128: return Launch<T, 128>::run(args...);
+    case 256: return Launch<T, 256>::run(args...);   // gemma-2b
     default: return cudaErrorInvalidValue;
   }
 }

@@ -60,6 +60,7 @@ __global__ void __launch_bounds__(NTHREADS)
 refresh_attention_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile<T, DH> t(smem);
+  constexpr int BK = kv_tile<DH>();
   int* row_pos = t.row_i0;
   int* key_pos = t.key_i0;
   int* key_ok = t.key_i1;
@@ -90,9 +91,9 @@ refresh_attention_kernel(Params p) {
       key_ok[j] = in ? (int)kv_valid[kv0 + j] : 0;
     }
     __syncthreads();
-    scores<T, DH>(t.Qs, t.Ks, t.Ss, warp, tid);
+    scores<T, DH>(t.Qs, t.Ks, t.Ss, tid);
     __syncthreads();
-    softmax_tile<T>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
+    softmax_tile<BK>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
                     warp, lane, [&](int r, int c, float zz) {
       if (c >= nk) return -INFINITY;
       bool ok = key_ok[c];
@@ -102,8 +103,7 @@ refresh_attention_kernel(Params p) {
       return ok ? zz : -1e30f;
     });
     __syncthreads();
-    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, t.scratch, warp, lane,
-                         tid);
+    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, tid);
     __syncthreads();
   }
 
@@ -154,16 +154,19 @@ struct RefreshProb {
   }
 };
 
-// One CTA: 128 rows of stream (b, head) against all S keys, normalised.
+// One CTA: 128 rows of stream (b, head) against all S keys, normalised, in
+// output columns [128·(x % DS), + 128) (DS = 2 at dh 256, else 1).
 template <int DH>
 __global__ void __launch_bounds__(repro::sm90::NTHREADS, 1)
 refresh_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               const RefreshProb p, float* o) {
+  using L = repro::sm90::Smem<DH, RefreshProb::Key>;
   repro::sm90::Job job;
   job.bh = blockIdx.z * p.K + blockIdx.y;
-  job.row0 = blockIdx.x * repro::sm90::BM;
+  job.row0 = blockIdx.x / L::DSPLIT * repro::sm90::BM;
+  job.col0 = blockIdx.x % L::DSPLIT * L::NPV;
   job.rows = p.rows;
   job.o = o + (size_t)job.bh * p.rows * DH;
   job.ml = nullptr;
@@ -184,13 +187,13 @@ struct LaunchSm90 {
     r.q_pos = p.q_pos; r.kv_pos = p.kv_pos;
     r.kv_valid = p.kv_valid; r.K = p.K; r.G = p.G; r.Sq = p.Sq;
     r.causal = p.causal; r.window = p.window; r.is_local = p.is_local;
-    const int smem = H::Smem<DH, RefreshProb::Key>::total;
+    using L = H::Smem<DH, RefreshProb::Key>;
     auto kern = refresh_attention_kernel_sm90<DH>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             L::total);
     if (e != cudaSuccess) return e;
-    kern<<<dim3((p.RG + H::BM - 1) / H::BM, p.K, B), H::NTHREADS, smem, s>>>(
-        tq, tk, tv, r, p.o);
+    kern<<<dim3((p.RG + H::BM - 1) / H::BM * L::DSPLIT, p.K, B), H::NTHREADS,
+           L::total, s>>>(tq, tk, tv, r, p.o);
     return cudaGetLastError();
   }
 };

@@ -73,6 +73,7 @@ __global__ void __launch_bounds__(NTHREADS)
 varlen_attention_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile<T, DH> t(smem);
+  constexpr int BK = kv_tile<DH>();
   int* row_pos = t.row_i0;
   int* row_seg = t.row_i1;
   int* key_pos = t.key_i0;
@@ -122,9 +123,9 @@ varlen_attention_kernel(Params p) {
       key_ok[j] = in ? (int)kv_valid[kv0 + j] : 0;
     }
     __syncthreads();
-    scores<T, DH>(t.Qs, t.Ks, t.Ss, warp, tid);
+    scores<T, DH>(t.Qs, t.Ks, t.Ss, tid);
     __syncthreads();
-    softmax_tile<T>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
+    softmax_tile<BK>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
                     warp, lane, [&](int r, int c, float zz) {
       bool ok = key_ok[c] && key_seg[c] == row_seg[r];
       if (p.causal) ok = ok && row_pos[r] >= key_pos[c];
@@ -133,8 +134,7 @@ varlen_attention_kernel(Params p) {
       return ok ? zz : -1e30f;
     });
     __syncthreads();
-    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, t.scratch, warp, lane,
-                         tid);
+    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, tid);
     __syncthreads();
   }
 
@@ -250,7 +250,8 @@ struct VarlenProb {
   }
 };
 
-// One CTA: rows [128·x, 128·x + 128) of KV head y, split z of p.splits.
+// One CTA: rows [128·(x / DS), + 128) of KV head y, output columns
+// [128·(x % DS), + 128) (DS = 2 at dh 256, else 1), split z of p.splits.
 template <int DH, int MASK>
 __global__ void __launch_bounds__(repro::sm90::NTHREADS, 1)
 varlen_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
@@ -258,9 +259,11 @@ varlen_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tv,
                              const VarlenProb<MASK> p, float* o,
                              float* part) {
+  using L = repro::sm90::Smem<DH, typename VarlenProb<MASK>::Key>;
   repro::sm90::Job job;
   job.bh = blockIdx.y;
-  job.row0 = blockIdx.x * repro::sm90::BM;
+  job.row0 = blockIdx.x / L::DSPLIT * repro::sm90::BM;
+  job.col0 = blockIdx.x % L::DSPLIT * L::NPV;
   job.rows = p.RG;
   const size_t stream = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
   if (p.splits == 1) {
@@ -277,7 +280,7 @@ varlen_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 // Fold the splits' partials of each of `rows` (head, row) pairs: with
 // M = max of the splits' maxima (log2 units), o = Σ oₛ·2^(mₛ−M) /
 // max(Σ Σpₛ·2^(mₛ−M), 1e-30); M = -inf (every split empty) gives 0. One
-// warp a row, lanes over the columns.
+// warp a row, lanes over the columns (dh <= 256).
 __global__ void __launch_bounds__(256)
 varlen_merge_kernel(const float* part, float* o, int rows, int dh,
                     int splits) {
@@ -287,7 +290,7 @@ varlen_merge_kernel(const float* part, float* o, int rows, int dh,
       reinterpret_cast<const float2*>(part + (size_t)splits * rows * dh);
   float m = -INFINITY;
   for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[(size_t)s * rows + row].x);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f}, den = 0.f;   // dh <= 128
+  float acc[8] = {}, den = 0.f;
   if (m != -INFINITY) {
     for (int s = 0; s < splits; ++s) {
       const float2 x = ml[(size_t)s * rows + row];
@@ -295,13 +298,13 @@ varlen_merge_kernel(const float* part, float* o, int rows, int dh,
       den += x.y * w;
       const float* ps = part + ((size_t)s * rows + row) * dh;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < 8; ++c)
         if (lane + 32 * c < dh) acc[c] += w * ps[lane + 32 * c];
     }
   }
   const float inv = 1.f / fmaxf(den, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < 8; ++c)
     if (lane + 32 * c < dh) o[(size_t)row * dh + lane + 32 * c] = acc[c] * inv;
 }
 
@@ -321,13 +324,13 @@ cudaError_t launch_sm90(const Params& p, int K, int splits, float* ws,
   r.RG = p.RG; r.G = p.G; r.Tkv = p.Tkv;
   r.kv_head_stride = p.kv_head_stride; r.splits = splits;
   r.causal = p.causal; r.window = p.window; r.is_local = p.is_local;
-  const int smem = H::Smem<DH, typename VarlenProb<MASK>::Key>::total;
+  using L = H::Smem<DH, typename VarlenProb<MASK>::Key>;
   auto kern = varlen_attention_kernel_sm90<DH, MASK>;
   static unsigned smem_set = 0;
-  e = H::allow_dynamic_smem(kern, smem, &smem_set);
+  e = H::allow_dynamic_smem(kern, L::total, &smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((p.RG + H::BM - 1) / H::BM, K, splits), H::NTHREADS, smem,
-         s>>>(tq, tk, tv, r, p.o, ws);
+  kern<<<dim3((p.RG + H::BM - 1) / H::BM * L::DSPLIT, K, splits),
+         H::NTHREADS, L::total, s>>>(tq, tk, tv, r, p.o, ws);
   return cudaGetLastError();
 }
 

@@ -36,6 +36,9 @@
 //  * Each warp keeps a 4-stage cp.async ring of 16-key K/V tiles (rows
 //    padded by 16 bytes, so ldmatrix reads every bank once), 3 tiles ahead
 //    of its math: ~100 KB in flight an SM. Keys past T are zero-filled.
+//  * Above dh 128 (gemma-2b's 256) a warp owns RW = 8 rows, so Q^T (32
+//    registers) and the O^T tile (64) take what RW = 16 takes at dh 128,
+//    and the ring has 3 stages (4 would need 264 KB a CTA; 3 take 198 KB).
 //  * The mask bytes of a tile are read before its wait, beside the copies.
 // float32 inputs (the reduced checks) keep the first tile (attn_tile.cuh),
 // by explicit dtype dispatch.
@@ -70,6 +73,7 @@ __global__ void __launch_bounds__(NTHREADS)
 packed_attention_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile<T, DH> t(smem);
+  constexpr int BK = kv_tile<DH>();
   int* row_mask = t.row_i0;                // the row's mask row, -1 past R
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -90,9 +94,9 @@ packed_attention_kernel(Params p) {
     const int nk = min(BK, p.T - kv0);
     load_kv<T, DH>(t, k, v, kv0, nk, tid);
     __syncthreads();
-    scores<T, DH>(t.Qs, t.Ks, t.Ss, warp, tid);
+    scores<T, DH>(t.Qs, t.Ks, t.Ss, tid);
     __syncthreads();
-    softmax_tile<T>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
+    softmax_tile<BK>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
                     warp, lane, [&](int r, int c, float zz) {
       if (c >= nk) return -INFINITY;
       const int mr = row_mask[r];
@@ -100,8 +104,7 @@ packed_attention_kernel(Params p) {
       return mask[(size_t)mr * p.T + kv0 + c] ? zz : -1e30f;
     });
     __syncthreads();
-    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, t.scratch, warp, lane,
-                         tid);
+    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, tid);
     __syncthreads();
   }
 
@@ -127,14 +130,15 @@ struct Launch {
 
 constexpr int KT = 16;          // keys a tile: the M side of the products
 constexpr int NWARPS = 4;       // warps a CTA, each on its own row group
-constexpr int NST = 4;          // stages of a warp's K/V ring
 
 template <int DH>
 struct Ring {
+  static constexpr int NST = DH > 128 ? 3 : 4; // stages of a warp's K/V ring
   static constexpr int LD = DH + 8;            // row stride (bf16)
   static constexpr int TILE = KT * LD;         // one K or V tile (bf16)
   static constexpr int WARP = NST * 2 * TILE;  // a warp's ring (bf16)
   static constexpr int BYTES = NWARPS * WARP * 2;
+  static_assert(BYTES <= 232448, "a block's shared memory is 227 KB");
 };
 
 template <int DH, int RW>
@@ -142,7 +146,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
 packed_attention_kernel_sm90(Params p, int n_groups, int n_work) {
   constexpr int NT = RW / 8;     // row tiles of 8 (the N side)
   constexpr int KS = DH / 16;    // dh steps of S = dh tiles of O^T
-  constexpr int LD = Ring<DH>::LD, CH = DH / 8;
+  constexpr int LD = Ring<DH>::LD, CH = DH / 8, NST = Ring<DH>::NST;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -327,8 +331,10 @@ cudaError_t launch_sm90(const Params& p, int BK_, cudaStream_t s) {
 template <typename T, int DH>
 struct LaunchSm90 {
   static cudaError_t run(const Params& p, int BK_, cudaStream_t s) {
-    return p.R >= 16 ? launch_sm90<DH, 16>(p, BK_, s)
-                     : launch_sm90<DH, 8>(p, BK_, s);
+    if constexpr (DH > 128) return launch_sm90<DH, 8>(p, BK_, s);
+    else
+      return p.R >= 16 ? launch_sm90<DH, 16>(p, BK_, s)
+                       : launch_sm90<DH, 8>(p, BK_, s);
   }
 };
 

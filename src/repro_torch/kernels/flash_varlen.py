@@ -7,11 +7,11 @@ Replaces the two Pallas TPU kernels of ``repro/kernels/flash_varlen.py``:
 (``csrc/flash_varlen.cu``): self-attention is the cross case whose KV stream
 is the query stream, with its positions and validity shared by every head.
 bfloat16 runs on the Hopper tile (``csrc/attn_sm90.cuh``, TMA and wgmma):
-one CTA per (128 query rows, KV head, split), each row tile visiting only
-the keys of its rows' segments; where row tiles × K CTAs leave the card
-under-filled, :func:`kv_splits` cuts each tile's key window into shares
-whose partials a merge kernel folds. float32 runs on ``csrc/attn_tile.cuh``
-with one split.
+one CTA per (128 query rows, KV head, split), and per 128 of V's columns
+at head_dim 256, each row tile visiting only the keys of its rows'
+segments; where row tiles × K CTAs leave the card under-filled,
+:func:`kv_splits` cuts each tile's key window into shares whose partials a
+merge kernel folds. float32 runs on ``csrc/attn_tile.cuh`` with one split.
 
 Contract, as in the Pallas kernels: q ``[K, Tq·G, dh]`` in the token-major
 GQA row layout (row = t·G + g), k/v ``[K, Tkv, dh]``, segment ids ascending
@@ -37,15 +37,21 @@ PAD_SEG = 1 << 30
 
 SELF = build.counter("flash_varlen")
 CROSS = build.counter("flash_varlen_cross")
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 BM, BK = 128, 64      # the bfloat16 tile: query rows a CTA, keys a KV tile
+# V's columns a bfloat16 CTA computes: Smem::NPV in csrc/attn_sm90.cuh, so
+# ceil(dh / PV_COLS) is its Smem::DSPLIT (2 CTAs a row tile at dh 256); the
+# two must change together
+PV_COLS = 128
 
 
-def kv_splits(RG: int, K: int, Tkv: int, n_sms: int = build.H100_SMS) -> int:
+def kv_splits(RG: int, K: int, Tkv: int, n_sms: int = build.H100_SMS, *,
+              dh: int) -> int:
     """CTAs per row tile along the keys, from the shapes alone: enough for
-    the ``ceil(RG / BM)·K`` row-tile CTAs to give at least one CTA an SM
-    (one CTA fits an SM), and never more than the stream's KV tiles."""
-    ctas = -(-RG // BM) * K
+    the ``ceil(RG / BM)·K·ceil(dh / PV_COLS)`` row-tile CTAs to give at
+    least one CTA an SM (one CTA fits an SM), and never more than the
+    stream's KV tiles."""
+    ctas = -(-RG // BM) * K * -(-dh // PV_COLS)
     return max(1, min(-(-Tkv // BK), -(-n_sms // ctas)))
 
 
@@ -155,7 +161,7 @@ def _launch(counter, q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid,
     if q.dtype == torch.bfloat16:
         build.require_tma(name, q, k, v)
         if splits is None:
-            splits = kv_splits(RG, K, Tkv, build.sm_count(q.device))
+            splits = kv_splits(RG, K, Tkv, build.sm_count(q.device), dh=dh)
     elif splits not in (None, 1):
         raise ValueError(f"{name}: only the bfloat16 kernel splits the keys")
     splits = splits or 1

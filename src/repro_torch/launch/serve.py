@@ -27,7 +27,9 @@ prints each commit event at its sync). On the card every (stage, bucket)
 entry is captured as a CUDA graph in warmup and replayed (the engine's
 ``graphs=False`` runs the same entries eagerly, as the oracle).
 ``compile_counts`` counts the entries built (captures, on the card), and the
-JSON adds ``graph_replays`` (replays per entry). Keys whose feature the
+JSON adds ``graph_replays`` (replays per entry) and ``graph_pool_bytes``
+(the captured graphs' shared memory pool, which the profiler's plan does not
+bill; 0 without graphs). Keys whose feature the
 port does not have yet carry the reference's "off" value:
 ``mesh_devices=1``, sharing and faults at zero.
 """
@@ -212,6 +214,7 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         logit_tokens_exec_per_device=stats.logit_tokens_exec
         / eng.work_split,
         graph_replays=dict(stats.graph_replays),
+        graph_pool_bytes=eng.graphs.pool_bytes(),
     )
 
 

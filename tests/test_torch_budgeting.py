@@ -84,7 +84,8 @@ HOST_CLOCK = {"host_plan_s", "host_fill_s", "sync_wait_s", "warmup_s",
               "wall_clock_s", "wall_tok_s", "overlapped_host_s",
               "overlap_frac"}     # the host's clock
 JAX_ONLY = {"compile_counts", "compiles_warmup", "compiles_post_warmup"}
-PORT_ONLY = {"graph_replays"}     # replays per captured stage entry
+# replays per captured stage entry, the captured graphs' pool
+PORT_ONLY = {"graph_replays", "graph_pool_bytes"}
 
 
 @pytest.mark.parametrize("system,slots", [("dllm-serve", 6),

@@ -56,11 +56,13 @@ def _requests(vocab):
              int(rng.integers(9, 30)), float(i) * 0.004) for i in range(6)]
 
 
-def _serve_both(jserve, tserve, requests=None, check_deferred=True):
-    """Serve the same requests on both engines; ids, request times, every
-    EngineStats counter and vtime must be equal."""
-    jcfg = reduced(ARCHS["llada-8b"])
-    tcfg = treduced(get_config("llada-8b"))
+def _serve_both(jserve, tserve, requests=None, check_deferred=True,
+                arch="llada-8b", **overrides):
+    """Serve the same requests on both engines (the reduced ``arch``, with
+    ``overrides`` passed to both packages' ``reduced``); ids, request
+    times, every EngineStats counter and vtime must be equal."""
+    jcfg = reduced(ARCHS[arch], **overrides)
+    tcfg = treduced(get_config(arch), **overrides)
     jp = JBB.init_params(jcfg, jax.random.PRNGKey(3))
     je = JEngine(jcfg, jserve, params=jp, clock="modeled")
     te = TEngine(tcfg, tserve,
@@ -174,8 +176,9 @@ def test_request_level_scheduler_plans_match_reference():
     assert n_plans > 10
 
 
-# the port's own key: replays per captured stage entry (none on the CPU)
-PORT_ONLY = {"graph_replays"}
+# the port's own keys: replays per captured stage entry and the captured
+# graphs' pool (none and 0 on the CPU)
+PORT_ONLY = {"graph_replays", "graph_pool_bytes"}
 
 
 @pytest.mark.parametrize("workload", ["burst", "livebench"])
@@ -192,6 +195,7 @@ def test_run_serve_json_matches_reference(workload):
     assert got["n_finished"] == 4
     assert got["pipeline"] is True and got["dispatched_ahead"] > 0
     assert got["streamed_events"] > 0 and got["graph_replays"] == {}
+    assert got["graph_pool_bytes"] == 0
     skip = HOST_TIMES | JAX_ONLY | {"warmup_s", "wall_clock_s", "wall_tok_s",
                                     "overlap_frac", "compiles_post_warmup"}
     for k in sorted(set(want) - skip):

@@ -118,7 +118,7 @@ def test_kv_splits_fill_the_card_from_the_shapes(RG, K, Tkv, name):
     """The split-KV grid: one split when the row tiles fill the 132 SMs
     (llada-8b's Refresh), else at least one CTA an SM, and never more
     splits than the stream has KV tiles."""
-    splits = FV.kv_splits(RG, K, Tkv)
+    splits = FV.kv_splits(RG, K, Tkv, dh=128)
     ctas = -(-RG // FV.BM) * K
     tiles = -(-Tkv // FV.BK)
     assert 1 <= splits <= tiles
@@ -128,6 +128,21 @@ def test_kv_splits_fill_the_card_from_the_shapes(RG, K, Tkv, name):
         assert ctas * splits >= build.H100_SMS
     else:
         assert splits == tiles
+
+
+@pytest.mark.parametrize("RG,K,Tkv,name", [
+    (768, 1, 1632, "gemma-2b Reuse (R=12 Sb=8 Cr=128, G=8)"),
+    (8192, 1, 1024, "gemma-2b Refresh (T=1024, G=8)"),
+])
+def test_kv_splits_count_the_column_ctas_at_dh_256(RG, K, Tkv, name):
+    """At dh 256 a row tile is two CTAs (one for each half of V's
+    columns): the chooser counts both, so it splits the keys half as far
+    as the same rows at dh 128 would."""
+    splits = FV.kv_splits(RG, K, Tkv, dh=256)
+    ctas = -(-RG // FV.BM) * K * 2
+    assert 1 <= splits <= -(-Tkv // FV.BK)
+    assert ctas * splits >= build.H100_SMS
+    assert ctas * (splits - 1) < build.H100_SMS
     if name.startswith("llada-8b Reuse"):
         assert ctas * splits >= 132
     if name.startswith("llada-8b and"):
@@ -240,11 +255,12 @@ def test_logit_argmax_ties_pick_lowest_index():
     assert (ids.numpy() == 7).all()
 
 
-@pytest.mark.parametrize("V", [126464, 32000, 50280, 5003])
+@pytest.mark.parametrize("V", [126464, 32000, 50280, 5003, 256000, 152064])
 @pytest.mark.parametrize("n_ctas", [132, 114, 7, 1, 100000])
 def test_vocab_split_covers_the_vocabulary_in_whole_tiles(V, n_ctas):
     """The logit kernel's persistent grid: the splits of the llada-8b,
-    zamba2-7b and mamba2-130m heads and of a ragged test vocabulary cover
+    zamba2-7b, mamba2-130m, gemma (256,000) and qwen2 (152,064) heads and
+    of a ragged test vocabulary cover
     [0, V) exactly, each a run of whole 128-column tiles (the last one
     ragged only at V), none empty, at most one per CTA."""
     split = LA.vocab_split(V, n_ctas)
@@ -355,6 +371,100 @@ def test_flash_refresh_plain_matches_jax(H, K, flags):
         kw["is_local"], softcap=kw["softcap"],
         causal=kw["mask_mode"] == "causal", window=kw["window"])
     assert raw.shape == (B, K, Sq * (H // K), dh)
+
+
+# gemma-2b's head_dim and one KV head, and gemma2-27b-like flags: softcap
+# and a sliding window on a local layer
+DH256 = dict(softcap=30.0, window=5, is_local=True)
+
+
+@pytest.mark.parametrize("H,K", [(8, 1), (4, 2)])
+def test_varlen_plain_matches_jax_at_head_dim_256(H, K):
+    """Rows 1 and 2: the plain versions against the Pallas kernels in
+    interpret mode at head_dim 256 with softcap and window."""
+    rng = np.random.default_rng(9)
+    seg, pos, valid = _stream([20, 7, 25], pad=12)
+    T, dh = seg.shape[0], 256
+    q = rng.standard_normal((T, H, dh)).astype(np.float32)
+    k = rng.standard_normal((T, K, dh)).astype(np.float32)
+    v = rng.standard_normal((T, K, dh)).astype(np.float32)
+    ref = jops.flash_varlen_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), seg_ids=seg,
+        positions=pos, kv_valid=valid, q_tile=16, kv_tile=16, **DH256)
+    out = tops.flash_varlen_attention(
+        _t(q), _t(k), _t(v), seg_ids=_t(seg), positions=_t(pos),
+        kv_valid=_t(valid), **DH256)
+    np.testing.assert_allclose(out.numpy()[valid], np.asarray(ref)[valid],
+                               atol=ATOL)
+    R, Sb, Cr = 3, 4, 10
+    Tq, Tkv = R * Sb, R * (Cr + Sb)
+    q = rng.standard_normal((Tq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((K, Tkv, dh)).astype(np.float32)
+    v = rng.standard_normal((K, Tkv, dh)).astype(np.float32)
+    q_seg = np.repeat(np.arange(R, dtype=np.int32), Sb)
+    kv_seg = np.repeat(np.arange(R, dtype=np.int32), Cr + Sb)
+    q_pos = (np.tile(np.arange(Sb), R) + 20).astype(np.int32)
+    kv_pos = rng.integers(0, 30, (K, Tkv)).astype(np.int32)
+    kv_valid = rng.random((K, Tkv)) < 0.7
+    for r in range(R):
+        blk = slice(r * (Cr + Sb) + Cr, (r + 1) * (Cr + Sb))
+        kv_valid[:, blk] = True
+        kv_pos[:, blk] = np.arange(Sb) + 20
+    ref = jops.flash_varlen_cross_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_seg=q_seg,
+        q_pos=q_pos, kv_seg=kv_seg, kv_pos=kv_pos, kv_valid=kv_valid,
+        q_tile=4, kv_tile=14, **DH256)
+    out = tops.flash_varlen_cross_attention(
+        _t(q), _t(k), _t(v), q_seg=_t(q_seg), q_pos=_t(q_pos),
+        kv_seg=_t(kv_seg), kv_pos=_t(kv_pos), kv_valid=_t(kv_valid),
+        **DH256)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("G,Sm", [(8, 1), (2, 8)])
+def test_packed_flash_attention_plain_matches_jax_at_head_dim_256(G, Sm):
+    """Row 6 at head_dim 256 with softcap (its mask is the caller's: no
+    window): the unnormalised (o, m, s) against the Pallas kernel."""
+    from repro.kernels.flash_attention import packed_flash_attention_call
+    rng = np.random.default_rng(10)
+    B, K, Sb, T, dh = 2, 8 // G, 8, 40, 256
+    R = Sb * G
+    q = rng.standard_normal((B, K, R, dh)).astype(np.float32)
+    k = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    v = rng.standard_normal((B, K, T, dh)).astype(np.float32)
+    mask = rng.random((B, K, Sm, T)) < 0.6
+    o_r, m_r, s_r = packed_flash_attention_call(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        softcap=DH256["softcap"], t_tile=8, interpret=True)
+    o, m, s = FA.packed_flash_attention_call(_t(q), _t(k), _t(v), _t(mask),
+                                             softcap=DH256["softcap"])
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_r), atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=1e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_r), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("H,K", [(8, 1), (4, 2)])
+def test_flash_refresh_plain_matches_jax_at_head_dim_256(H, K):
+    """Row 7 at head_dim 256 with softcap and window, kv_valid holes and a
+    batch row with no valid key, against the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    B, Sq, dh = 3, 24, 256
+    q = rng.standard_normal((B, Sq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, Sq, K, dh)).astype(np.float32)
+    v = rng.standard_normal((B, Sq, K, dh)).astype(np.float32)
+    pos = np.tile(np.arange(Sq, dtype=np.int32), (B, 1))
+    valid = rng.random((B, Sq)) < 0.7
+    valid[2] = False
+    kw = dict(mask_mode="bidirectional", **DH256)
+    ref = jops.flash_refresh_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos),
+        kv_valid=jnp.asarray(valid), q_tile=8, kv_tile=8, **kw)
+    out = tops.flash_refresh_attention(
+        _t(q), _t(k), _t(v), q_pos=_t(pos), kv_pos=_t(pos),
+        kv_valid=_t(valid), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
 @pytest.mark.parametrize("H,K", [(4, 4), (4, 2)])

@@ -56,7 +56,8 @@ def _stream(lens, pad, dev):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128), (1, 112)])
+@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128), (1, 112),
+                                  (8, 256)])
 @pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
                                    dict(causal=True),
                                    dict(window=5, is_local=True)])
@@ -169,7 +170,7 @@ def test_flash_varlen_bf16_windows_match_plain(cuda, G, dh, causal, splits):
     g = torch.Generator(device=cuda).manual_seed(12)
     seg, pos, valid = _stream([70, 9, 133, 250, 1], pad=50, dev=cuda)
     T, K, bf = seg.shape[0], 2, torch.bfloat16
-    assert FV.kv_splits(T * G, K, T, build.sm_count(cuda)) > 1
+    assert FV.kv_splits(T * G, K, T, build.sm_count(cuda), dh=dh) > 1
     q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(bf)
     k = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
     v = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
@@ -206,7 +207,8 @@ def test_flash_varlen_cross_bf16_empty_window_is_finite(cuda, splits, G):
 
 
 @pytest.mark.parametrize("splits", [2, 8, 30])
-@pytest.mark.parametrize("G,dh", [(1, 128), (2, 112), (4, 32)])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 112), (4, 32), (5, 128),
+                                  (8, 256)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_varlen_cross_bf16_splits_match_plain(cuda, splits, G, dh,
                                                     causal):
@@ -232,11 +234,133 @@ def test_flash_varlen_cross_llada_reuse_shape_matches_plain(cuda, G, causal):
     g = torch.Generator(device=cuda).manual_seed(15)
     args = _cross_stream(cuda, g, R=12, Sb=8, Cr=128, K=32, G=G, dh=128)
     q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
-    splits = FV.kv_splits(q.shape[1], 32, k.shape[1], build.sm_count(cuda))
+    splits = FV.kv_splits(q.shape[1], 32, k.shape[1], build.sm_count(cuda),
+                          dh=128)
     assert -(-q.shape[1] // FV.BM) * 32 * splits >= build.sm_count(cuda)
     out = FV.flash_varlen_cross_call(*args, causal=causal)
     ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
                                     kv_valid, False, causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+def test_gemma_2b_geometry_bf16_matches_plain(cuda, splits):
+    """Rows 1-3 in bfloat16 at gemma-2b's heads: one KV head (K = 1) for
+    eight query heads (G = 8), head_dim 256, so the grids are covered by
+    row tiles (and V's two column halves) alone: the Refresh stream (T =
+    1024 in four requests and a PAD_SEG tail), the Reuse stream (12
+    requests of an 8-token block against 128 retained keys) and the C3
+    scores of the Refresh stream's 8-token blocks."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    K, G, dh, bf = 1, 8, 256, torch.bfloat16
+    seg, pos, valid = _stream([256, 250, 240, 230], pad=48, dev=cuda)
+    T = seg.shape[0]
+    q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = FV._launch(FV.SELF, q, k, v, pos, seg, pos, seg, valid, 0, False,
+                     0.0, False, 0, splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T), seg,
+                                    valid.expand(K, T), False)
+    rows = valid.repeat_interleave(G)
+    torch.cuda.synchronize()
+    assert (out[:, rows] - ref[:, rows]).abs().max().item() < 2e-2
+    args = _cross_stream(cuda, g, R=12, Sb=8, Cr=128, K=K, G=G, dh=dh)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    out = FV._launch(FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                     kv_valid, k.shape[1], False, 0.0, False, 0,
+                     splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+    qs = torch.randn((4, K, 8 * G, dh), generator=g, device=cuda).to(bf)
+    ks = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = SP.head_score_varlen_call(qs, ks, seg)
+    ref = SP.head_score_varlen_plain(qs, ks, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    assert (out[fin] - ref[fin]).abs().max().item() < 1e-3 * max(1.0, scale)
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+def test_qwen25_14b_geometry_bf16_matches_plain(cuda, splits):
+    """Rows 1-3 in bfloat16 at qwen2.5-14b's heads (K = 8, G = 5, head_dim
+    128): 128 is no multiple of 5, so the 128-row tiles cut tokens' query
+    groups in two (the Reuse stream's 480 rows at 128, 256 and 384): the
+    Refresh stream, the Reuse stream (12 requests of an 8-token block
+    against 128 retained keys) and the C3 scores (Rq = 40)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    K, G, dh, bf = 8, 5, 128, torch.bfloat16
+    seg, pos, valid = _stream([256, 250, 240, 230], pad=48, dev=cuda)
+    T = seg.shape[0]
+    q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = FV._launch(FV.SELF, q, k, v, pos, seg, pos, seg, valid, 0, False,
+                     0.0, False, 0, splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T), seg,
+                                    valid.expand(K, T), False)
+    rows = valid.repeat_interleave(G)
+    torch.cuda.synchronize()
+    assert (out[:, rows] - ref[:, rows]).abs().max().item() < 2e-2
+    args = _cross_stream(cuda, g, R=12, Sb=8, Cr=128, K=K, G=G, dh=dh)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    assert q.shape[1] % FV.BM and q.shape[1] > FV.BM
+    out = FV._launch(FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                     kv_valid, k.shape[1], False, 0.0, False, 0,
+                     splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, False)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+    qs = torch.randn((4, K, 8 * G, dh), generator=g, device=cuda).to(bf)
+    ks = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = SP.head_score_varlen_call(qs, ks, seg)
+    ref = SP.head_score_varlen_plain(qs, ks, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    assert (out[fin] - ref[fin]).abs().max().item() < 1e-3 * max(1.0, scale)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_gemma2_27b_geometry_windowed_softcap_matches_plain(cuda, splits):
+    """Rows 1 and 2 in bfloat16 at gemma2-27b's heads (K = 16, G = 2,
+    head_dim 128) on a local layer: softcap 50 and a window of 64 that cuts
+    the 256-token segments of the Refresh stream and the Reuse stream's
+    retained keys (positions 0-299 against a block at 200-207)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    K, G, dh, bf = 16, 2, 128, torch.bfloat16
+    kw = dict(softcap=50.0, window=64)
+    seg, pos, valid = _stream([256, 250, 240, 230], pad=48, dev=cuda)
+    T = seg.shape[0]
+    q = torch.randn((K, T * G, dh), generator=g, device=cuda).to(bf) * 4
+    k = torch.randn((K, T, dh), generator=g, device=cuda).to(bf) * 4
+    v = torch.randn((K, T, dh), generator=g, device=cuda).to(bf)
+    out = FV._launch(FV.SELF, q, k, v, pos, seg, pos, seg, valid, 0, True,
+                     50.0, False, 64, splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T), seg,
+                                    valid.expand(K, T), True, **kw)
+    rows = valid.repeat_interleave(G)
+    torch.cuda.synchronize()
+    assert (out[:, rows] - ref[:, rows]).abs().max().item() < 2e-2
+    # the window cuts: the plain version without it differs
+    wide = FV.varlen_attention_plain(q, k, v, pos, seg, pos.expand(K, T),
+                                     seg, valid.expand(K, T), False,
+                                     softcap=50.0)
+    assert (wide[:, rows] - ref[:, rows]).abs().max().item() > 0.1
+    args = _cross_stream(cuda, g, R=12, Sb=8, Cr=128, K=K, G=G, dh=dh)
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    out = FV._launch(FV.CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                     kv_valid, k.shape[1], True, 50.0, False, 64,
+                     splits=splits)
+    ref = FV.varlen_attention_plain(q, k, v, q_pos, q_seg, kv_pos, kv_seg,
+                                    kv_valid, True, **kw)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() < 2e-2
 
@@ -259,15 +383,17 @@ def test_varlen_wrappers_refuse_what_the_tile_cannot_take(cuda):
 REFRESH_FLAGS = {"plain": (dict(), False),
                  "causal_softcap": (dict(causal=True, softcap=20.0), False),
                  "window_local": (dict(window=5), True)}
+# the head dims the full-window tile took (256 came later, with key windows)
+REFRESH_DIMS = (16, 32, 64, 112, 128)
 
 
 def refresh_digests(dev):
     """sha256 (16 hex digits) of flash_refresh's bfloat16 output at every
-    head_dim and three flag sets: G = 2, S = 150 (a ragged last KV tile),
-    kv_valid holes; inputs from numpy, so any checkout's kernel can be
-    held to the same bytes."""
+    head_dim of REFRESH_DIMS and three flag sets: G = 2, S = 150 (a ragged
+    last KV tile), kv_valid holes; inputs from numpy, so any checkout's
+    kernel can be held to the same bytes."""
     out = {}
-    for dh in FV.HEAD_DIMS:
+    for dh in REFRESH_DIMS:
         for name, (kw, loc) in REFRESH_FLAGS.items():
             rng = np.random.default_rng(11)
             B, K, S, G = 2, 2, 150, 2
@@ -460,7 +586,7 @@ def test_ssm_segment_scan_matches_plain(cuda, T, H, P, N):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("G,Sm,dh", [(1, 8, 128), (2, 8, 64), (4, 1, 16),
-                                     (1, 8, 112)])
+                                     (1, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("T", [40, 128, 248])
 def test_packed_flash_attention_matches_plain(cuda, dtype, tol, G, Sm, dh,
                                               T):
@@ -489,7 +615,8 @@ def test_packed_flash_attention_matches_plain(cuda, dtype, tol, G, Sm, dh,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("G,dh", [(1, 128), (2, 64), (1, 112), (4, 16)])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 64), (1, 112), (4, 16),
+                                  (8, 256)])
 @pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
                                    dict(causal=True),
                                    dict(window=5, is_local=True),

@@ -64,12 +64,17 @@ def test_layer_flags_match_reference(pattern):
 
 
 def test_configs_match_reference():
-    """Same fields and defaults: a config means the same in both packages."""
+    """Same fields and defaults: a config means the same in both packages,
+    for every arch the port registers (full and reduced)."""
     from repro.configs.base import ServeConfig as JServe
+    from repro_torch.configs import list_archs
     from repro_torch.configs.base import ServeConfig as TServe
-    assert dataclasses.asdict(reduced(get_config("llada-8b"))) == \
-        dataclasses.asdict(jreduced(JARCHS["llada-8b"]))
-    assert dataclasses.asdict(get_config("llada-8b")) == \
-        dataclasses.asdict(JARCHS["llada-8b"])
+    assert {"llada-8b", "qwen2.5-14b", "gemma2-27b", "gemma-2b",
+            "qwen2-72b"} <= set(list_archs())
+    for arch in list_archs():
+        assert dataclasses.asdict(reduced(get_config(arch))) == \
+            dataclasses.asdict(jreduced(JARCHS[arch])), arch
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(JARCHS[arch]), arch
+        assert get_config(arch).n_params() == JARCHS[arch].n_params(), arch
     assert dataclasses.asdict(TServe()) == dataclasses.asdict(JServe())
-    assert get_config("llada-8b").n_params() == JARCHS["llada-8b"].n_params()
