@@ -20,7 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      KV head and at gemma2-27b's G = 2 with softcap 50 and a window of 64
      that cuts, row 1 at qwen2.5-14b's G = 5 and qwen2-72b's H = 64, K =
      8, row 4 on gemma2-27b's tied 256,000-row head with softcap 30, rows
-     6-8 at gemma-2b's head_dim 256),
+     6-8 at gemma-2b's head_dim 256; the MoE archs' heads: rows 1-3 at
+     phi3.5-moe's K = 8, G = 4 and qwen3-moe's 64 heads on K = 4, row 4 on
+     their untied heads, V = 32,064 and 151,936; zamba2-7b's padded path:
+     row 6 at its baselines' Reuse with the shared block's causal mask rows
+     (T = 248 and 128, rows that see no cached key), row 7 at its causal
+     prefill),
      with the kernel's time, the plain version's, one PyTorch library
      call's where one computes the same function (a yardstick the port
      never calls), the least time the card could take (bound_ms) and, for
@@ -39,16 +44,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      / ops.head_score), which hands over the keys as a strided view, no
      copy;
   4. a small end-to-end check: three iterations of reduced llada-8b and of
-     reduced zamba2-7b under dllm-serve, of reduced llada-8b under
-     sparse-dllm (the padded path), of reduced gemma2-27b (two KV heads)
-     and of reduced gemma-2b (head_dim 256, also under sparse-dllm), on
-     the card against the same iterations on the CPU (the plain versions);
+     reduced zamba2-7b under dllm-serve, of reduced llada-8b and zamba2-7b
+     under sparse-dllm (the padded path), of reduced phi3.5-moe (G = 4)
+     under dllm-serve, of reduced gemma2-27b (two KV heads) and of reduced
+     gemma-2b (head_dim 256, also under sparse-dllm), on the card against
+     the same iterations on the CPU (the plain versions);
   5. footprint: each llada-8b system's memory plan (the offline profiler)
      at 24 GB and at the card's memory, and the logit stage's peak bytes
      measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
-     graphs: the full llada-8b under dllm-serve and sparse-dllm and the
-     full zamba2-7b, gemma2-27b and gemma-2b under dllm-serve, on the
-     modeled clock, by an engine
+     graphs: the full llada-8b and zamba2-7b under dllm-serve and
+     sparse-dllm, phi3.5-moe at 24 of its 32 layers and the full
+     gemma2-27b and gemma-2b under dllm-serve, on the modeled clock, by an
+     engine
      whose stage entries are captured CUDA graphs and by one running the
      same entries eagerly, on the same weights: ids, counters, modeled
      clock and launches identical, nothing built after warmup (warmup
@@ -56,15 +63,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      reservation logged);
      serve: run_serve of the full llada-8b, zamba2-7b, mamba2-130m,
      qwen2.5-14b, gemma2-27b and gemma-2b (random bfloat16 weights from a
-     seed) through the dllm-serve profile, and of the full llada-8b
-     through the three baselines fast-dllm, dllm-cache and sparse-dllm and
-     the full gemma-2b through sparse-dllm (the padded path), with the
-     kernels, at the launcher's defaults (the pipelined loop, the captured
-     stage entries), on the wall clock, each sized by the offline profiler
-     at the card's memory (its plan and the graph pool's bytes logged);
-     then one padded prefill each of the full llada-8b and gemma-2b
-     through the flash_refresh kernel, held against the same call without
-     it. Each path runs with the launch
+     seed), and of phi3.5-moe at 24 of its 32 layers and qwen3-moe at 8
+     of its 94 (the whole does not fit the card; ``LAYERS``), through the
+     dllm-serve profile, and through the padded path: the full llada-8b
+     under the three baselines fast-dllm, dllm-cache and sparse-dllm,
+     zamba2-7b under fast-dllm and sparse-dllm, mamba2-130m under
+     dllm-cache and gemma-2b under sparse-dllm, with the kernels, at the
+     launcher's defaults (the pipelined loop, the captured stage entries),
+     on the wall clock, each sized by the offline profiler at the card's
+     memory (its plan and the graph pool's bytes logged); then one padded
+     prefill each of the full llada-8b, gemma-2b and zamba2-7b (at block
+     64, so its scan runs its own chunk of 64) through the flash_refresh
+     kernel, held against the same call without it. Each path runs with
+     the launch
      counts zeroed just before it and read just after; every request must
      finish, every kernel of the path must have launched (warmup's eager
      runs and the run's graph replays), nothing may be built after warmup,
@@ -699,7 +710,8 @@ def check_ssm_segment_scan(dev, g, zamba, mamba, serve):
     return dict(main_row, **out)
 
 
-def check_packed_flash_attention(dev, g, cfg, retains, small=True):
+def check_packed_flash_attention(dev, g, cfg, retains, small=True,
+                                 causal=False):
     """Row 6 at small float32 shapes with every flag (GQA rows reading mask
     row r // G, a one-row mask, softcap, a fully masked head, ragged KV
     tiles) on the first tile; at small bfloat16 shapes on the Hopper tile
@@ -708,9 +720,12 @@ def check_packed_flash_attention(dev, g, cfg, retains, small=True):
     Reuse in bfloat16: B = 16 (the pow2 bucket of 12 slots), K = 32, Sb =
     8, the retained T of each baseline and the engine's one-row mask (with
     ``small=False`` only this, at ``cfg``'s heads: gemma-2b's K = 1, R = 64
-    rows, dh = 256). Tolerances:
-    m to 1e-4; s and o relative to the row sums, 1e-4 (float32) and 2e-2
-    (bfloat16: P rounded before P·V)."""
+    rows, dh = 256). With ``causal`` the mask is the hybrid's shared block's
+    (zamba2-7b: K = 32, G = 1, dh = 112): one row per block query (Sm =
+    Sb), a cached key kept where its position is at or before the
+    query's, batch row 0's block at position 0 (every row fully masked).
+    Tolerances: m to 1e-4; s and o relative to the row sums, 1e-4
+    (float32) and 2e-2 (bfloat16: P rounded before P·V)."""
     from repro_torch.kernels import flash_attention as FA
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -755,13 +770,28 @@ def check_packed_flash_attention(dev, g, cfg, retains, small=True):
         by_T.setdefault(T, []).append(name)
     for T, names in by_T.items():
         name = ", ".join(names)
-        args = case(B, K, R, T, 1, dh, bf, 0.97)
+        args = case(B, K, R, T, Sb if causal else 1, dh, bf, 0.97)
         q, k, v, mask = args
-        err, _ = err_of(args, 0.0, 2e-2)
+        if causal:
+            # retained positions of a 256-token sequence outside the
+            # active block (Refresh excludes it); block starts on block
+            # edges, row 0's at 0
+            start = 8 * torch.randint(1, 31, (B,), generator=g, device=dev)
+            start[0] = 0
+            cpos = torch.rand((B, K, 256 - Sb), generator=g,
+                              device=dev).argsort(-1)[..., :T]
+            cpos += Sb * (cpos >= start[:, None, None])
+            qpos = start[:, None] + torch.arange(Sb, device=dev)
+            mask &= qpos[:, None, :, None] >= cpos[:, :, None, :]
+            assert not mask[0].any()
+        err, (m, s) = err_of(args, 0.0, 2e-2)
+        if causal:
+            assert (m[0] == -1e30).all() and (s[0] == T).all()
         log(f"  packed_flash_attention bf16 {cfg.name} B={B} K={K} R={R} "
-            f"T={T} dh={dh} ({name}): max_err={err:.3g} (tol 2e-2 rel.)")
-        full = mask.expand(B, K, R, T)
-        pairs = int(mask.sum()) * R
+            f"T={T} dh={dh} causal={causal} ({name}): max_err={err:.3g} "
+            f"(tol 2e-2 rel.)")
+        full = mask.repeat_interleave(R // mask.shape[2], dim=2)
+        pairs = int(full.sum())
         b, by = bound(4.0 * pairs * dh,
                       nbytes(q, k, v, mask) + B * K * R * (dh + 2) * 4, bf)
         call = lambda args=args: FA.packed_flash_attention_call(*args)  # noqa
@@ -785,12 +815,13 @@ def check_packed_flash_attention(dev, g, cfg, retains, small=True):
     return dict(main_row, **out)
 
 
-def check_flash_refresh(dev, g, cfg, small=True):
+def check_flash_refresh(dev, g, cfg, small=True, causal=False):
     """Row 7 at small float32 shapes with every flag (GQA, causal, window
     on and off a local layer, softcap, kv_valid holes, a batch row with no
     valid key, a ragged last tile; dh 64, and dh 256 on one KV head), then
     at the padded prefill of ``cfg`` in bfloat16: B = 2, S = 2048, its
-    heads (llada-8b: K = 32, dh = 128; gemma-2b: K = 1, G = 8, dh = 256);
+    heads (llada-8b: K = 32, dh = 128; gemma-2b: K = 1, G = 8, dh = 256;
+    with ``causal`` zamba2-7b's shared block: K = 32, G = 1, dh = 112);
     ``small=False`` skips the float32 shapes. SDPA takes GQA heads by
     ``enable_gqa``. Tolerances 1e-4 (float32) and 2e-2 (bfloat16)."""
     from repro_torch.kernels import flash_refresh as FR
@@ -826,23 +857,28 @@ def check_flash_refresh(dev, g, cfg, small=True):
     valid[0, S - 37:] = False
     valid[1] = torch.rand(S, generator=g, device=dev) < 0.7
     valid[2] = False
-    err = (FR.flash_refresh_call(q, k, v, pos, pos, valid)
-           - FR.refresh_attention_plain(q, k, v, pos, pos, valid, False)
-           ).abs().max().item()
-    log(f"  flash_refresh bf16 {cfg.name} B=3 S={S} K={K} dh={dh}, ragged "
-        f"tail, holes, no valid key: max_abs_err={err:.3g} (tol 2e-2)")
+    err = (FR.flash_refresh_call(q, k, v, pos, pos, valid, causal=causal)
+           - FR.refresh_attention_plain(q, k, v, pos, pos, valid, False,
+                                        causal=causal)).abs().max().item()
+    log(f"  flash_refresh bf16 {cfg.name} B=3 S={S} K={K} dh={dh} causal="
+        f"{causal}, ragged tail, holes, no valid key: max_abs_err="
+        f"{err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
     q, k, v, pos = case(B, K, S, G, dh, bf)
     valid = torch.ones((B, S), dtype=torch.bool, device=dev)
-    call = lambda: FR.flash_refresh_call(q, k, v, pos, pos, valid)  # noqa
+    call = lambda: FR.flash_refresh_call(q, k, v, pos, pos,  # noqa: E731
+                                         valid, causal=causal)
     plain = lambda: FR.refresh_attention_plain(  # noqa: E731
-        q, k, v, pos, pos, valid, False)
+        q, k, v, pos, pos, valid, False, causal=causal)
     err = (call() - plain()).abs().max().item()
-    log(f"  flash_refresh bf16 {cfg.name} B={B} S={S} K={K} dh={dh}: "
-        f"max_abs_err={err:.3g} (tol 2e-2)")
+    log(f"  flash_refresh bf16 {cfg.name} B={B} S={S} K={K} dh={dh} "
+        f"causal={causal}: max_abs_err={err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
     mask = valid[:, None, None, :].expand(B, 1, S, S)
-    ops = 4.0 * B * cfg.n_heads * S * S * dh
+    if causal:
+        mask = mask & torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    # the pairs the mask keeps, each head's
+    ops = 4.0 * int(mask.sum()) * cfg.n_heads * dh
     b, by = bound(ops, nbytes(q, k, v, pos, pos, valid) + q.numel() * 4, bf)
     ms = time_ms(call, iters=10)
     qh = gqa_heads(q, G)
@@ -1000,14 +1036,37 @@ PATH_KERNELS = {
     ("llada-8b", "fast-dllm"): BASELINE_KERNELS,
     ("llada-8b", "dllm-cache"): BASELINE_KERNELS,
     ("llada-8b", "sparse-dllm"): BASELINE_KERNELS,
+    # the scan families' padded path: the reference's jnp ssd_scan (torch
+    # ops here), the shared block's cache half through row 6
+    ("zamba2-7b", "fast-dllm"): BASELINE_KERNELS,
+    ("zamba2-7b", "sparse-dllm"): BASELINE_KERNELS,
+    ("mamba2-130m", "dllm-cache"): ("fused_logit_argmax",),
+    ("phi3.5-moe-42b-a6.6b", "dllm-serve"): DENSE_KERNELS,
+    ("qwen3-moe-235b-a22b", "dllm-serve"): DENSE_KERNELS,
 }
+# depth cuts of the archs whose weights do not fit the card: phi3.5-moe's
+# 32 layers are ~83.7 GB of bfloat16 weights (24: ~62.9 GB), qwen3-moe's
+# 94 ~470 GB (8: ~42.3 GB)
+LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "qwen3-moe-235b-a22b": 8}
+
+
+def served_config(arch):
+    """The arch's config, cut to ``LAYERS[arch]`` layers where it has a
+    cut."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LAYERS[arch])
+    return cfg
 
 
 def serve_plan(arch, system, serve_kw, hbm_gb):
     """The plan run_serve sizes a kernels serve with (its own helper on the
-    same ServeConfig), and that ServeConfig with its slots sized."""
+    same ServeConfig and the same depth), and that ServeConfig with its
+    slots sized."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.core.baselines import system_profiles
     from repro_torch.launch.serve import profile_slots
@@ -1015,7 +1074,7 @@ def serve_plan(arch, system, serve_kw, hbm_gb):
     base = ServeConfig(max_refresh_per_iter=4, **serve_kw)
     serve = dataclasses.replace(system_profiles(base)[system],
                                 use_flash_kernel=True, logit_mode="fused")
-    return profile_slots(get_config(arch), serve, serve_kw["max_slots"],
+    return profile_slots(served_config(arch), serve, serve_kw["max_slots"],
                          hbm_gb)
 
 
@@ -1034,7 +1093,7 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
     res = run_serve(arch, system, "livebench", 50.0, n_req,
                     use_reduced=False, kernels=True, clock="wall",
                     size_by_profiler=True, hbm_gb=hbm_gb, device="cuda",
-                    **serve_kw)
+                    n_layers=LAYERS.get(arch), **serve_kw)
     counts = {n: (c.launches, c.plain_calls)
               for n, c in build.COUNTERS.items()}
     assert res["plan_slots_logical"] == plan.max_slots, (res, plan)
@@ -1053,6 +1112,7 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
             "overlap_frac", "graph_pool_bytes")
     replays = res["graph_replays"]
     log(json.dumps(dict(phase="serve", arch=arch, system=system,
+                        n_layers=served_config(arch).n_layers,
                         **{k: res[k] for k in keep}, hbm_gb=hbm_gb,
                         plan=plan.summary(),
                         plan_activation_bytes=plan.activation_bytes,
@@ -1098,14 +1158,13 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
     captures, the graph pool's bytes and the peak the captures add beside
     the plan's activation reservation."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core.engine import Engine
     from repro_torch.data.workloads import make_trace, trace_prompts
     from repro_torch.kernels import build
     from repro_torch.params import init_params
 
     plan, serve = serve_plan(arch, system, serve_kw, hbm_gb)
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1148,7 +1207,8 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
     same_ids = all(np.array_equal(a, b) for a, b in zip(e["tokens"],
                                                        g["tokens"]))
     log(json.dumps(dict(
-        phase="graphs", arch=arch, system=system, n_requests=n_req,
+        phase="graphs", arch=arch, system=system, n_layers=cfg.n_layers,
+        n_requests=n_req,
         max_slots=serve.max_slots, ids_equal=same_ids,
         counters_equal=e["counters"] == g["counters"],
         vtime_equal=e["vtime"] == g["vtime"],
@@ -1214,17 +1274,20 @@ def footprint(dev, hbm_gb):
     torch.cuda.empty_cache()
 
 
-def prefill_full(dev, serve, arch="llada-8b"):
+def prefill_full(dev, serve, arch="llada-8b", Sb=None):
     """One padded prefill of the full arch (random bfloat16 weights):
-    serve_refresh of B = 2 sequences of S = 2048 with use_flash_refresh
-    (the flash_refresh kernel in every layer), then decode_tokens of the
-    active blocks in the fused mode. Counted alone. The fused decode's ids
-    must equal the argmax of the same hidden rows' float32 logits where
-    their top two are 2e-3 apart (the logit kernel's tolerance above).
+    serve_refresh of B = 2 sequences of S = 2048 with use_flash_refresh (the flash_refresh kernel in every
+    attention layer: each layer of a dense arch, each invocation of the
+    hybrid's shared causal block), then decode_tokens of the active blocks
+    (``Sb`` rows each, the serve's block by default) in the fused mode.
+    Counted alone. The fused decode's ids must equal the argmax of the
+    same hidden rows' float32 logits where their top two are 2e-3 apart
+    (the logit kernel's tolerance above).
 
     Held against the same call without the kernel (the q-chunked plain
     attention), two ways. At one layer of the arch's full width in
-    float32 (its own random weights) both compute every score in float32:
+    float32 (the hybrid: one group, its Mamba2 layers and the shared
+    block; its own random weights) both compute every score in float32:
     the final-normed block hidden must agree within 1e-3 (sums in other
     orders, TF32 off). Through the bfloat16 layers the kernel keeps its
     scores in float32 where the plain attention, like the reference's jnp
@@ -1235,19 +1298,24 @@ def prefill_full(dev, serve, arch="llada-8b"):
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import backbone as BB
+    from repro_torch.models import hybrid as HY
     from repro_torch.models import lm_head as LM
     from repro_torch.models import transformer as T
 
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    attn_layers = HY.group_shape(cfg)[0] if hybrid else cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(1)
     params = BB.init_params(cfg, gen, dev)
-    B, S, Sb = 2, 2048, serve.block_size
+    B, S, Sb = 2, 2048, Sb or serve.block_size
     tokens = torch.randint(0, cfg.vocab_size - 1, (B, S), generator=gen,
                            device=dev, dtype=torch.int32)
     valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     valid[1, 1500:] = False
-    bstart = torch.tensor([1024, 1480], dtype=torch.int32, device=dev)
+    # block starts on block edges (the scan captures at chunk edges)
+    bstart = torch.tensor([1024, 1480 // Sb * Sb], dtype=torch.int32,
+                          device=dev)
     ctx = T.ServeContext(block_size=Sb, retain=S // 2, kernel_size=3,
                          selection=serve.selection, q_chunk=1024,
                          use_flash_kernel=True, use_flash_refresh=True,
@@ -1266,7 +1334,7 @@ def prefill_full(dev, serve, arch="llada-8b"):
     secs = time.perf_counter() - t0
     counts = {n: (c.launches, c.plain_calls)
               for n, c in build.COUNTERS.items()}
-    assert counts["flash_refresh"][0] == cfg.n_layers, counts
+    assert counts["flash_refresh"][0] == attn_layers, counts
     assert counts["fused_logit_argmax"][0] > 0, counts
     for name, (_, n_plain) in counts.items():
         assert n_plain == 0, f"prefill: {n_plain} plain-version calls of " \
@@ -1283,14 +1351,17 @@ def prefill_full(dev, serve, arch="llada-8b"):
     full = (d.max().item(), d.mean().item())
     del params, out, ref
     torch.cuda.empty_cache()
-    c32 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    c32 = dataclasses.replace(
+        cfg, n_layers=cfg.shared_attn_interval if hybrid else 1,
+        dtype="float32")
     p32 = BB.init_params(c32, gen, dev)
     a, b = (BB.serve_refresh(p32, c32, tokens, bstart, c, token_valid=valid)
             .block_hidden for c in (ctx, plain))
     one = (a - b).abs().max().item()
     del p32, a, b
     log(json.dumps(dict(
-        phase="prefill", arch=cfg.name, B=B, S=S, seconds=secs,
+        phase="prefill", arch=cfg.name, n_layers=cfg.n_layers, B=B, S=S,
+        block=Sb, seconds=secs,
         f32_one_layer_max_abs_err=one, bf16_max_abs_err=full[0],
         bf16_mean_abs_err=full[1],
         ids_compared=int(clear.sum()), ids_equal=same,
@@ -1347,6 +1418,8 @@ def main(argv) -> int:
     mamba = get_config("mamba2-130m")
     qwen14, qwen72 = get_config("qwen2.5-14b"), get_config("qwen2-72b")
     gemma27, gemma2b = get_config("gemma2-27b"), get_config("gemma-2b")
+    phi, qwen3 = (get_config("phi3.5-moe-42b-a6.6b"),
+                  get_config("qwen3-moe-235b-a22b"))
     serve_kw = dict(max_seq_len=256, block_size=8, max_slots=12,
                     max_num_batched_tokens=1024, max_num_logits=128)
     serve = ServeConfig(**serve_kw)
@@ -1362,7 +1435,8 @@ def main(argv) -> int:
                                                        retain),
         "head_score_varlen": check_head_score(dev, g, llada, serve),
         "fused_logit_argmax": check_logit_argmax(
-            dev, g, llada, serve, mamba, (gemma27, qwen14, gemma2b)),
+            dev, g, llada, serve, mamba,
+            (gemma27, qwen14, gemma2b, phi, qwen3)),
         "ssm_segment_scan": check_ssm_segment_scan(dev, g, zamba, mamba,
                                                    serve),
         "packed_flash_attention": check_packed_flash_attention(
@@ -1400,6 +1474,24 @@ def main(argv) -> int:
         dev, g, gemma2b, small=False)
     results["head_score"]["gemma-2b"] = check_head_score_padded(
         dev, g, gemma2b, serve, small=False)
+    # the MoE archs' attention: phi3.5-moe's K = 8, G = 4 and qwen3-moe's
+    # 64 heads on K = 4 (G = 16); their heads are rows 4's above
+    for c in (phi, qwen3):
+        results["flash_varlen"][c.name] = check_flash_varlen(
+            dev, g, c, serve, small=False)
+        results["flash_varlen_cross"][c.name] = check_flash_varlen_cross(
+            dev, g, c, serve, retain, small=False)
+        results["head_score_varlen"][c.name] = check_head_score(
+            dev, g, c, serve, small=False)
+    # zamba2-7b's shared block on the padded path: row 6 at the baselines'
+    # Reuse with its causal mask rows, row 7 at its causal prefill
+    z6 = check_packed_flash_attention(dev, g, zamba, base_retain,
+                                      small=False, causal=True)
+    pfa = results["packed_flash_attention"]
+    pfa["zamba2-7b causal T=128"] = z6.pop("T=128")
+    pfa["zamba2-7b causal T=248"] = z6
+    results["flash_refresh"]["zamba2-7b causal"] = check_flash_refresh(
+        dev, g, zamba, small=False, causal=True)
     torch.cuda.synchronize()
     for name, r in results.items():
         for shape, x in [("", r)] + [(f" {k}", v) for k, v in r.items()
@@ -1428,6 +1520,16 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     for arch, system, over in (("llada-8b", "dllm-serve", {}),
                                ("zamba2-7b", "dllm-serve", {}),
+                               ("zamba2-7b", "sparse-dllm", {}),
+                               # G = 4 as in the real arch; at 4 heads
+                               # over 1 the first Refresh's layer-0
+                               # scores hold two values equal within
+                               # float32 rounding on the retention
+                               # boundary, which the kernel's sums order
+                               # the other way: a valid result, but no
+                               # exact comparison
+                               ("phi3.5-moe-42b-a6.6b", "dllm-serve",
+                                dict(n_heads=8, n_kv_heads=2)),
                                ("llada-8b", "sparse-dllm", {}),
                                ("gemma2-27b", "dllm-serve",
                                 dict(n_kv_heads=2)),
@@ -1448,6 +1550,8 @@ def main(argv) -> int:
     for arch, system in (("llada-8b", "dllm-serve"),
                          ("llada-8b", "sparse-dllm"),
                          ("zamba2-7b", "dllm-serve"),
+                         ("zamba2-7b", "sparse-dllm"),
+                         ("phi3.5-moe-42b-a6.6b", "dllm-serve"),
                          ("gemma2-27b", "dllm-serve"),
                          ("gemma-2b", "dllm-serve")):
         graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb)
@@ -1462,15 +1566,23 @@ def main(argv) -> int:
                                 ("qwen2.5-14b", "dllm-serve", 8),
                                 ("gemma2-27b", "dllm-serve", 8),
                                 ("gemma-2b", "dllm-serve", 8),
-                                ("gemma-2b", "sparse-dllm", 8)):
+                                ("gemma-2b", "sparse-dllm", 8),
+                                ("zamba2-7b", "fast-dllm", 8),
+                                ("zamba2-7b", "sparse-dllm", 8),
+                                ("mamba2-130m", "dllm-cache", 4),
+                                ("phi3.5-moe-42b-a6.6b", "dllm-serve", 8),
+                                ("qwen3-moe-235b-a22b", "dllm-serve", 8)):
         t0 = time.perf_counter()
         counts = serve_full(arch, system, n_req, serve_kw, card, hbm_gb)
         for name in PATH_KERNELS[(arch, system)]:
             launches[name][f"{arch} {system}"] = counts[name]
         log(f"phase serve {arch} {system}: {time.perf_counter() - t0:.3f} s")
-    for arch in ("llada-8b", "gemma-2b"):
+    # zamba2-7b's prefill at block 64, so its scan runs the config's own
+    # chunk of 64 (the serving chunk is gcd(ssm_chunk, block))
+    for arch, kw in (("llada-8b", {}), ("gemma-2b", {}),
+                     ("zamba2-7b", dict(Sb=64))):
         t0 = time.perf_counter()
-        counts = prefill_full(dev, serve, arch)
+        counts = prefill_full(dev, serve, arch, **kw)
         launches["flash_refresh"][f"{arch} padded prefill"] = \
             counts["flash_refresh"]
         log(f"phase prefill {arch}: {time.perf_counter() - t0:.3f} s")

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the archs the port serves are listed; the others join with the slices
-that port their model families (ROADMAP Queue A). qwen2-72b (~135 GiB of
-bfloat16 weights) resolves and serves reduced configs; at full size it
-does not fit one 80 GB card.
+Only the archs the port serves are listed; the modality-frontend archs
+(internvl2-76b, musicgen-medium) join with the slice that ports their
+frontends (ROADMAP Queue A). qwen2-72b (~135 GiB of bfloat16 weights),
+phi3.5-moe (~84 GB) and qwen3-moe (~470 GB) resolve and serve reduced
+configs; at full depth they do not fit one 80 GB card.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ from repro_torch.configs.gemma2_27b import CONFIG as _gemma2_27b
 from repro_torch.configs.gemma_2b import CONFIG as _gemma_2b
 from repro_torch.configs.llada_8b import CONFIG as _llada_8b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2_130m
+from repro_torch.configs.phi35_moe import CONFIG as _phi35_moe
 from repro_torch.configs.qwen25_14b import CONFIG as _qwen25_14b
 from repro_torch.configs.qwen2_72b import CONFIG as _qwen2_72b
+from repro_torch.configs.qwen3_moe_235b import CONFIG as _qwen3_moe
 from repro_torch.configs.zamba2_7b import CONFIG as _zamba2_7b
 
 ARCHS = {
@@ -21,8 +24,10 @@ ARCHS = {
     "gemma2-27b": _gemma2_27b,
     "llada-8b": _llada_8b,
     "mamba2-130m": _mamba2_130m,
+    "phi3.5-moe-42b-a6.6b": _phi35_moe,
     "qwen2-72b": _qwen2_72b,
     "qwen2.5-14b": _qwen25_14b,
+    "qwen3-moe-235b-a22b": _qwen3_moe,
     "zamba2-7b": _zamba2_7b,
 }
 

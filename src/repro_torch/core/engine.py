@@ -35,9 +35,10 @@ always does. Two execution paths, as in the reference:
 
 On CUDA the stages run their kernels: ``use_flash_kernel=True`` and
 ``logit_mode="fused"`` are required (``--kernels``); the plain fallbacks
-and the other logit modes run on the CPU only. The scan families serve on
-the packed path only. Mesh serving, fault injection, prefix sharing and
-int8 KV raise ``NotImplementedError`` (ROADMAP Queue A).
+and the other logit modes run on the CPU only. Every family the port
+registers (dense, moe, ssm, hybrid) serves on both paths. Mesh serving,
+fault injection, prefix sharing and int8 KV raise ``NotImplementedError``
+(ROADMAP Queue A).
 
 ``ServeConfig.pipeline`` (the default) runs the reference's dispatch-ahead
 loop: iteration i+1 is planned while iteration i runs on the device, then
@@ -296,12 +297,6 @@ class Engine:
         if serve.prefix_sharing or serve.kv_quant != "none":
             raise _not_ported("prefix sharing / int8 KV",
                               "robustness and the memory multipliers")
-        if cfg.family in ("ssm", "hybrid") and not (
-                serve.varlen_pack and serve.use_flash_kernel):
-            raise _not_ported(
-                f"the {cfg.family} family's padded path and fallbacks "
-                f"(varlen_pack=False or use_flash_kernel=False)",
-                "the scan families' padded branches")
         self.device = devices.resolve(device)
         if self.device.type == "cuda" and not serve.use_flash_kernel:
             raise ValueError(
@@ -507,7 +502,7 @@ class Engine:
         """Queue a request. A request that can never be admitted comes back
         REJECTED with an ``error``, and is never enqueued."""
         if frontend is not None or self.cfg.frontend_dim:
-            raise _not_ported("modality frontends", "MoE and frontends")
+            raise _not_ported("modality frontends", "frontends")
         req = Request(rid=rid if rid is not None else next(self._rid_counter),
                       prompt=np.asarray(prompt, np.int32), gen_len=gen_len,
                       arrival=arrival, cfg=self.serve, mask_id=self.mask_id,

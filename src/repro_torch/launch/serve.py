@@ -15,9 +15,11 @@ dllm-serve (phase scheduler, token-packed) and the three baselines
 fast-dllm, dllm-cache and sparse-dllm (request-level scheduler, padded).
 Without ``--kernels`` a system runs its profile's own flags (the plain
 fallbacks and monolithic or chunked logits), which the engine takes on the
-CPU only. ``--arch`` takes any arch of ``repro_torch.configs.ARCHS``:
-llada-8b, zamba2-7b (hybrid) and mamba2-130m (ssm); the scan families serve
-under dllm-serve with ``--kernels`` only.
+CPU only. ``--arch`` takes any arch of ``repro_torch.configs.ARCHS``, and
+every system serves each: the dense archs, the scan families (mamba2-130m,
+zamba2-7b) and the MoE archs (phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b).
+``run_serve(n_layers=...)`` cuts a full config's depth, for an arch whose
+weights do not fit the card (the profiler then plans the cut config).
 
 As in the reference, the offline memory profiler sizes each system's slots
 by default (``size_by_profiler=True`` at ``hbm_gb=24``), planned on the full
@@ -83,11 +85,15 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               kernels: Optional[bool] = None,
               pipeline: bool = True,
               stream: bool = False,
-              device: str = "cuda") -> dict:
+              device: str = "cuda",
+              n_layers: Optional[int] = None) -> dict:
     """The reference's ``run_serve`` on the port, with its defaults, and
     without the options of features not ported yet (mesh, faults, sharing,
-    int8 KV); ``device`` picks where the engine runs."""
+    int8 KV); ``device`` picks where the engine runs; ``n_layers`` cuts the
+    arch's depth (what is served and what the profiler plans)."""
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     full_cfg = cfg
     if use_reduced:
         cfg = reduced(cfg)

@@ -3,8 +3,7 @@
   * :func:`init_params` — random weights for an arch, drawn on the device.
   * :func:`serve_refresh` / :func:`serve_reuse` — the padded stages: a
     ``[B, S]`` batch per Refresh, a ``[B, Sb]`` block batch per Reuse (the
-    oracle, and the path of the three baseline systems; attention families
-    only so far).
+    oracle, and the path of the three baseline systems).
   * :func:`serve_refresh_packed` — the paper's **Refresh** phase over one
     token-packed stream: capture each request's serving cache (packed sparse
     KV, SSM state and conv history, or both) and return its active block's
@@ -12,9 +11,8 @@
   * :func:`serve_reuse_packed` — the **Reuse** phase: the active blocks as
     one packed stream against their gathered slot caches.
 
-Families: dense (MoE raises in the layers), ssm (mamba2) and hybrid
-(zamba2) on the packed path; the scan families' padded branches and the
-modality frontends come with later slices.
+Families: dense, moe, ssm (mamba2) and hybrid (zamba2), on both paths;
+the modality frontends come with a later slice.
 """
 from __future__ import annotations
 
@@ -38,20 +36,13 @@ ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.frontend_dim:
         raise NotImplementedError(
-            "modality frontends are not ported yet (ROADMAP Queue A, 'MoE "
-            "and frontends')")
+            "modality frontends are not ported yet (ROADMAP Queue A, "
+            "'frontends')")
 
 
 def mask_mode(cfg: ModelConfig) -> str:
     """Diffusion LMs are bidirectional; SSM-bearing archs are causal."""
     return "causal" if cfg.family in ("ssm", "hybrid") else "bidirectional"
-
-
-def _check_padded(cfg: ModelConfig) -> None:
-    if cfg.family not in ATTN_FAMILIES:
-        raise NotImplementedError(
-            f"the padded stages of the {cfg.family} family are not ported "
-            f"yet (ROADMAP Queue A, 'the scan families' padded branches')")
 
 
 def embed_inputs(params, cfg: ModelConfig,
@@ -89,18 +80,35 @@ class RefreshOut(NamedTuple):
 def serve_refresh(params, cfg: ModelConfig, tokens, block_start,
                   serve: T.ServeContext, token_valid=None) -> RefreshOut:
     """Padded Refresh: the full forward of a ``[B, S]`` batch, capturing
-    each row's packed sparse KV, and the active blocks' final-normed hidden
-    rows. tokens [B, S]; block_start [B]; token_valid [B, S]."""
-    _check_padded(cfg)
+    each row's serving cache (packed sparse KV, SSM state and conv history,
+    or both), and the active blocks' final-normed hidden rows. tokens
+    [B, S]; block_start [B]; token_valid [B, S]."""
     x = embed_inputs(params, cfg, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    B, S_len, _ = x.shape
+    positions = torch.arange(S_len, dtype=torch.int32,
+                             device=x.device).expand(B, S_len)
     if token_valid is None:
-        token_valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    h, cache, _ = T.forward_full(
-        params["stack"], cfg, x, positions, token_valid=token_valid,
-        mask_mode=mask_mode(cfg), serve=serve, block_start=block_start)
+        token_valid = torch.ones((B, S_len), dtype=torch.bool,
+                                 device=x.device)
+    if cfg.family in ATTN_FAMILIES:
+        h, cache, _ = T.forward_full(
+            params["stack"], cfg, x, positions, token_valid=token_valid,
+            mask_mode=mask_mode(cfg), serve=serve, block_start=block_start)
+    elif cfg.family == "ssm":
+        ccfg = _serve_chunk_cfg(cfg, serve.block_size)
+        h, states, convs = x, [], []
+        for l in range(cfg.n_layers):
+            h, st, hi = S.mamba_block(T.layer_params(params["stack"], l), h,
+                                      ccfg, capture_at=block_start)
+            states.append(st)
+            convs.append(hi)
+        cache = S.SSMCache(state=torch.stack(states),
+                           conv=torch.stack(convs))
+    else:
+        h, cache = HY.forward_full(
+            params["stack"], _serve_chunk_cfg(cfg, serve.block_size), x,
+            positions, token_valid=token_valid, serve=serve,
+            block_start=block_start)
     bh = T.slice_block(_final(params, cfg, h), block_start,
                        serve.block_size)
     return RefreshOut(block_hidden=bh, cache=cache)
@@ -110,16 +118,22 @@ def serve_reuse(params, cfg: ModelConfig, block_tokens, block_positions,
                 cache, serve: T.ServeContext) -> torch.Tensor:
     """Padded Reuse: block_tokens/block_positions [B, Sb] against the
     gathered caches (batch axis B). Returns final-normed [B, Sb, D]."""
-    _check_padded(cfg)
     xb = LM.embed_tokens(params["embed"], block_tokens)
-    h = T.forward_block(params["stack"], cfg, xb, block_positions, cache,
-                        serve=serve, mask_mode=mask_mode(cfg))
+    if cfg.family in ATTN_FAMILIES:
+        h = T.forward_block(params["stack"], cfg, xb, block_positions,
+                            cache, serve=serve, mask_mode=mask_mode(cfg))
+    elif cfg.family == "ssm":
+        h = _ssm_reuse(params, cfg, xb, cache)
+    else:
+        h = HY.forward_block(params["stack"], cfg, xb, block_positions,
+                             cache, serve=serve)
     return _final(params, cfg, h)
 
 
 def _ssm_refresh(stack, cfg: ModelConfig, x, seg_ids, positions, cu_seqlens,
-                 block_start):
-    """The Mamba2 stack over a packed stream -> (hidden, SSMCache)."""
+                 block_start, use_kernel: bool):
+    """The Mamba2 stack over a packed stream -> (hidden, SSMCache); the
+    scan in its kernel under ``use_kernel``, else in the plain fallback."""
     R = cu_seqlens.shape[0]
     state = torch.empty((cfg.n_layers, R, cfg.ssm_heads, cfg.ssm_head_dim,
                          cfg.ssm_state), dtype=torch.float32, device=x.device)
@@ -128,7 +142,7 @@ def _ssm_refresh(stack, cfg: ModelConfig, x, seg_ids, positions, cu_seqlens,
     for l in range(cfg.n_layers):
         x, state[l], conv[l] = S.mamba_block_packed(
             T.layer_params(stack, l), x, cfg, seg_ids, positions, cu_seqlens,
-            block_start)
+            block_start, use_kernel=use_kernel)
     return x, S.SSMCache(state=state, conv=conv)
 
 
@@ -147,10 +161,11 @@ def serve_refresh_packed(params, cfg: ModelConfig, flat_tokens, positions,
             params["stack"], cfg, x, positions[None], seg_ids[None],
             token_valid[None], cu_seqlens, seq_lens, block_start, serve)
     elif cfg.family == "ssm":
-        T._check_kernel_path(cfg, serve, x.device)
+        T._check_kernel_path(serve, x.device)
         h, cache = _ssm_refresh(
             params["stack"], _serve_chunk_cfg(cfg, serve.block_size), x,
-            seg_ids, positions, cu_seqlens, block_start)
+            seg_ids, positions, cu_seqlens, block_start,
+            bool(serve.use_flash_refresh or serve.use_flash_kernel))
     else:
         h, cache = HY.forward_full_packed(
             params["stack"], _serve_chunk_cfg(cfg, serve.block_size), x,
@@ -187,7 +202,7 @@ def serve_reuse_packed(params, cfg: ModelConfig, flat_tokens, flat_positions,
                                    flat_positions.reshape(R, Sb), cache,
                                    serve=serve)
     elif cfg.family == "ssm":
-        T._check_kernel_path(cfg, serve, xb.device)
+        T._check_kernel_path(serve, xb.device)
         h = _ssm_reuse(params, cfg, xb, cache)
     else:
         h = HY.forward_block_packed(params["stack"], cfg, xb,

@@ -1,5 +1,5 @@
-"""Bidirectional diffusion transformer (dense family): the serving paths of
-``repro.models.transformer``.
+"""Bidirectional diffusion transformer (dense and moe families): the
+serving paths of ``repro.models.transformer``.
 
 Padded paths (the oracle, and the three baseline systems):
 
@@ -31,7 +31,8 @@ products are ``torch.matmul``/``einsum``.
 
 Weights stay stacked on a leading ``[L, ...]`` axis (the reference's
 layout); the reference's ``lax.scan`` over layers is a Python loop here.
-MoE is not ported yet (ROADMAP Queue A).
+An MoE arch's MLP is ``models.moe.moe_ffn``, with its capacity taken on
+the ``T`` each stage runs (the engine's buckets), as in the reference.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.sparse_select import (PackedKV, select_and_pack,
                                               select_and_pack_varlen)
 
@@ -61,21 +63,11 @@ class ServeContext:
     max_seq_len: int = 0            # per-request L cap (packed Refresh)
 
 
-def _check_kernel_path(cfg: ModelConfig, serve: ServeContext,
-                       device) -> None:
+def _check_kernel_path(serve: ServeContext, device) -> None:
     """The kernel flags select kernels; the plain fallbacks beside them run
-    on the CPU only, and the scan families have none ported yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP Queue A, 'MoE and "
-            "frontends')")
+    on the CPU only, for every family."""
     if serve.use_flash_kernel:
         return
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            "the scan families' fallbacks beside their kernels are not "
-            "ported yet (ROADMAP Queue A, 'the scan families' padded "
-            "branches'). Set use_flash_kernel=True.")
     if torch.device(device).type == "cuda":
         raise ValueError(
             "on CUDA the serving stages run their kernels: set "
@@ -103,7 +95,7 @@ def _qkv(p, x, cfg: ModelConfig, cos, sin):
 def _mlp(p, x, cfg: ModelConfig):
     """Returns (y, aux_loss); dense MLPs have zero aux."""
     if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+        return moe_lib.moe_ffn(p, x, cfg)
     y = L.gated_mlp(x, p["w_gate"], p["w_up"], p["w_down"], cfg.activation)
     return y, 0.0
 
@@ -162,10 +154,6 @@ def forward_full(stack, cfg: ModelConfig, x, positions, *,
     positions [B, S]; token_valid [B, S]; block_start [B]. With ``serve``
     each layer selects and packs its retained KV. Returns (hidden
     [B, S, D], PackedKV with a leading [L] axis or None, aux)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP Queue A, 'MoE and "
-            "frontends')")
     B, S, _ = x.shape
     if token_valid is None:
         token_valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
@@ -180,14 +168,16 @@ def forward_full(stack, cfg: ModelConfig, x, positions, *,
             torch.empty((nl, B, K, ret, dh), dtype=x.dtype, device=x.device),
             torch.empty((nl, B, K, ret), dtype=torch.int32, device=x.device),
             torch.empty((nl, B, K, ret), dtype=torch.bool, device=x.device))
+    aux = 0.0
     for l in range(nl):
-        x, packed, _ = _layer_full(
+        x, packed, aux_l = _layer_full(
             layer_params(stack, l), x, cfg, positions, cos, sin, flags[l],
             token_valid, mask_mode, serve, block_start)
+        aux = aux + aux_l
         if out is not None:
             for dst, src in zip(out, packed):
                 dst[l] = src
-    return x, out, 0.0
+    return x, out, aux / nl
 
 
 def _attend_packed_stream(q, k, v, positions, seg_ids, token_valid,
@@ -303,7 +293,7 @@ def forward_full_packed(stack, cfg: ModelConfig, x, positions, seg_ids,
     block_start [R]. Returns (hidden [1, T, D], PackedKV with a leading [L]
     axis, aux)."""
     assert serve.max_seq_len > 0, "packed path needs ServeContext.max_seq_len"
-    _check_kernel_path(cfg, serve, x.device)
+    _check_kernel_path(serve, x.device)
     T = x.shape[1]
     cos, sin = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     flags = L.layer_flags(cfg)
@@ -316,13 +306,15 @@ def forward_full_packed(stack, cfg: ModelConfig, x, positions, seg_ids,
         torch.empty((nl, R, K, serve.retain, dh), dtype=x.dtype, device=dev),
         torch.empty((nl, R, K, serve.retain), dtype=torch.int32, device=dev),
         torch.empty((nl, R, K, serve.retain), dtype=torch.bool, device=dev))
+    aux = 0.0
     for l in range(nl):
-        x, packed, _ = _layer_full_packed(
+        x, packed, aux_l = _layer_full_packed(
             layer_params(stack, l), x, cfg, positions, seg_ids, token_valid,
             cos, sin, flags[l], serve, cu_seqlens, *geom)
+        aux = aux + aux_l
         for dst, src in zip(out, packed):
             dst[l] = src
-    return x, out, 0.0
+    return x, out, aux / nl
 
 
 def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
@@ -331,7 +323,7 @@ def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
     block_positions [R, Sb]; cache fields [L, R, K, retain(, dh)]. Without
     ``use_flash_kernel`` each layer runs the split-attention fallback over
     the same R requests (CPU only)."""
-    _check_kernel_path(cfg, serve, xb.device)
+    _check_kernel_path(serve, xb.device)
     R, Sb, _ = xb.shape
     cos, sin = L.rope_tables(block_positions, cfg.resolved_head_dim,
                              cfg.rope_theta)
@@ -399,7 +391,7 @@ def forward_block(stack, cfg: ModelConfig, xb, block_positions,
                   mask_mode: str = "bidirectional"):
     """Padded Reuse over the layer stack. xb [B, Sb, D]; block_positions
     [B, Sb]; cache fields [L, B, K, retain(, dh)]."""
-    _check_kernel_path(cfg, serve, xb.device)
+    _check_kernel_path(serve, xb.device)
     cos, sin = L.rope_tables(block_positions, cfg.resolved_head_dim,
                              cfg.rope_theta)
     flags = L.layer_flags(cfg)

@@ -8,6 +8,8 @@ The layout is the reference's (``repro.models.backbone.init_params``):
 * dense: ``{attn_norm, mlp_norm [L, D]; wq [L, D, H, dh]; wk, wv
   [L, D, K, dh]; wo [L, H, dh, D]; w_gate, w_up [L, D, F]; w_down
   [L, F, D]}``;
+* moe: the dense stack with the experts in place of the MLP: ``router
+  [L, D, E]; w_gate, w_up [L, E, D, F]; w_down [L, E, F, D]``;
 * ssm: the Mamba2 stack ``{norm [L, D]; w_z [L, D, Din]; w_xbc [L, D, ch];
   w_dt [L, D, Hs]; dt_bias [L, Hs]; conv_w [L, ck, ch]; conv_b [L, ch];
   A_log, D_skip [L, Hs]; gate_norm [L, Din]; out_proj [L, Din, D]}``;
@@ -57,7 +59,12 @@ def _attn_stack(cfg: ModelConfig, nl: int) -> Dict[str, tuple]:
              "wo": (nl, H, dh, D)}
     if cfg.qkv_bias:
         stack.update(bq=(nl, H, dh), bk=(nl, K, dh), bv=(nl, K, dh))
-    stack.update(w_gate=(nl, D, F), w_up=(nl, D, F), w_down=(nl, F, D))
+    if cfg.is_moe:
+        E = cfg.n_experts
+        stack.update(router=(nl, D, E), w_gate=(nl, E, D, F),
+                     w_up=(nl, E, D, F), w_down=(nl, E, F, D))
+    else:
+        stack.update(w_gate=(nl, D, F), w_up=(nl, D, F), w_down=(nl, F, D))
     return stack
 
 
@@ -73,14 +80,15 @@ def _ssm_stack(cfg: ModelConfig, nl: int) -> Dict[str, tuple]:
 
 def shapes(cfg: ModelConfig) -> Dict[str, object]:
     """Parameter shapes of an arch, as a tree of dicts with shape leaves."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend_dim:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+            cfg.frontend_dim:
         raise NotImplementedError(
-            f"parameters of family {cfg.family!r} are not ported yet "
-            f"(ROADMAP Queue A)")
+            f"parameters of family {cfg.family!r} (a modality frontend) "
+            f"are not ported yet (ROADMAP Queue A, 'frontends')")
     embed = {"table": (cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = (cfg.d_model, cfg.vocab_size)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         stack = _attn_stack(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
         stack = _ssm_stack(cfg, cfg.n_layers)

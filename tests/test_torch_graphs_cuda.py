@@ -98,6 +98,22 @@ def test_graphs_equal_eager_packed(cuda, arch, pipeline):
     assert (st.dispatched_ahead > 0) == pipeline
 
 
+@pytest.mark.parametrize("arch,system", [
+    ("mamba2-130m", "dllm-cache"), ("zamba2-7b", "fast-dllm"),
+    ("zamba2-7b", "sparse-dllm"), ("phi3.5-moe-42b-a6.6b", "dllm-serve"),
+    ("qwen3-moe-235b-a22b", "dllm-serve"),
+    ("phi3.5-moe-42b-a6.6b", "sparse-dllm")])
+def test_graphs_equal_eager_scan_padded_and_moe(cuda, arch, system):
+    """The scan families' padded stages (the float32 ``ssd_scan`` and its
+    capture gathers, the hybrid's causal split Reuse) and the MoE
+    dispatch (sort, cumsum, scatter into the slot map, gathers) inside
+    captured graphs."""
+    st = _compare(arch, _serve(system))
+    padded = system != "dllm-serve"
+    assert (st.padded_refresh_calls > 0) == padded
+    assert (st.packed_refresh_calls > 0) != padded
+
+
 def test_graphs_equal_eager_padded_two_refresh_chunks(cuda):
     """The request-level baseline refreshes a whole admitted batch in
     chunks of ``refresh_slots``: one iteration replays the same ``refresh``

@@ -613,6 +613,62 @@ def test_packed_flash_attention_matches_plain(cuda, dtype, tol, G, Sm, dh,
         assert ((o - ro).abs() / rs[..., None]).max().item() < tol
 
 
+@pytest.mark.parametrize("T", [248, 128])
+def test_packed_flash_attention_zamba2_causal_reuse_bf16(cuda, T):
+    """Row 6 at zamba2-7b's padded Reuse under the baselines: B = 16 (the
+    pow2 bucket of 12 slots), K = 32, G = 1 (R = Sb = 8 rows), dh = 112,
+    bfloat16, the retained T of retention 1.0 (248) and 0.5 (128), and the
+    shared block's causal mask rows (Sm = Sb): a query sees a cached key
+    only at a position at or before its own. Row 0's block starts at 0
+    (every row fully masked), row 1 is a padding row (no valid key), the
+    others start deeper with keys on both sides of the block."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, K, Sb, dh, bf = 16, 32, 8, 112, torch.bfloat16
+    q = torch.randn((B, K, Sb, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    # retained positions of a 256-token sequence outside the active block
+    # (Refresh excludes it), block starts on block edges
+    start = 8 * torch.randint(1, 31, (B,), generator=g, device=cuda)
+    start[0] = 0
+    cpos = torch.rand((B, K, 256 - Sb), generator=g,
+                      device=cuda).argsort(-1)[..., :T]
+    cpos += Sb * (cpos >= start[:, None, None])
+    valid = torch.rand((B, K, T), generator=g, device=cuda) < 0.9
+    valid[1] = False
+    qpos = start[:, None] + torch.arange(Sb, device=cuda)
+    mask = valid[:, :, None, :] & (qpos[:, None, :, None]
+                                   >= cpos[:, :, None, :])
+    assert not mask[:2].any() and mask[2:].any()
+    o, m, s = FA.packed_flash_attention_call(q, k, v, mask)
+    ro, rm, rs = FA.packed_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (m[:2] == -1e30).all() and (s[:2] == T).all()
+    assert (m - rm).abs().max().item() < 1e-4
+    assert ((s - rs).abs() / rs).max().item() < 2e-2
+    assert ((o - ro).abs() / rs[..., None]).max().item() < 2e-2
+
+
+@pytest.mark.parametrize("S", [150, 2048])
+def test_flash_refresh_zamba2_causal_bf16(cuda, S):
+    """Row 7 at zamba2-7b's padded prefill: bfloat16, causal, K = 32,
+    G = 1, dh = 112; one request's valid keys end 37 before S (a ragged
+    tail; at S = 150 also a ragged last KV tile), the other all valid."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, K, dh, bf = 2, 32, 112, torch.bfloat16
+    q = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, S, dh), generator=g, device=cuda).to(bf)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    valid = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    valid[0, S - 37:] = False
+    out = FR.flash_refresh_call(q, k, v, pos, pos, valid, causal=True)
+    ref = FR.refresh_attention_plain(q, k, v, pos, pos, valid, False,
+                                     causal=True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("G,dh", [(1, 128), (2, 64), (1, 112), (4, 16),

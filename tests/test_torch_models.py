@@ -157,17 +157,25 @@ def test_init_params_shapes_match_reference():
 
 
 def test_unported_paths_raise():
-    """MoE layers are not ported: both Refresh paths refuse them; an
-    unknown logit mode is refused (the plain fallbacks and the monolithic
-    mode now run, see ``test_torch_padded.py``)."""
+    """The MoE layers' expert-parallel strategy (a device mesh) is not
+    ported: both Refresh paths refuse it and name its ROADMAP item (the
+    ``gather`` strategy serves, see ``test_torch_moe.py``); an unknown
+    logit mode is refused."""
     _, tcfg = _cfgs(4)
-    moe = dataclasses.replace(tcfg, n_experts=4)
+    moe = dataclasses.replace(tcfg, family="moe", n_experts=4,
+                              experts_per_token=2, moe_impl="ep")
+    tp = TBB.init_params(moe, torch.Generator().manual_seed(0), "cpu")
     ctx = dataclasses.replace(_ctx(TT), use_flash_kernel=False)
     x = torch.zeros(1, 8, tcfg.d_model)
-    with pytest.raises(NotImplementedError):
-        TT.forward_full_packed({}, moe, x, *[None] * 6, ctx)
-    with pytest.raises(NotImplementedError):
-        TT.forward_full({}, moe, x, torch.zeros(1, 8, dtype=torch.int32))
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        TT.forward_full_packed(tp["stack"], moe, x, pos, seg,
+                               torch.ones(1, 8, dtype=torch.bool), one,
+                               one + 8, one, ctx)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        TT.forward_full(tp["stack"], moe, x, pos)
     with pytest.raises(ValueError):
         TLM.decode_tokens_packed({}, tcfg, x[0], torch.ones(8, dtype=bool),
                                  max_num_logits=8, mode="sampled")

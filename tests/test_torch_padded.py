@@ -447,13 +447,14 @@ def test_packed_refresh_matches_padded(use_kernel):
 
 
 def test_unported_padded_branches_raise():
-    """The scan families' padded stages name their ROADMAP item."""
-    tcfg = treduced(get_config("mamba2-130m"))
-    tp = TBB.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    """What the padded stages do not serve yet names its ROADMAP item: a
+    modality frontend (the scan families' padded branches are
+    ``test_torch_scan_padded.py``)."""
+    cfg = dataclasses.replace(treduced(get_config("llada-8b")),
+                              frontend_dim=32, frontend_len=4)
     ctx = _ctx(TT, use_flash_kernel=True)
-    with pytest.raises(NotImplementedError, match="padded branches"):
-        TBB.serve_refresh(tp, tcfg, torch.zeros(1, S, dtype=torch.int32),
+    with pytest.raises(NotImplementedError, match="frontends"):
+        TBB.serve_refresh({}, cfg, torch.zeros(1, S, dtype=torch.int32),
                           torch.zeros(1, dtype=torch.int32), ctx)
-    with pytest.raises(NotImplementedError, match="padded branches"):
-        TBB.serve_reuse(tp, tcfg, torch.zeros(1, SB, dtype=torch.int32),
-                        torch.zeros(1, SB, dtype=torch.int32), None, ctx)
+    with pytest.raises(NotImplementedError, match="frontends"):
+        TBB.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -166,7 +166,19 @@ def test_warmup_covers_every_requested_bucket(system, workload):
     ``stage_keys``; dllm-serve, a padded baseline, and the request-level
     scheduler on the packed path (``+engine``: the fused Refresh spans up
     to ``max_slots`` requests)."""
-    cfg = treduced(get_config("llada-8b"))
+    _warmup_covers("llada-8b", system, workload)
+
+
+@pytest.mark.parametrize("arch,system", [("zamba2-7b", "sparse-dllm"),
+                                         ("mamba2-130m", "fast-dllm")])
+def test_warmup_covers_every_requested_bucket_scan_padded(arch, system):
+    """The same for the scan families' padded stages, whose slot pool
+    holds nested SSMCache / HybridCache trees."""
+    _warmup_covers(arch, system, "livebench")
+
+
+def _warmup_covers(arch, system, workload):
+    cfg = treduced(get_config(arch))
     serve = _profile(system)
     eng = TEngine(cfg, serve, clock="modeled", device="cpu")
     eng.warmup()

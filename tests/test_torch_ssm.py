@@ -137,17 +137,18 @@ def _stream(V, seed=0, tp=128, rp=4):
     return tokens, pos, seg, valid, cu, lens, bstart
 
 
-def _ctx(mod):
+def _ctx(mod, kernel=True):
     return mod.ServeContext(block_size=SB, retain=RETAIN, kernel_size=3,
-                            selection="head", use_flash_kernel=True,
+                            selection="head", use_flash_kernel=kernel,
                             max_seq_len=S_MAX)
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_mamba_block_packed_matches_reference(use_kernel):
     """One block, its captured state (chunk-floor contract) and its conv
-    history (zero before the segment start), against the JAX block with
-    the Pallas kernel or with the jnp fallback."""
+    history (zero before the segment start), against the JAX block, both
+    with the scan kernel (the port's plain version of it on the CPU) or
+    both with the fallback scan beside it."""
     jcfg, tcfg = _cfgs()
     assert jcfg.ssm_chunk == SB == tcfg.ssm_chunk
     jp, tp = _params(jcfg, tcfg)
@@ -161,7 +162,8 @@ def test_mamba_block_packed_matches_reference(use_kernel):
                                  jnp.asarray(bstart), use_kernel=use_kernel)
     got = TS.mamba_block_packed(TT.layer_params(tp["stack"], 1),
                                 torch.from_numpy(x), tcfg,
-                                *map(torch.from_numpy, (seg, pos, cu, bstart)))
+                                *map(torch.from_numpy, (seg, pos, cu, bstart)),
+                                use_kernel=use_kernel)
     for g, w, tol in zip(got, want, (1e-4, 1e-5, 1e-5)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol)
     assert not got[1][0].any() and not got[2][0].any()   # block at 0
@@ -188,15 +190,16 @@ def test_mamba_decode_block_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
-def refresh_both(arch, seed=0):
-    """serve_refresh_packed of both packages on one stream (reduced arch)."""
+def refresh_both(arch, seed=0, kernel=True):
+    """serve_refresh_packed of both packages on one stream (reduced arch),
+    with the kernel flag or without it (the plain fallbacks)."""
     jcfg, tcfg = reduced(ARCHS[arch]), treduced(get_config(arch))
     jp, tp = _params(jcfg, tcfg, seed)
     args = _stream(jcfg.vocab_size)
     ref = jax.jit(lambda p, *a: JBB.serve_refresh_packed(
-        p, jcfg, *a, _ctx(JT)))(jp, *map(jnp.asarray, args))
+        p, jcfg, *a, _ctx(JT, kernel)))(jp, *map(jnp.asarray, args))
     out = TBB.serve_refresh_packed(tp, tcfg, *map(torch.from_numpy, args),
-                                   _ctx(TT))
+                                   _ctx(TT, kernel))
     return jcfg, tcfg, jp, tp, ref, out
 
 
@@ -209,7 +212,7 @@ def to_port(cache):
     return torch.from_numpy(np.array(cache))
 
 
-def reuse_both(jcfg, tcfg, jp, tp, ref):
+def reuse_both(jcfg, tcfg, jp, tp, ref, kernel=True):
     """serve_reuse_packed of both packages, the port fed the reference's
     cache so the stage is compared alone."""
     R = len(LENS)
@@ -219,16 +222,20 @@ def reuse_both(jcfg, tcfg, jp, tp, ref):
                           ).astype(np.int32)
     jcache = jax.tree.map(lambda x: x[:, :R], ref.cache)
     want = jax.jit(lambda p, a, b, c: JBB.serve_reuse_packed(
-        p, jcfg, a, b, c, _ctx(JT)))(jp, jnp.asarray(btok),
-                                     jnp.asarray(bpos), jcache)
+        p, jcfg, a, b, c, _ctx(JT, kernel)))(jp, jnp.asarray(btok),
+                                             jnp.asarray(bpos), jcache)
     tcache = to_port(jcache)
     got = TBB.serve_reuse_packed(tp, tcfg, torch.from_numpy(btok),
-                                 torch.from_numpy(bpos), tcache, _ctx(TT))
+                                 torch.from_numpy(bpos), tcache,
+                                 _ctx(TT, kernel))
     return got, want
 
 
-def test_serve_refresh_and_reuse_packed_match_reference():
-    jcfg, tcfg, jp, tp, ref, out = refresh_both(ARCH)
+@pytest.mark.parametrize("kernel", [True, False])
+def test_serve_refresh_and_reuse_packed_match_reference(kernel):
+    """Both packed stages, with the kernel flag and without it (the
+    fallback scan beside the kernel)."""
+    jcfg, tcfg, jp, tp, ref, out = refresh_both(ARCH, kernel=kernel)
     n = len(LENS)
     assert isinstance(out.cache, TS.SSMCache)
     np.testing.assert_allclose(out.block_hidden.numpy()[:n],
@@ -236,7 +243,7 @@ def test_serve_refresh_and_reuse_packed_match_reference():
     for got, want in zip(out.cache, ref.cache):
         np.testing.assert_allclose(got.numpy()[:, :n],
                                    np.asarray(want)[:, :n], atol=1e-5)
-    h, h_ref = reuse_both(jcfg, tcfg, jp, tp, ref)
+    h, h_ref = reuse_both(jcfg, tcfg, jp, tp, ref, kernel)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=1e-4)
 
 
@@ -333,15 +340,24 @@ def test_run_serve_json_matches_reference():
     run_serve_matches(ARCH)
 
 
-def test_kernel_flag_off_raises():
-    """No fallback: the scan families need the kernel path, as llada-8b."""
-    tcfg = treduced(get_config(ARCH))
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_kernel_flag_off_raises_on_cuda(arch, monkeypatch):
+    """The plain fallbacks run on the CPU only: without the kernel flag a
+    CUDA device is refused (``_check_kernel_path`` and the engine, before
+    any weight is drawn), the CPU is not. The CPU parity of the fallbacks
+    is ``test_torch_scan_engine.py``'s dllm-serve case and
+    ``test_serve_refresh_and_reuse_packed_match_reference[False]``."""
+    tcfg = treduced(get_config(arch))
+    ctx = _ctx(TT, kernel=False)
+    with pytest.raises(ValueError, match="use_flash_kernel=True"):
+        TT._check_kernel_path(ctx, torch.device("cuda"))
+    TT._check_kernel_path(ctx, torch.device("cpu"))
+    TT._check_kernel_path(_ctx(TT), torch.device("cuda"))
+    from repro_torch.core import engine as tengine
+    monkeypatch.setattr(tengine.devices, "resolve",
+                        lambda d: torch.device("cuda"))
     bad = dataclasses.replace(_serve(TServe, tprofiles),
                               use_flash_kernel=False)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, bad, device="cpu")
-    ctx = dataclasses.replace(_ctx(TT), use_flash_kernel=False)
-    tp = TBB.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    args = map(torch.from_numpy, _stream(tcfg.vocab_size))
-    with pytest.raises(NotImplementedError):
-        TBB.serve_refresh_packed(tp, tcfg, *args, ctx)
+    with pytest.raises(ValueError, match="use_flash_kernel=False"):
+        TEngine(tcfg, bad)
