@@ -22,7 +22,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      8, row 4 on gemma2-27b's tied 256,000-row head with softcap 30, rows
      6-8 at gemma-2b's head_dim 256; the MoE archs' heads: rows 1-3 at
      phi3.5-moe's K = 8, G = 4 and qwen3-moe's 64 heads on K = 4, row 4 on
-     their untied heads, V = 32,064 and 151,936; zamba2-7b's padded path:
+     their untied heads, V = 32,064 and 151,936; the modality frontends:
+     rows 1 and 3 over Refresh segments of 256 prefix rows and up to 256
+     text tokens (S + F = 512 rows a segment), row 2 at their Reuse, at
+     musicgen-medium's MHA (H = K = 24, head_dim 64) and internvl2-76b's
+     64 heads on K = 8, row 4 on musicgen-medium's V = 2048 head (D =
+     1536) and internvl2-76b's D = 8192, V = 128,256, row 6 at
+     musicgen-medium's padded Reuse (K = 24, dh 64); zamba2-7b's padded
+     path:
      row 6 at its baselines' Reuse with the shared block's causal mask rows
      (T = 248 and 128, rows that see no cached key), row 7 at its causal
      prefill),
@@ -47,15 +54,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      reduced zamba2-7b under dllm-serve, of reduced llada-8b and zamba2-7b
      under sparse-dllm (the padded path), of reduced phi3.5-moe (G = 4)
      under dllm-serve, of reduced gemma2-27b (two KV heads) and of reduced
-     gemma-2b (head_dim 256, also under sparse-dllm), on the card against
-     the same iterations on the CPU (the plain versions);
+     gemma-2b (head_dim 256, also under sparse-dllm), of reduced
+     musicgen-medium and internvl2-76b (their frontend payloads drawn from
+     the engine's seed) under dllm-serve, on the card against the same
+     iterations on the CPU (the plain versions);
   5. footprint: each llada-8b system's memory plan (the offline profiler)
      at 24 GB and at the card's memory, and the logit stage's peak bytes
      measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
      graphs: the full llada-8b and zamba2-7b under dllm-serve and
      sparse-dllm, phi3.5-moe at 24 of its 32 layers and the full
-     gemma2-27b and gemma-2b under dllm-serve, on the modeled clock, by an
-     engine
+     gemma2-27b, gemma-2b and musicgen-medium under dllm-serve, and the
+     full llada-8b at the profiles' own logit modes (monolithic under
+     fast-dllm, chunked under dllm-serve: torch ops, no kernel), on the
+     modeled clock, by an engine
      whose stage entries are captured CUDA graphs and by one running the
      same entries eagerly, on the same weights: ids, counters, modeled
      clock and launches identical, nothing built after warmup (warmup
@@ -64,11 +75,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      serve: run_serve of the full llada-8b, zamba2-7b, mamba2-130m,
      qwen2.5-14b, gemma2-27b and gemma-2b (random bfloat16 weights from a
      seed), and of phi3.5-moe at 24 of its 32 layers and qwen3-moe at 8
-     of its 94 (the whole does not fit the card; ``LAYERS``), through the
+     of its 94 and internvl2-76b at 24 of its 80 (the whole does not fit
+     the card; ``LAYERS``), and of the full musicgen-medium, through the
      dllm-serve profile, and through the padded path: the full llada-8b
      under the three baselines fast-dllm, dllm-cache and sparse-dllm,
      zamba2-7b under fast-dllm and sparse-dllm, mamba2-130m under
-     dllm-cache and gemma-2b under sparse-dllm, with the kernels, at the
+     dllm-cache, gemma-2b under sparse-dllm and musicgen-medium under
+     fast-dllm (its padded Refresh and Reuse carry the 256-row prefix),
+     with the kernels, at the
      launcher's defaults (the pipelined loop, the captured stage entries),
      on the wall clock, each sized by the offline profiler at the card's
      memory (its plan and the graph pool's bytes logged); then one padded
@@ -235,12 +249,13 @@ def flex_library(dev, qh, k, v, keep, softcap, G):
 
 
 def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True,
-                       window=0):
+                       window=0, lens=(256, 250, 240, 230)):
     """Row 1: small float32 shapes with every flag (dh 64, and dh 256 on one
     KV head), then the main path's full Refresh stream in bfloat16 at the
     arch's heads, with its attention softcap and, with ``window``, a local
     layer's sliding window (ragged segments of 230-256 tokens, so a window
-    of 64 cuts them). The SDPA
+    of 64 cuts them; a frontend arch's ``lens`` are ``[F ; text]``
+    segments of up to S + F rows). The SDPA
     yardstick takes GQA heads by ``enable_gqa``; where a softcap applies,
     which SDPA has not, ``flex_attention`` is the library call, held to the
     plain version first."""
@@ -267,7 +282,6 @@ def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True,
             assert err < 1e-4, err
     # the main path's full Refresh stream: 4 refresh slots x max_seq_len
     # filling the max_num_batched_tokens bucket, bf16, the arch's heads
-    lens = [256, 250, 240, 230]
     T = serve.max_num_batched_tokens
     seg, pos, valid = stream(lens, T - sum(lens), dev)
     K, dh, bf = cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16
@@ -284,9 +298,9 @@ def check_flash_varlen(dev, g, cfg, serve, causal=False, small=True,
     out, ref = call(), plain()
     rows = valid.repeat_interleave(G)
     err = (out[:, rows] - ref[:, rows]).abs().max().item()
-    log(f"  flash_varlen bf16 {cfg.name} T={T} K={K} G={G} dh={dh} causal="
-        f"{causal} softcap={softcap} window={window}: max_abs_err={err:.3g} "
-        f"(tol 2e-2)")
+    log(f"  flash_varlen bf16 {cfg.name} T={T} lens={list(lens)} K={K} G={G} "
+        f"dh={dh} causal={causal} softcap={softcap} window={window}: "
+        f"max_abs_err={err:.3g} (tol 2e-2)")
     assert err < 2e-2, err
     mask = (seg[:, None] == seg[None, :]) & valid[None, :]
     if causal:
@@ -439,7 +453,8 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
         ms_by_splits=sweep)
 
 
-def check_head_score(dev, g, cfg, serve, small=True):
+def check_head_score(dev, g, cfg, serve, small=True,
+                     lens=(256, 250, 240, 230)):
     """Row 3 against its plain version: float32 (GQA Rq = 16, dh = 64, a
     one-token request, a PAD_SEG tail, requests that own nothing), then in
     bfloat16 at the main path's Refresh stream (R = 4 slots filling the
@@ -472,8 +487,8 @@ def check_head_score(dev, g, cfg, serve, small=True):
         q, k, seg = case(lens, T - sum(lens), R, K, Rq, dh, bf)
         err = err_of(SP.head_score_varlen_call(q, k, seg),
                      SP.head_score_varlen_plain(q, k, seg))
-        log(f"  head_score_varlen bf16 {cfg.name} R={R} T={T} dh={dh}: "
-            f"max_abs_err={err:.3g} (tol 1e-2)")
+        log(f"  head_score_varlen bf16 {cfg.name} R={R} T={T} lens={lens} "
+            f"dh={dh}: max_abs_err={err:.3g} (tol 1e-2)")
         assert err < 1e-2, err
         # the Refresh layer's call: block queries [R, Sb, H, dh] and the
         # [T, K, dh] keys, read in place as their [K, T, dh] view
@@ -525,7 +540,7 @@ def check_head_score(dev, g, cfg, serve, small=True):
                      SP.head_score_varlen_plain(*args))
         log(f"  head_score_varlen f32: max_abs_err={err:.3g} (tol 1e-3)")
         assert err < 1e-3, err
-    row = measure([256, 250, 240, 230], serve.max_num_batched_tokens)
+    row = measure(list(lens), serve.max_num_batched_tokens)
     if small:
         # the paper's geometry: 12 slots in the bucket of
         # max_num_batched_tokens = 4000
@@ -598,13 +613,19 @@ def check_logit_argmax(dev, g, cfg, serve, tied, heads):
                 return z.argmax(dim=1), torch.logsumexp(z, dim=1)
 
             b, by = bound(2.0 * T * D * V, nbytes(h, w, valid) + T * 12, bf)
-            ms = time_ms(lambda h=h, valid=valid: LA.fused_logit_argmax_call(
-                h, w, valid, softcap=softcap, w_layout=layout))
+
+            def call(h=h, valid=valid):
+                return LA.fused_logit_argmax_call(h, w, valid,
+                                                  softcap=softcap,
+                                                  w_layout=layout)
+            ms = time_ms(call)
             rows[T] = dict(
                 max_abs_err=err, ms=ms,
                 plain_ms=time_ms(lambda h=h: LA.fused_logit_argmax_plain(
                     h, w, softcap=softcap, w_layout=layout), iters=3),
                 bound_ms=b, bound_by=by, library_ms=time_ms(library),
+                device_ms=time_ms(call, queued=True),
+                library_device_ms=time_ms(library, queued=True),
                 w_tb_s=nbytes(w) / ms / 1e9, ids_compared=n)
         del w, wm
         return rows
@@ -1043,11 +1064,16 @@ PATH_KERNELS = {
     ("mamba2-130m", "dllm-cache"): ("fused_logit_argmax",),
     ("phi3.5-moe-42b-a6.6b", "dllm-serve"): DENSE_KERNELS,
     ("qwen3-moe-235b-a22b", "dllm-serve"): DENSE_KERNELS,
+    # the modality frontends: [F ; text] Refresh segments, text Reuse
+    ("musicgen-medium", "dllm-serve"): DENSE_KERNELS,
+    ("musicgen-medium", "fast-dllm"): BASELINE_KERNELS,
+    ("internvl2-76b", "dllm-serve"): DENSE_KERNELS,
 }
 # depth cuts of the archs whose weights do not fit the card: phi3.5-moe's
 # 32 layers are ~83.7 GB of bfloat16 weights (24: ~62.9 GB), qwen3-moe's
-# 94 ~470 GB (8: ~42.3 GB)
-LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "qwen3-moe-235b-a22b": 8}
+# 94 ~470 GB (8: ~42.3 GB), internvl2-76b's 80 ~141 GB (24: ~45.3 GB)
+LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "qwen3-moe-235b-a22b": 8,
+          "internvl2-76b": 24}
 
 
 def served_config(arch):
@@ -1062,10 +1088,11 @@ def served_config(arch):
     return cfg
 
 
-def serve_plan(arch, system, serve_kw, hbm_gb):
+def serve_plan(arch, system, serve_kw, hbm_gb, own_logits=False):
     """The plan run_serve sizes a kernels serve with (its own helper on the
     same ServeConfig and the same depth), and that ServeConfig with its
-    slots sized."""
+    slots sized; ``own_logits`` keeps the profile's logit mode (monolithic
+    or chunked) in place of the fused kernel."""
     import dataclasses
     from repro_torch.configs.base import ServeConfig
     from repro_torch.core.baselines import system_profiles
@@ -1073,7 +1100,9 @@ def serve_plan(arch, system, serve_kw, hbm_gb):
 
     base = ServeConfig(max_refresh_per_iter=4, **serve_kw)
     serve = dataclasses.replace(system_profiles(base)[system],
-                                use_flash_kernel=True, logit_mode="fused")
+                                use_flash_kernel=True)
+    if not own_logits:
+        serve = dataclasses.replace(serve, logit_mode="fused")
     return profile_slots(served_config(arch), serve, serve_kw["max_slots"],
                          hbm_gb)
 
@@ -1146,10 +1175,12 @@ GRAPH_COUNTERS = (
     "submitted", "finished", "dispatched_ahead")
 
 
-def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
+def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
     """The full arch under a system (its slots sized as ``run_serve`` sizes
     them, the launcher's pipelined loop, the modeled clock, the livebench
-    trace ``run_serve`` draws), served by two engines on the same weights:
+    trace ``run_serve`` draws; with ``own_logits`` the profile's own logit
+    mode, monolithic or chunked, as torch ops), served by two engines on
+    the same weights:
     with the stage entries captured as CUDA graphs and with the same
     entries run eagerly. Ids, counters and the modeled clock must be
     identical, and so must each kernel's launches over the run (counted
@@ -1163,7 +1194,7 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
     from repro_torch.kernels import build
     from repro_torch.params import init_params
 
-    plan, serve = serve_plan(arch, system, serve_kw, hbm_gb)
+    plan, serve = serve_plan(arch, system, serve_kw, hbm_gb, own_logits)
     cfg = served_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1208,7 +1239,7 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
                                                        g["tokens"]))
     log(json.dumps(dict(
         phase="graphs", arch=arch, system=system, n_layers=cfg.n_layers,
-        n_requests=n_req,
+        logit_mode=serve.logit_mode, n_requests=n_req,
         max_slots=serve.max_slots, ids_equal=same_ids,
         counters_equal=e["counters"] == g["counters"],
         vtime_equal=e["vtime"] == g["vtime"],
@@ -1224,7 +1255,8 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb):
         plan_activation_bytes=plan.activation_bytes,
         plan_logit_bytes=plan.logit_bytes,
         launches={n: c for n, (c, _) in g["launches"].items() if c})))
-    assert same_ids, f"{arch} {system}: graphed ids differ from eager"
+    assert same_ids, f"{arch} {system} {serve.logit_mode}: graphed ids " \
+        f"differ from eager"
     assert e["counters"] == g["counters"], (e["counters"], g["counters"])
     assert e["vtime"] == g["vtime"], (e["vtime"], g["vtime"])
     assert e["launches"] == g["launches"], (e["launches"], g["launches"])
@@ -1420,6 +1452,8 @@ def main(argv) -> int:
     gemma27, gemma2b = get_config("gemma2-27b"), get_config("gemma-2b")
     phi, qwen3 = (get_config("phi3.5-moe-42b-a6.6b"),
                   get_config("qwen3-moe-235b-a22b"))
+    musicgen, internvl = (get_config("musicgen-medium"),
+                          get_config("internvl2-76b"))
     serve_kw = dict(max_seq_len=256, block_size=8, max_slots=12,
                     max_num_batched_tokens=1024, max_num_logits=128)
     serve = ServeConfig(**serve_kw)
@@ -1436,7 +1470,7 @@ def main(argv) -> int:
         "head_score_varlen": check_head_score(dev, g, llada, serve),
         "fused_logit_argmax": check_logit_argmax(
             dev, g, llada, serve, mamba,
-            (gemma27, qwen14, gemma2b, phi, qwen3)),
+            (gemma27, qwen14, gemma2b, phi, qwen3, musicgen, internvl)),
         "ssm_segment_scan": check_ssm_segment_scan(dev, g, zamba, mamba,
                                                    serve),
         "packed_flash_attention": check_packed_flash_attention(
@@ -1483,6 +1517,25 @@ def main(argv) -> int:
             dev, g, c, serve, retain, small=False)
         results["head_score_varlen"][c.name] = check_head_score(
             dev, g, c, serve, small=False)
+    # the modality frontends: Refresh segments of F = 256 prefix rows and
+    # up to S = 256 text tokens (two fill the 1,024-token bucket); musicgen-
+    # medium's MHA at dh 64 (H = K = 24), internvl2-76b's 64 heads on K = 8;
+    # their heads are row 4's above
+    fe_lens = (512, 496)
+    for c in (musicgen, internvl):
+        tag = f"{c.name} [F ; text]"
+        results["flash_varlen"][tag] = check_flash_varlen(
+            dev, g, c, serve, small=False, lens=fe_lens)
+        results["flash_varlen_cross"][c.name] = check_flash_varlen_cross(
+            dev, g, c, serve, retain, small=False)
+        results["head_score_varlen"][tag] = check_head_score(
+            dev, g, c, serve, small=False, lens=fe_lens)
+    # musicgen-medium's padded Reuse (fast-dllm): row 6 at K = 24, G = 1,
+    # dh 64 over the dense retention's 248 cached rows
+    results["packed_flash_attention"]["musicgen-medium T=248"] = \
+        check_packed_flash_attention(
+            dev, g, musicgen, [("fast-dllm", dict(base_retain)["fast-dllm"])],
+            small=False)
     # zamba2-7b's shared block on the padded path: row 6 at the baselines'
     # Reuse with its causal mask rows, row 7 at its causal prefill
     z6 = check_packed_flash_attention(dev, g, zamba, base_retain,
@@ -1535,7 +1588,16 @@ def main(argv) -> int:
                                 dict(n_kv_heads=2)),
                                ("gemma-2b", "dllm-serve", dict(head_dim=256)),
                                ("gemma-2b", "sparse-dllm",
-                                dict(head_dim=256))):
+                                dict(head_dim=256)),
+                               ("musicgen-medium", "dllm-serve", {}),
+                               # G = 8 as in the real arch; at 4 heads on 4
+                               # the first Refresh's scores hold two values
+                               # 5.6e-7 apart (relative) on the retention
+                               # boundary, which the card orders the other
+                               # way; at 8 on 1 the closest pair is 2e-2
+                               # apart
+                               ("internvl2-76b", "dllm-serve",
+                                dict(n_heads=8, n_kv_heads=1))):
         check_reduced_iteration(dev, arch, system, **over)
     log(f"phase reduced-check: {time.perf_counter() - t0:.3f} s")
 
@@ -1547,14 +1609,19 @@ def main(argv) -> int:
     footprint(dev, hbm_gb)
     log(f"phase footprint: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    for arch, system in (("llada-8b", "dllm-serve"),
-                         ("llada-8b", "sparse-dllm"),
-                         ("zamba2-7b", "dllm-serve"),
-                         ("zamba2-7b", "sparse-dllm"),
-                         ("phi3.5-moe-42b-a6.6b", "dllm-serve"),
-                         ("gemma2-27b", "dllm-serve"),
-                         ("gemma-2b", "dllm-serve")):
-        graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb)
+    for arch, system, own in (("llada-8b", "dllm-serve", False),
+                              ("llada-8b", "sparse-dllm", False),
+                              ("zamba2-7b", "dllm-serve", False),
+                              ("zamba2-7b", "sparse-dllm", False),
+                              ("phi3.5-moe-42b-a6.6b", "dllm-serve", False),
+                              ("gemma2-27b", "dllm-serve", False),
+                              ("gemma-2b", "dllm-serve", False),
+                              ("musicgen-medium", "dllm-serve", False),
+                              # the profiles' own logit modes: monolithic
+                              # (fast-dllm) and chunked (dllm-serve)
+                              ("llada-8b", "fast-dllm", True),
+                              ("llada-8b", "dllm-serve", True)):
+        graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb, own_logits=own)
     log(f"phase graphs: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
     for arch, system, n_req in (("llada-8b", "dllm-serve", 8),
@@ -1571,7 +1638,10 @@ def main(argv) -> int:
                                 ("zamba2-7b", "sparse-dllm", 8),
                                 ("mamba2-130m", "dllm-cache", 4),
                                 ("phi3.5-moe-42b-a6.6b", "dllm-serve", 8),
-                                ("qwen3-moe-235b-a22b", "dllm-serve", 8)):
+                                ("qwen3-moe-235b-a22b", "dllm-serve", 8),
+                                ("musicgen-medium", "dllm-serve", 8),
+                                ("musicgen-medium", "fast-dllm", 8),
+                                ("internvl2-76b", "dllm-serve", 8)):
         t0 = time.perf_counter()
         counts = serve_full(arch, system, n_req, serve_kw, card, hbm_gb)
         for name in PATH_KERNELS[(arch, system)]:

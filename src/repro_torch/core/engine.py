@@ -33,12 +33,17 @@ always does. Two execution paths, as in the reference:
   batch whose pad rows read the scratch slot; the logit stage over the
   pow2 bucket of the rows (``monolithic``: one ``[N, V]`` pass).
 
-On CUDA the stages run their kernels: ``use_flash_kernel=True`` and
-``logit_mode="fused"`` are required (``--kernels``); the plain fallbacks
-and the other logit modes run on the CPU only. Every family the port
-registers (dense, moe, ssm, hybrid) serves on both paths. Mesh serving,
-fault injection, prefix sharing and int8 KV raise ``NotImplementedError``
-(ROADMAP Queue A).
+On CUDA the attention and scan stages run their kernels:
+``use_flash_kernel=True`` is required (``--kernels``); their plain
+fallbacks run on the CPU only. The logit stage runs every C1 mode on the
+card: ``fused`` in its kernel, ``chunked`` and ``monolithic`` as the
+reference's plain jnp path, in torch ops. Every family the port registers
+(dense, moe, ssm, hybrid, and the modality frontends vlm and audio) serves
+on both paths. A frontend arch's requests carry ``frontend_len`` projected
+rows ahead of their text: every Refresh spans ``F + text`` rows, and block
+and Reuse positions count the prefix. Mesh serving, fault injection,
+prefix sharing and int8 KV raise ``NotImplementedError`` (ROADMAP Queue
+A).
 
 ``ServeConfig.pipeline`` (the default) runs the reference's dispatch-ahead
 loop: iteration i+1 is planned while iteration i runs on the device, then
@@ -246,19 +251,21 @@ def stage_keys(serve: ServeConfig, cfg: ModelConfig) -> Dict[str, List[tuple]]:
 
     The bounds: a packed Refresh fuses at most ``refresh_slots`` requests
     (``max_slots`` under the request-level scheduler) of at most
-    ``max_seq_len`` tokens each and ``max_num_batched_tokens`` in all; a
+    ``max_seq_len`` tokens each, plus a frontend arch's ``frontend_len``
+    prefix rows, and ``max_num_batched_tokens`` in all; a
     padded Refresh runs chunks of ``refresh_slots``; an iteration decodes
     distinct residents, each holding a slot, so Reuse and the logit stage
     see at most ``max_slots`` requests. Every token bucket under those
     bounds is listed, not only the reference's doubling."""
     S, Sb = serve.max_seq_len, serve.block_size
+    F = cfg.frontend_len if cfg.frontend_dim else 0
     tb = max(1, serve.token_bucket)
     keys: Dict[str, List[tuple]] = {}
     if serve.varlen_pack and can_pack_tokens(cfg):
         r_fused = (serve.refresh_slots if serve.scheduler == "phase"
                    else serve.max_slots)
         top = lambda rp: max(tb, -(-min(  # noqa: E731
-            rp * S, serve.max_num_batched_tokens) // tb) * tb)
+            rp * (S + F), serve.max_num_batched_tokens) // tb) * tb)
         keys["refresh_packed"] = [(tp, rp) for rp in _pow2s(_bucket(r_fused))
                                   for tp in range(tb, top(rp) + 1, tb)]
         rb = max(1, tb // Sb)
@@ -303,11 +310,6 @@ class Engine:
                 "on CUDA the attention stages run their kernels: "
                 "use_flash_kernel=False has none (use device='cpu' for the "
                 "plain fallbacks)")
-        if self.device.type == "cuda" and serve.logit_mode != "fused":
-            raise ValueError(
-                f"on CUDA the logit stage runs the fused kernel: "
-                f"logit_mode={serve.logit_mode!r} has no kernel (use "
-                f"device='cpu' for the plain modes)")
         self.cfg = cfg
         self.serve = serve
         self.clock = clock if clock is not None else serve.clock
@@ -331,6 +333,13 @@ class Engine:
             use_flash_kernel=serve.use_flash_kernel,
             max_seq_len=serve.max_seq_len)
         self._use_packed = serve.varlen_pack and can_pack_tokens(cfg)
+        # the prefix rows of a frontend arch's request (0 for text-only
+        # archs): every Refresh spans F + text rows, and block and Reuse
+        # positions count them
+        self._fe_len = cfg.frontend_len if cfg.frontend_dim else 0
+        # the synthetic frontend payloads, drawn in submit order as the
+        # reference's engine draws them
+        self._rng = np.random.default_rng(seed)
         self.mesh_devices = 1
         self.scheduler = make_scheduler(serve)
         self.pool = KVPool(serve.max_slots, self.device)
@@ -338,7 +347,7 @@ class Engine:
         self._stream_cb = stream_cb
         self.graphs = StageGraphs(self.device, graphs)
         self._hdtype = params["embed"]["table"].dtype
-        self._ar = np.arange(serve.max_seq_len, dtype=np.int32)
+        self._ar = np.arange(serve.max_seq_len + self._fe_len, dtype=np.int32)
         self.stats = EngineStats()
         if serve.iter_log_cap:
             self.stats.iter_log = deque(maxlen=serve.iter_log_cap)
@@ -386,7 +395,11 @@ class Engine:
         graph; only block hidden rows and the decode outputs are static
         outputs."""
         S, Sb = self.serve.max_seq_len, self.serve.block_size
+        F = self._fe_len
         i32, i64, b8 = torch.int32, torch.int64, torch.bool
+        # a frontend arch's payloads, [b, F, frontend_dim] float32
+        fe = ([Field("frontend", (key[-1], F, self.cfg.frontend_dim),
+                     torch.float32)] if F else [])
         # the functions close over these, never over the engine: an entry
         # referring back to it would make a cycle only gc frees
         pool, scratch = self.pool, self.pool.scratch_slot
@@ -400,24 +413,26 @@ class Engine:
                       Field("valid", (tp,), b8, False),
                       Field("cu", (rp,), i32, max(0, tp - 1)),
                       Field("lens", (rp,), i32), Field("bstart", (rp,), i32),
-                      Field("slots", (rp,), i64, scratch)]
+                      Field("slots", (rp,), i64, scratch)] + fe
 
             def fn(x):
                 out = BB.serve_refresh_packed(
                     P, cfg, x["tokens"], x["pos"], x["seg"], x["valid"],
-                    x["cu"], x["lens"], x["bstart"], ctx)
+                    x["cu"], x["lens"], x["bstart"], ctx,
+                    frontend=x.get("frontend"))
                 pool.write(x["slots"], out.cache)
                 return out.block_hidden
         elif name == "refresh":
             (n,) = key
             fields = [Field("tokens", (n, S), i32),
-                      Field("valid", (n, S), b8, False),
+                      Field("valid", (n, F + S), b8, False),
                       Field("bstart", (n,), i32),
-                      Field("slots", (n,), i64, scratch)]
+                      Field("slots", (n,), i64, scratch)] + fe
 
             def fn(x):
                 out = BB.serve_refresh(P, cfg, x["tokens"], x["bstart"], ctx,
-                                       token_valid=x["valid"])
+                                       token_valid=x["valid"],
+                                       frontend=x.get("frontend"))
                 pool.write(x["slots"], out.cache)
                 return out.block_hidden
         elif name in ("reuse_packed", "reuse"):
@@ -464,7 +479,8 @@ class Engine:
             x["valid"][...] = True
             x["seg"][...] = 0
             x["cu"][...] = 0
-            x["lens"][...] = min(key[0], self.serve.max_seq_len)
+            x["lens"][...] = min(key[0], self.serve.max_seq_len
+                                 + self._fe_len)
         elif name in ("refresh", "decode_packed"):
             x["valid"][...] = True
         if e.captures:
@@ -499,14 +515,30 @@ class Engine:
     def submit(self, prompt: np.ndarray, gen_len: int, arrival: float = 0.0,
                rid: Optional[int] = None, frontend=None,
                deadline: float = math.inf) -> Request:
-        """Queue a request. A request that can never be admitted comes back
-        REJECTED with an ``error``, and is never enqueued."""
-        if frontend is not None or self.cfg.frontend_dim:
-            raise _not_ported("modality frontends", "frontends")
+        """Queue a request. A frontend arch's ``frontend`` carries the
+        request's precomputed patch or frame embeddings ``[frontend_len,
+        frontend_dim]``; omitted, a stand-in is drawn from the engine's
+        rng, as the reference draws it. A request that can never be
+        admitted comes back REJECTED with an ``error``, and is never
+        enqueued."""
+        if self.cfg.frontend_dim:
+            if frontend is None:
+                frontend = self._rng.standard_normal(
+                    (self.cfg.frontend_len, self.cfg.frontend_dim)).astype(
+                        np.float32)
+            frontend = np.asarray(frontend, np.float32)
+            if frontend.shape != (self.cfg.frontend_len,
+                                  self.cfg.frontend_dim):
+                raise ValueError(f"frontend of shape {frontend.shape}, "
+                                 f"expected ({self.cfg.frontend_len}, "
+                                 f"{self.cfg.frontend_dim})")
+        elif frontend is not None:
+            raise ValueError(f"{self.cfg.name} is text-only but got "
+                             f"frontend embeddings")
         req = Request(rid=rid if rid is not None else next(self._rid_counter),
                       prompt=np.asarray(prompt, np.int32), gen_len=gen_len,
                       arrival=arrival, cfg=self.serve, mask_id=self.mask_id,
-                      deadline=deadline)
+                      frontend=frontend, deadline=deadline)
         self.stats.submitted += 1
         reason = admission_block_reason(self.serve, req)
         if reason is not None:
@@ -717,7 +749,7 @@ class Engine:
                 iter_real += t_real
                 iter_exec += exec_tokens
                 self._charge("refresh", exec_tokens,
-                             kv_len=self.serve.max_seq_len,
+                             kv_len=self.serve.max_seq_len + self._fe_len,
                              actual_tokens=t_real)
 
         # ---- Reuse: one ragged block stream (packed) / pow2 batch ----
@@ -846,51 +878,60 @@ class Engine:
 
     def _run_refresh(self, chunk: List[Request], dst: torch.Tensor) -> int:
         """Padded Refresh: a pow2 request bucket of ``[b, max_seq_len]``
-        rows; the pad rows' caches land in the scratch slot. Copies the
-        block hidden rows into ``dst`` [n·Sb, D]; returns the executed
-        tokens, b·max_seq_len."""
+        rows (a frontend arch's batch is ``[b, F + max_seq_len]``, the
+        prefix first); the pad rows' caches land in the scratch slot.
+        Copies the block hidden rows into ``dst`` [n·Sb, D]; returns the
+        executed tokens, b·(F + max_seq_len)."""
         n = len(chunk)
         b = _bucket(n)
-        S = self.serve.max_seq_len
+        S, F = self.serve.max_seq_len, self._fe_len
         self._check_slots(chunk)
         e = self._entry("refresh", (b,))
         x = e.host()
         for j, r in enumerate(chunk):
             x["tokens"][j] = r.tokens
-            x["valid"][j, : r.total_len] = True
-            x["bstart"][j] = r.block_start
+            x["valid"][j, : F + r.total_len] = True
+            x["bstart"][j] = F + r.block_start
             x["slots"][j] = r.slot
+            if F:
+                x["frontend"][j] = r.frontend
         dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.padded_refresh_calls += 1
         self.stats.refresh_tokens_real += sum(r.refresh_len for r in chunk)
-        self.stats.refresh_tokens_exec += b * S
-        return b * S
+        self.stats.refresh_tokens_exec += b * (F + S)
+        return b * (F + S)
 
     def _run_refresh_packed(self, seg_layout, dst: torch.Tensor) -> int:
-        """Token-packed Refresh: one ragged stream bucketed on total tokens.
-        Copies the block hidden rows into ``dst``; returns the executed
-        tokens."""
+        """Token-packed Refresh: one ragged stream bucketed on total tokens,
+        each request a segment of ``[F placeholder tokens ; text]`` for a
+        frontend arch (the stage writes the projected frontend over the
+        placeholders' rows; padding requests keep ``lens`` 0, so they write
+        none). Copies the block hidden rows into ``dst``; returns the
+        executed tokens."""
         chunk = list(seg_layout.requests)
         cu_real = seg_layout.cu_seqlens
         n = len(chunk)
         rp = _bucket(n)
         t_real = seg_layout.total_tokens
         tp = self._token_bucket(t_real)
+        F = self._fe_len
         self._check_slots(chunk)
         e = self._entry("refresh_packed", (tp, rp))
         x = e.host()
         for j, r in enumerate(chunk):
             off = int(cu_real[j])
-            ln = r.refresh_len
+            ln = r.refresh_len               # frontend prefix + text
             assert ln == int(cu_real[j + 1]) - off, "layout/request mismatch"
-            x["tokens"][off: off + ln] = r.tokens[: r.total_len]
+            x["tokens"][off + F: off + ln] = r.tokens[: r.total_len]
             x["pos"][off: off + ln] = self._ar[:ln]
             x["seg"][off: off + ln] = j
             x["valid"][off: off + ln] = True
             x["cu"][j] = off
             x["lens"][j] = ln
-            x["bstart"][j] = r.block_start
+            x["bstart"][j] = F + r.block_start
             x["slots"][j] = r.slot
+            if F:
+                x["frontend"][j] = r.frontend
         dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.packed_refresh_calls += 1
         self.stats.refresh_tokens_real += t_real
@@ -911,9 +952,9 @@ class Engine:
         x = e.host()
         for j, r in enumerate(reqs):
             off = int(seg_layout.cu_seqlens[j])
+            s = self._fe_len + r.block_start
             x["btok"][off: off + Sb] = r.block_tokens()
-            x["bpos"][off: off + Sb] = np.arange(r.block_start,
-                                                 r.block_start + Sb)
+            x["bpos"][off: off + Sb] = self._ar[s: s + Sb]
             x["slots"][j] = r.slot
         dst.copy_(e()[: n * Sb])
         self.stats.packed_reuse_calls += 1
@@ -931,8 +972,9 @@ class Engine:
         e = self._entry("reuse", (b,))
         x = e.host()
         for j, r in enumerate(reqs):
+            s = self._fe_len + r.block_start
             x["btok"][j] = r.block_tokens()
-            x["bpos"][j] = np.arange(r.block_start, r.block_start + Sb)
+            x["bpos"][j] = self._ar[s: s + Sb]
             x["slots"][j] = r.slot
         dst.copy_(e()[:n].reshape(dst.shape))
         self.stats.padded_reuse_calls += 1

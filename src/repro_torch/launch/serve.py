@@ -13,11 +13,15 @@ On the CPU, the kernels' plain versions at the reduced size:
 ``--system`` takes every profile of ``core.baselines.system_profiles``:
 dllm-serve (phase scheduler, token-packed) and the three baselines
 fast-dllm, dllm-cache and sparse-dllm (request-level scheduler, padded).
-Without ``--kernels`` a system runs its profile's own flags (the plain
-fallbacks and monolithic or chunked logits), which the engine takes on the
-CPU only. ``--arch`` takes any arch of ``repro_torch.configs.ARCHS``, and
-every system serves each: the dense archs, the scan families (mamba2-130m,
-zamba2-7b) and the MoE archs (phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b).
+Without ``--kernels`` a system runs its profile's own flags: the plain
+attention fallbacks, which the engine takes on the CPU only, and the
+profile's logit mode (monolithic for the baselines, chunked for
+dllm-serve), which runs on the card too. ``--arch`` takes any arch of
+``repro_torch.configs.ARCHS``, and every system serves each: the dense
+archs, the scan families (mamba2-130m, zamba2-7b), the MoE archs
+(phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b) and the modality frontends
+(internvl2-76b, musicgen-medium: each request's frontend payload is drawn
+from the engine's seed, as in the reference).
 ``run_serve(n_layers=...)`` cuts a full config's depth, for an arch whose
 weights do not fit the card (the profiler then plans the cut config).
 
@@ -34,6 +38,13 @@ JSON adds ``graph_replays`` (replays per entry) and ``graph_pool_bytes``
 bill; 0 without graphs). Keys whose feature the
 port does not have yet carry the reference's "off" value:
 ``mesh_devices=1``, sharing and faults at zero.
+
+Admission, as in the reference: ``--queue-cap`` bounds the waiting queue
+(0: unbounded) and ``--queue-policy`` rejects a new arrival or evicts the
+oldest waiter when it is full; ``--deadline`` gives every request a
+deadline that many trace seconds after its arrival (expired waiters are
+shed); ``--preempt-starvation`` preempts a resident for a waiter starved
+that long (0: never).
 """
 from __future__ import annotations
 
@@ -236,6 +247,17 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true",
                     help="the full config (default reduced)")
+    ap.add_argument("--queue-cap", type=int, default=0,
+                    help="bounded waiting queue (0 = unbounded)")
+    ap.add_argument("--queue-policy", default="reject",
+                    choices=["reject", "evict"],
+                    help="full-queue backpressure: reject new vs evict oldest")
+    ap.add_argument("--deadline", type=float, default=float("inf"),
+                    help="per-request deadline slack in trace seconds "
+                         "(inf = none); expired waiters are shed")
+    ap.add_argument("--preempt-starvation", type=float, default=0.0,
+                    help="starvation threshold (s) that triggers "
+                         "preempt-and-requeue (0 = disabled)")
     ap.add_argument("--kernels", action="store_true",
                     help="the kernel paths (use_flash_kernel + "
                          "logit_mode=fused) on top of the system profile; "
@@ -254,6 +276,9 @@ def main():
     args = ap.parse_args()
     res = run_serve(args.arch, args.system, args.workload, args.rps, args.n,
                     use_reduced=not args.full, seed=args.seed, quiet=False,
+                    queue_cap=args.queue_cap, queue_policy=args.queue_policy,
+                    deadline_slack=args.deadline,
+                    preempt_starvation_s=args.preempt_starvation,
                     kernels=True if args.kernels else None,
                     clock=args.clock, pipeline=not args.no_pipeline,
                     stream=args.stream, device=args.device)

@@ -11,8 +11,15 @@
   * :func:`serve_reuse_packed` — the **Reuse** phase: the active blocks as
     one packed stream against their gathered slot caches.
 
-Families: dense, moe, ssm (mamba2) and hybrid (zamba2), on both paths;
-the modality frontends come with a later slice.
+Families: dense, moe, ssm (mamba2), hybrid (zamba2), and the modality
+frontends vlm (internvl2-76b) and audio (musicgen-medium), on both paths.
+A frontend arch's request carries precomputed patch or frame embeddings
+``[frontend_len, frontend_dim]`` (the vision or audio tower is a stub that
+runs offline), projected by ``frontend.proj`` onto the first
+``frontend_len`` rows of its sequence: the padded Refresh embeds a
+``[B, F + S]`` batch, the packed Refresh a ``[F ; text]`` segment per
+request (:func:`embed_inputs_packed`). The Reuse stream is text only: its
+blocks see the prefix through the rows Refresh retained.
 """
 from __future__ import annotations
 
@@ -33,30 +40,54 @@ from repro_torch.params import init_params  # noqa: F401  (the model API)
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            "modality frontends are not ported yet (ROADMAP Queue A, "
-            "'frontends')")
-
-
 def mask_mode(cfg: ModelConfig) -> str:
     """Diffusion LMs are bidirectional; SSM-bearing archs are causal."""
     return "causal" if cfg.family in ("ssm", "hybrid") else "bidirectional"
 
 
-def embed_inputs(params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """[B, S] tokens -> [B, S, D] (text-only archs)."""
-    _check_family(cfg)
-    return LM.embed_tokens(params["embed"], tokens)
+def _project_frontend(params, cfg: ModelConfig, frontend, dtype):
+    """[..., F, frontend_dim] embeddings -> [..., F, D] model rows."""
+    if frontend is None:
+        raise ValueError(f"{cfg.name} needs its frontend embeddings "
+                         f"[frontend_len, frontend_dim] for each request")
+    return frontend.to(dtype) @ params["frontend"]["proj"]
 
 
-def embed_inputs_packed(params, cfg: ModelConfig,
-                        flat_tokens: torch.Tensor) -> torch.Tensor:
-    """[T] token stream -> [T, D] (text-only archs)."""
-    _check_family(cfg)
-    return LM.embed_tokens(params["embed"], flat_tokens)
+def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 frontend=None) -> torch.Tensor:
+    """tokens [B, S] (and frontend [B, F, frontend_dim] for a frontend
+    arch) -> [B, S, D], or [B, F + S, D] with the projected prefix rows
+    first."""
+    x = LM.embed_tokens(params["embed"], tokens)
+    if cfg.frontend_dim:
+        x = torch.cat([_project_frontend(params, cfg, frontend, x.dtype), x],
+                      dim=1)
+    return x
+
+
+def embed_inputs_packed(params, cfg: ModelConfig, flat_tokens: torch.Tensor,
+                        cu_seqlens=None, seq_lens=None,
+                        frontend=None) -> torch.Tensor:
+    """The packed stream's counterpart of :func:`embed_inputs`: [T] token
+    stream -> [T, D]. For a frontend arch each request's segment is
+    ``[frontend prefix ; text]``: the projected frontend [R, F, D] lands on
+    rows ``cu_seqlens[r] + [0, F)`` over the placeholder tokens' rows.
+    Padding requests (``seq_lens == 0``), and rows past the stream (a
+    warmup's dummy segment in a bucket shorter than the prefix), write
+    into a row after the stream, which is cut off, as the reference's
+    ``mode="drop"`` drops them: a bucket-exact stream's real tail is never
+    overwritten. No host read, so the stage can be captured."""
+    x = LM.embed_tokens(params["embed"], flat_tokens)
+    if not cfg.frontend_dim:
+        return x
+    T_len, D = x.shape
+    F = cfg.frontend_len
+    fe = _project_frontend(params, cfg, frontend, x.dtype)     # [R, F, D]
+    rows = cu_seqlens[:, None].long() + torch.arange(F, device=x.device)
+    rows = torch.where((seq_lens > 0)[:, None] & (rows < T_len), rows, T_len)
+    buf = torch.cat([x, x.new_zeros((1, D))])
+    buf.index_copy_(0, rows.reshape(-1), fe.reshape(-1, D))
+    return buf[:T_len]
 
 
 def _final(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -78,12 +109,15 @@ class RefreshOut(NamedTuple):
 
 
 def serve_refresh(params, cfg: ModelConfig, tokens, block_start,
-                  serve: T.ServeContext, token_valid=None) -> RefreshOut:
+                  serve: T.ServeContext, token_valid=None,
+                  frontend=None) -> RefreshOut:
     """Padded Refresh: the full forward of a ``[B, S]`` batch, capturing
     each row's serving cache (packed sparse KV, SSM state and conv history,
     or both), and the active blocks' final-normed hidden rows. tokens
-    [B, S]; block_start [B]; token_valid [B, S]."""
-    x = embed_inputs(params, cfg, tokens)
+    [B, S]; block_start [B], in the full sequence's coordinates (the
+    frontend prefix first); token_valid [B, F + S]; frontend
+    [B, F, frontend_dim] for a frontend arch."""
+    x = embed_inputs(params, cfg, tokens, frontend)
     B, S_len, _ = x.shape
     positions = torch.arange(S_len, dtype=torch.int32,
                              device=x.device).expand(B, S_len)
@@ -148,14 +182,23 @@ def _ssm_refresh(stack, cfg: ModelConfig, x, seg_ids, positions, cu_seqlens,
 
 def serve_refresh_packed(params, cfg: ModelConfig, flat_tokens, positions,
                          seg_ids, token_valid, cu_seqlens, seq_lens,
-                         block_start, serve: T.ServeContext) -> RefreshOut:
+                         block_start, serve: T.ServeContext,
+                         frontend=None) -> RefreshOut:
     """Token-packed Refresh (§4.1 flattened engine): one flat ``[T]`` stream
     replaces the padded ``[B, S]`` batch, so compute scales with real
     tokens. Attention families run the segment-masked varlen attention
     stream; ssm/hybrid families the segment-reset SSD scan (the hybrid's
     shared block runs causal varlen attention). All stream arguments are
-    ``[T]``; cu_seqlens/seq_lens/block_start are ``[R]``."""
-    x = embed_inputs_packed(params, cfg, flat_tokens)[None]   # [1, T, D]
+    ``[T]``; cu_seqlens/seq_lens/block_start are ``[R]``. A frontend arch's
+    segments are ``[F ; text]`` (frontend [R, F, frontend_dim]), and
+    seq_lens, positions and block_start count the prefix: a segment may be
+    ``frontend_len`` longer than the text cap, so the per-request bound
+    ``serve.max_seq_len`` widens by it."""
+    if cfg.frontend_dim:
+        serve = dataclasses.replace(
+            serve, max_seq_len=serve.max_seq_len + cfg.frontend_len)
+    x = embed_inputs_packed(params, cfg, flat_tokens, cu_seqlens, seq_lens,
+                            frontend)[None]                   # [1, T, D]
     if cfg.family in ATTN_FAMILIES:
         h, cache, _ = T.forward_full_packed(
             params["stack"], cfg, x, positions[None], seg_ids[None],
@@ -191,8 +234,8 @@ def serve_reuse_packed(params, cfg: ModelConfig, flat_tokens, flat_positions,
     stream against their gathered slot caches (SSM blocks decode
     recurrently from their cached states; hybrids add the causal shared
     block). Returns the flat ``[Tq, D]`` final-normed hidden stream the
-    logit stage consumes."""
-    _check_family(cfg)
+    logit stage consumes. A frontend arch's blocks are text; their
+    positions count the prefix."""
     Sb = serve.block_size
     Tq = flat_tokens.shape[0]
     R = Tq // Sb

@@ -12,7 +12,9 @@ iteration's hidden rows
   * ``monolithic`` — in one ``[N, V]`` float32 matrix (the baselines'
                      un-budgeted logit stage).
 
-The last two are plain PyTorch; the engine runs them on the CPU only.
+The last two are the reference's plain jnp path (no Pallas kernel), here
+as torch ops, on the card as on the CPU. None of the three reads the
+device from the host, so each can be captured in a stage's CUDA graph.
 """
 from __future__ import annotations
 
@@ -95,8 +97,10 @@ def decode_tokens_packed(params, cfg: ModelConfig, h: torch.Tensor,
     """ArgMax decode over the whole-iteration packed hidden stream.
 
     h [N_exec, D] token-bucketed rows; valid [N_exec] bool. C1 chunking as
-    in the reference; all-padding chunks are never computed, and invalid
-    rows return (id 0, conf 0.0). ``monolithic`` decodes every row in one
+    in the reference; invalid rows return (id 0, conf 0.0). The fused kernel
+    skips an all-padding chunk in-kernel; the chunked path computes it and
+    masks it to zeros on the device, the same ids and confidences as the
+    reference's ``lax.cond`` around it, with no host read. ``monolithic`` decodes every row in one
     pass. Returns ([N_exec], [N_exec])."""
     if mode == "monolithic":
         ids, conf = _decode_chunk_jnp(params, cfg, h)
@@ -115,10 +119,6 @@ def decode_tokens_packed(params, cfg: ModelConfig, h: torch.Tensor,
             i, c = ops.fused_logit_argmax(hb, w, softcap=cfg.final_softcap,
                                           w_layout=layout, valid=vb)
         else:
-            # the chunked path branches around all-padding chunks with a
-            # host check, which the fused kernel does in-kernel instead
-            if not bool(vb.any()):
-                continue
             i, c = _decode_chunk_jnp(params, cfg, hb)
             i = torch.where(vb, i, torch.zeros_like(i))
             c = torch.where(vb, c, torch.zeros_like(c))

@@ -13,7 +13,10 @@ The layout is the reference's (``repro.models.backbone.init_params``):
 * ssm: the Mamba2 stack ``{norm [L, D]; w_z [L, D, Din]; w_xbc [L, D, ch];
   w_dt [L, D, Hs]; dt_bias [L, Hs]; conv_w [L, ck, ch]; conv_b [L, ch];
   A_log, D_skip [L, Hs]; gate_norm [L, Din]; out_proj [L, Din, D]}``;
-* hybrid: ``{mamba: <the ssm stack>, shared: <one dense layer, unstacked>}``.
+* hybrid: ``{mamba: <the ssm stack>, shared: <one dense layer, unstacked>}``;
+* vlm / audio: the dense stack, and beside it ``frontend.proj
+  [frontend_dim, D]``, which projects each request's precomputed
+  patch or frame embeddings into the model width.
 
 Modules index like the reference's dicts (``params["stack"]["wq"]``), so
 the model code reads the same in both packages.
@@ -80,22 +83,22 @@ def _ssm_stack(cfg: ModelConfig, nl: int) -> Dict[str, tuple]:
 
 def shapes(cfg: ModelConfig) -> Dict[str, object]:
     """Parameter shapes of an arch, as a tree of dicts with shape leaves."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
-            cfg.frontend_dim:
-        raise NotImplementedError(
-            f"parameters of family {cfg.family!r} (a modality frontend) "
-            f"are not ported yet (ROADMAP Queue A, 'frontends')")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     embed = {"table": (cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = (cfg.d_model, cfg.vocab_size)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         stack = _attn_stack(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
         stack = _ssm_stack(cfg, cfg.n_layers)
     else:
         shared = {n: s[1:] for n, s in _attn_stack(cfg, 1).items()}
         stack = {"mamba": _ssm_stack(cfg, cfg.n_layers), "shared": shared}
-    return {"embed": embed, "final_norm": (cfg.d_model,), "stack": stack}
+    out = {"embed": embed, "final_norm": (cfg.d_model,), "stack": stack}
+    if cfg.frontend_dim:
+        out["frontend"] = {"proj": (cfg.frontend_dim, cfg.d_model)}
+    return out
 
 
 _ZERO_INIT = ("bq", "bk", "bv", "dt_bias", "conv_b", "A_log")

@@ -12,6 +12,8 @@ reference.
 * The two ``run_serve`` signatures share every default (``pipeline=True``
   included).
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 import inspect
 

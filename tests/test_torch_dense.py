@@ -12,6 +12,8 @@ five (qwen2.5-14b's 40 / 8 heads), gemma2-27b's groups of two (with its
 window of 8 on alternate layers and both softcaps active), and gemma-2b's
 head_dim 256 on its one KV head.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import pytest

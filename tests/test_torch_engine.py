@@ -12,6 +12,8 @@ compile counters, which measure the host and XLA, not the serving.
 """
 import dataclasses
 
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from repro_torch.core.scheduler import (RequestLevelScheduler,
                                         make_scheduler as tmake_scheduler)
 from repro_torch.launch.serve import run_serve as trun_serve
 from repro_torch.params import from_jax
+from torch_testing import cached
 
 HOST_TIMES = {"host_plan_s", "host_fill_s", "sync_wait_s",
               "overlapped_host_s"}
@@ -56,32 +59,55 @@ def _requests(vocab):
              int(rng.integers(9, 30)), float(i) * 0.004) for i in range(6)]
 
 
+def reference_params(arch, **overrides):
+    """The reference's reduced weights (PRNGKey 3) and their numpy tree,
+    once per process."""
+    def make():
+        jp = JBB.init_params(reduced(ARCHS[arch], **overrides),
+                             jax.random.PRNGKey(3))
+        return jp, jax.tree.map(np.asarray, jp)
+    return cached(("params", arch, overrides), make)
+
+
+def reference_serve(jserve, requests, arch="llada-8b", **overrides):
+    """The reference engine's serve of ``requests`` (modeled clock), once
+    per process: each request's tokens and times, the stats and vtime."""
+    def run():
+        je = JEngine(reduced(ARCHS[arch], **overrides), jserve,
+                     params=reference_params(arch, **overrides)[0],
+                     clock="modeled")
+        jreqs = [je.submit(p, gen_len=g, arrival=t, rid=i)
+                 for i, (p, g, t) in enumerate(requests)]
+        js = je.run()
+        return ([(r.tokens.copy(), (r.t_admitted, r.t_first_commit,
+                                    r.t_finished)) for r in jreqs],
+                js, je.vtime)
+    return cached(("serve", arch, overrides, jserve, requests), run)
+
+
 def _serve_both(jserve, tserve, requests=None, check_deferred=True,
                 arch="llada-8b", **overrides):
     """Serve the same requests on both engines (the reduced ``arch``, with
     ``overrides`` passed to both packages' ``reduced``); ids, request
     times, every EngineStats counter and vtime must be equal."""
-    jcfg = reduced(ARCHS[arch], **overrides)
     tcfg = treduced(get_config(arch), **overrides)
-    jp = JBB.init_params(jcfg, jax.random.PRNGKey(3))
-    je = JEngine(jcfg, jserve, params=jp, clock="modeled")
+    requests = requests or _requests(tcfg.vocab_size)
+    jreqs, js, vtime = reference_serve(jserve, requests, arch, **overrides)
     te = TEngine(tcfg, tserve,
-                 params=from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu"),
+                 params=from_jax(reference_params(arch, **overrides)[1],
+                                 tcfg, "cpu"),
                  clock="modeled", device="cpu")
-    jreqs, treqs = [], []
-    for i, (p, g, t) in enumerate(requests or _requests(jcfg.vocab_size)):
-        jreqs.append(je.submit(p, gen_len=g, arrival=t, rid=i))
-        treqs.append(te.submit(p, gen_len=g, arrival=t, rid=i))
-    js, ts = je.run(), te.run()
+    treqs = [te.submit(p, gen_len=g, arrival=t, rid=i)
+             for i, (p, g, t) in enumerate(requests)]
+    ts = te.run()
     assert all(r.state == State.FINISHED for r in treqs)
     assert ts.reuse_steps > 0
     if check_deferred:
         assert ts.deferred_steps > 0
-    for a, b in zip(jreqs, treqs):
-        assert np.array_equal(a.tokens, b.tokens), a.rid
-        assert (a.t_admitted, a.t_first_commit, a.t_finished) == \
-            (b.t_admitted, b.t_first_commit, b.t_finished)
-    assert je.vtime == te.vtime
+    for (tokens, times), b in zip(jreqs, treqs):
+        assert np.array_equal(tokens, b.tokens), b.rid
+        assert times == (b.t_admitted, b.t_first_commit, b.t_finished)
+    assert vtime == te.vtime
     for f in dataclasses.fields(js):
         if f.name in HOST_TIMES | JAX_ONLY:
             continue
@@ -239,19 +265,26 @@ def test_unported_engine_options_raise():
 
 
 def test_cuda_engine_requires_the_kernel_paths(monkeypatch):
-    """On CUDA the engine refuses the plain fallbacks and every logit mode
-    but the fused kernel, for every system (checked before any weight is
-    drawn, with the device resolution stubbed)."""
+    """On CUDA the engine refuses the plain attention fallbacks, for every
+    system (checked before any weight is drawn, with the device resolution
+    stubbed), and takes every system's own logit mode (monolithic,
+    chunked: the reference's plain path, torch ops on the card)."""
     import torch
     from repro_torch.core import engine as tengine
+    from repro_torch.params import init_params
     monkeypatch.setattr(tengine.devices, "resolve",
                         lambda d: torch.device("cuda"))
     tcfg = treduced(get_config("llada-8b"))
+    params = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    modes = set()
     for system, s in tprofiles(TServe(**SERVE)).items():
         with pytest.raises(ValueError, match="CUDA"):
             TEngine(tcfg, dataclasses.replace(s, logit_mode="fused"))
-        with pytest.raises(ValueError, match="CUDA"):
-            TEngine(tcfg, dataclasses.replace(s, use_flash_kernel=True))
+        eng = TEngine(tcfg, dataclasses.replace(s, use_flash_kernel=True),
+                      params=params, graphs=False)
+        assert eng.device.type == "cuda"
+        modes.add(eng.serve.logit_mode)
+    assert modes == {"monolithic", "chunked"}
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

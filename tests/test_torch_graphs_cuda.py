@@ -13,6 +13,8 @@ every counter, the modeled clock and each kernel's launch count over the
 run must be identical (the same kernels run on the same inputs; only their
 launch path differs), and the graphed engine builds nothing after warmup.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import numpy as np
@@ -33,7 +35,8 @@ COUNTERS = (
     "refresh_tokens_exec", "reuse_tokens_real", "reuse_tokens_exec",
     "logit_tokens_real", "logit_tokens_exec", "packed_refresh_calls",
     "padded_refresh_calls", "packed_reuse_calls", "padded_reuse_calls",
-    "submitted", "finished", "dispatched_ahead", "streamed_events")
+    "submitted", "finished", "dispatched_ahead", "streamed_events",
+    "preemptions", "recomputed_tokens")
 
 
 @pytest.fixture
@@ -45,12 +48,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _serve(system, **kw):
-    base = ServeConfig(max_num_batched_tokens=512, max_num_logits=64,
-                       block_size=8, steps_per_block=8, max_seq_len=128,
-                       max_slots=6, max_refresh_per_iter=2, **kw)
+def _serve(system, logit_mode="fused", **kw):
+    base = ServeConfig(**dict(dict(
+        max_num_batched_tokens=512, max_num_logits=64, block_size=8,
+        steps_per_block=8, max_seq_len=128, max_slots=6,
+        max_refresh_per_iter=2), **kw))
     return dataclasses.replace(system_profiles(base)[system],
-                               use_flash_kernel=True, logit_mode="fused")
+                               use_flash_kernel=True, logit_mode=logit_mode)
 
 
 def _run(cfg, serve, params, graphs, n=6):
@@ -112,6 +116,34 @@ def test_graphs_equal_eager_scan_padded_and_moe(cuda, arch, system):
     padded = system != "dllm-serve"
     assert (st.padded_refresh_calls > 0) == padded
     assert (st.packed_refresh_calls > 0) != padded
+
+
+@pytest.mark.parametrize("system,mode", [("fast-dllm", "monolithic"),
+                                         ("dllm-serve", "chunked")])
+def test_graphs_equal_eager_profile_logit_modes(cuda, system, mode):
+    """The profiles' own logit modes, the reference's plain path as torch
+    ops (a baseline's one ``[N, V]`` pass; dllm-serve's chunks, all-padding
+    ones masked on the device), inside captured graphs."""
+    st = _compare("llada-8b", _serve(system, logit_mode=mode))
+    assert st.logit_tokens_exec >= st.logit_tokens_real > 0
+
+
+def test_graphs_equal_eager_preemption(cuda):
+    """Two slots for six requests with a starvation threshold: preempted
+    residents roll back their block, and the pipelined loop drops their
+    in-flight commits, the same with graphs as without."""
+    st = _compare("llada-8b", _serve("dllm-serve", max_slots=2,
+                                     preempt_starvation_s=0.02))
+    assert st.preemptions > 0
+
+
+@pytest.mark.parametrize("system", ["dllm-serve", "sparse-dllm"])
+def test_graphs_equal_eager_frontend(cuda, system):
+    """musicgen-medium's frontend: the packed Refresh's prefix scatter into
+    the stream (padding requests into the cut row), the padded
+    ``[b, F + S]`` batch, and the payloads' staging field."""
+    st = _compare("musicgen-medium", _serve(system))
+    assert st.refresh_tokens_real > 0
 
 
 def test_graphs_equal_eager_padded_two_refresh_chunks(cuda):

@@ -10,6 +10,8 @@ on scores of magnitude ~5; -inf positions match exactly. The layout check
 the kernel path applies before a launch is a plain function of the
 tensor's strides, so it is held here on CPU views.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

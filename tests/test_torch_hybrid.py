@@ -8,6 +8,8 @@ Tolerances: 1e-4 on hidden states and retained keys/values (magnitude ~1),
 1e-5 on captured states and conv histories (~1e-2); retained positions and
 their validity, ids, every EngineStats counter and the modeled clock exact.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ key), dllm-serve without the kernel flag, and the launcher's JSON under
 sparse-dllm. Exact: ids, request
 times, every EngineStats counter, the modeled clock.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import pytest
 
 from test_torch_scan_engine import (SYSTEMS, baseline_matches,

@@ -5,6 +5,8 @@ imports every module of ``repro_torch``; an AST scan of the port's sources
 and of ``chip_smoke.py`` (the script that drives the port on the card)
 finds no import of ``jax`` or ``repro`` / ``repro.*`` (``repro_torch`` is
 the port's own name and allowed)."""
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import ast
 import os
 import subprocess

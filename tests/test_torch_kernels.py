@@ -8,6 +8,8 @@ order of their sums (online vs whole-row softmax, tiled vs whole matmuls),
 so outputs of magnitude ~1 agree to a few 1e-6; 2e-5 leaves headroom.
 Argmax ids and -inf positions must match exactly.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ scan is float32 on both sides, the kernel's chunks of 64 on the tensor
 cores (3xTF32) against the plain chunked form at other chunkings: 1e-4
 relative to the largest output.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import hashlib
 import re
 import subprocess

@@ -1,6 +1,8 @@
 """The port's layer primitives against ``repro.models.layers`` on the same
 numpy inputs. Both sides compute in float32 on the CPU; 1e-5 covers the
 summation-order and transcendental differences between XLA and PyTorch."""
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import jax.numpy as jnp

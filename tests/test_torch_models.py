@@ -8,6 +8,8 @@ softmax and norm of the 3-layer reduced model, which moves hidden states of
 magnitude ~1 by ~1e-6 per layer; 1e-4 leaves headroom. Retained positions,
 their validity and decoded ids must match exactly.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import jax

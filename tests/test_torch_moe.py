@@ -16,6 +16,8 @@ the same numpy inputs, float32 with TF32 off; the port runs on the CPU.
 * Parameter shapes and ``weight_bytes_per_device`` equal the reference's
   at full size.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import jax

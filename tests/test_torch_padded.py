@@ -13,6 +13,8 @@ one attention of outputs ~1, 1e-4 for the 3-layer reduced model's hidden
 states and caches. Retained positions, their validity, and decoded ids are
 exact.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import jax
@@ -351,6 +353,28 @@ def test_decode_tokens_packed_monolithic_matches_reference():
                                atol=1e-7)
 
 
+def test_decode_tokens_packed_chunked_matches_reference():
+    """The chunked mode over a stream whose last two chunks are all padding:
+    the reference branches around them (``lax.cond``), the port computes
+    and masks them on the device; the same ids and confidences, and the
+    padding rows are (0, 0.0)."""
+    jcfg, tcfg = _cfgs(4)
+    jp, tp = _params(jcfg, tcfg)
+    h = np.random.default_rng(9).standard_normal(
+        (64, jcfg.d_model)).astype(np.float32)
+    valid = np.arange(64) < 29
+    ids_r, conf_r = JLM.decode_tokens_packed(
+        jp["embed"], jcfg, jnp.asarray(h), jnp.asarray(valid),
+        max_num_logits=16, mode="chunked")
+    ids, conf = TLM.decode_tokens_packed(tp["embed"], tcfg, _t(h), _t(valid),
+                                         max_num_logits=16, mode="chunked")
+    assert np.array_equal(ids.numpy(), np.asarray(ids_r))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(conf_r), rtol=1e-5,
+                               atol=1e-7)
+    assert not ids[29:].any() and not conf[29:].any()
+    assert bool((conf[:29] > 0).all())
+
+
 # ---------------------------------------------------------------------------
 # the packed path's plain fallbacks (use_flash_kernel=False)
 # ---------------------------------------------------------------------------
@@ -447,14 +471,15 @@ def test_packed_refresh_matches_padded(use_kernel):
 
 
 def test_unported_padded_branches_raise():
-    """What the padded stages do not serve yet names its ROADMAP item: a
-    modality frontend (the scan families' padded branches are
-    ``test_torch_scan_padded.py``)."""
+    """Every branch of the padded stages is ported (the modality frontends
+    last: ``test_torch_frontend.py``); what they refuse names its cause. A
+    frontend arch's parameters hold its projection, and its padded Refresh
+    without the requests' frontend embeddings raises naming them."""
     cfg = dataclasses.replace(treduced(get_config("llada-8b")),
                               frontend_dim=32, frontend_len=4)
     ctx = _ctx(TT, use_flash_kernel=True)
-    with pytest.raises(NotImplementedError, match="frontends"):
-        TBB.serve_refresh({}, cfg, torch.zeros(1, S, dtype=torch.int32),
+    params = TBB.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert tuple(params["frontend"]["proj"].shape) == (32, cfg.d_model)
+    with pytest.raises(ValueError, match="frontend"):
+        TBB.serve_refresh(params, cfg, torch.zeros(1, S, dtype=torch.int32),
                           torch.zeros(1, dtype=torch.int32), ctx)
-    with pytest.raises(NotImplementedError, match="frontends"):
-        TBB.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -21,6 +21,8 @@ waits for fault injection in the port (ROADMAP Queue A, item 7).
 """
 import dataclasses
 
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.core.kv_pool import tree_leaves
 from repro_torch.core.request import State
 from repro_torch.data.workloads import make_trace, trace_prompts
 from repro_torch.params import from_jax
+from torch_testing import cached
 
 HOST_TIMES = {"host_plan_s", "host_fill_s", "sync_wait_s",
               "overlapped_host_s"}
@@ -87,29 +90,42 @@ def _run_port(tcfg, serve, params, requests, events=None):
     return eng, reqs, stats
 
 
+def _reference(arch, packed):
+    """The reference's pipelined serve with its stream events, once per
+    process (the loop test and the stream test compare against it)."""
+    def run():
+        jcfg = reduced(ARCHS[arch])
+        jp = JBB.init_params(jcfg, jax.random.PRNGKey(3))
+        events = []
+        je = JEngine(jcfg, _serve(JServe, jprofiles, True, packed),
+                     params=jp, clock="modeled", stream_cb=events.append)
+        jreqs = [je.submit(p, gen_len=g, arrival=t, rid=i)
+                 for i, (p, g, t) in enumerate(_requests(jcfg.vocab_size))]
+        js = je.run()
+        return je.vtime, jreqs, js, events, jax.tree.map(np.asarray, jp)
+    return cached(("pipelined", arch, packed), run)
+
+
 def _three_loops(arch, packed, jevents=None, tevents=None):
-    jcfg, tcfg = reduced(ARCHS[arch]), treduced(get_config(arch))
-    jp = JBB.init_params(jcfg, jax.random.PRNGKey(3))
-    tp = from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
-    requests = _requests(jcfg.vocab_size)
-    je = JEngine(jcfg, _serve(JServe, jprofiles, True, packed), params=jp,
-                 clock="modeled",
-                 stream_cb=jevents.append if jevents is not None else None)
-    jreqs = [je.submit(p, gen_len=g, arrival=t, rid=i)
-             for i, (p, g, t) in enumerate(requests)]
-    js = je.run()
+    vtime, jreqs, js, events, tree = _reference(arch, packed)
+    if jevents is not None:
+        jevents.extend(events)
+    tcfg = treduced(get_config(arch))
+    tp = from_jax(tree, tcfg, "cpu")
+    requests = _requests(tcfg.vocab_size)
+    # every loop streams its commits, as the reference's serve did
     pipe = _run_port(tcfg, _serve(TServe, tprofiles, True, packed), tp,
-                     requests, tevents)
+                     requests, [] if tevents is None else tevents)
     sync = _run_port(tcfg, _serve(TServe, tprofiles, False, packed), tp,
-                     requests)
-    return (je, jreqs, js), pipe, sync
+                     requests, [])
+    return (vtime, jreqs, js), pipe, sync
 
 
 @pytest.mark.parametrize("arch,packed", [("llada-8b", True),
                                          ("llada-8b", False),
                                          ("mamba2-130m", True)])
 def test_pipelined_loop_matches_reference_and_sync(arch, packed):
-    (je, jreqs, js), (pe, preqs, ps), (se, sreqs, ss) = \
+    (jvtime, jreqs, js), (pe, preqs, ps), (se, sreqs, ss) = \
         _three_loops(arch, packed)
     for a, b, c in zip(jreqs, preqs, sreqs):
         assert np.array_equal(a.tokens, b.tokens), a.rid
@@ -117,7 +133,7 @@ def test_pipelined_loop_matches_reference_and_sync(arch, packed):
         assert (a.t_admitted, a.t_first_commit, a.t_finished) == \
             (b.t_admitted, b.t_first_commit, b.t_finished) == \
             (c.t_admitted, c.t_first_commit, c.t_finished)
-    assert je.vtime == pe.vtime == se.vtime
+    assert jvtime == pe.vtime == se.vtime
     # the reference's pipelined loop field for field, dispatched_ahead too
     want = _stats_rows(js, HOST_TIMES | JAX_ONLY)
     got = _stats_rows(ps, HOST_TIMES | JAX_ONLY)
@@ -148,10 +164,18 @@ def test_stream_events_match_reference():
     assert sum(e["finished"] for e in tev) == len(preqs)
 
 
-def _profile(name):
-    base = TServe(max_seq_len=256, block_size=8, steps_per_block=8,
-                  max_slots=12, max_num_batched_tokens=1024,
-                  max_num_logits=128, max_refresh_per_iter=4)
+# the launcher's geometry, and the one the bucket-cover serves run at: the
+# launcher's cut to S = 128, 6 slots, 512 tokens and 64 logits (the same
+# bounds, fewer buckets to serve through)
+LAUNCHER = dict(max_seq_len=256, block_size=8, steps_per_block=8,
+                max_slots=12, max_num_batched_tokens=1024,
+                max_num_logits=128, max_refresh_per_iter=4)
+COVER = dict(LAUNCHER, max_seq_len=128, max_slots=6,
+             max_num_batched_tokens=512, max_num_logits=64)
+
+
+def _profile(name, geometry=LAUNCHER):
+    base = TServe(**geometry)
     if name == "+engine":
         return tablation(base)[name]
     return dataclasses.replace(tprofiles(base)[name], use_flash_kernel=True,
@@ -161,11 +185,11 @@ def _profile(name):
 @pytest.mark.parametrize("system", ["dllm-serve", "sparse-dllm", "+engine"])
 @pytest.mark.parametrize("workload", ["burst", "livebench"])
 def test_warmup_covers_every_requested_bucket(system, workload):
-    """The run_serve geometry (reduced llada-8b): after warmup, serving a
-    trace builds no entry, and the keys it used are a part of
-    ``stage_keys``; dllm-serve, a padded baseline, and the request-level
-    scheduler on the packed path (``+engine``: the fused Refresh spans up
-    to ``max_slots`` requests)."""
+    """``COVER`` (reduced llada-8b): after warmup, serving a trace builds no
+    entry, and the keys it used are a part of ``stage_keys``; dllm-serve,
+    a padded baseline, and the request-level scheduler on the packed path
+    (``+engine``: the fused Refresh spans up to ``max_slots``
+    requests)."""
     _warmup_covers("llada-8b", system, workload)
 
 
@@ -179,7 +203,8 @@ def test_warmup_covers_every_requested_bucket_scan_padded(arch, system):
 
 def _warmup_covers(arch, system, workload):
     cfg = treduced(get_config(arch))
-    serve = _profile(system)
+    serve = _profile(system, COVER)
+    S = serve.max_seq_len
     eng = TEngine(cfg, serve, clock="modeled", device="cpu")
     eng.warmup()
     listed = {(n, k) for n, ks in stage_keys(serve, cfg).items() for k in ks}
@@ -188,8 +213,8 @@ def _warmup_covers(arch, system, workload):
     trace = make_trace(workload, 12, 50.0, seed=0, scale=0.15)
     for i, (t, p) in enumerate(zip(trace, trace_prompts(trace, cfg.vocab_size,
                                                          seed=0))):
-        gl = max(8, min(t.gen_len, 256 - len(p) - 8))
-        eng.submit(p[: min(len(p), 256 - gl - 8)], gen_len=gl,
+        gl = max(8, min(t.gen_len, S - len(p) - 8))
+        eng.submit(p[: min(len(p), S - gl - 8)], gen_len=gl,
                    arrival=t.arrival, rid=i)
     stats = eng.run()
     assert stats.finished == 12

@@ -11,6 +11,8 @@ Exact: every committed id, request time, EngineStats counter and the
 modeled clock (``test_torch_engine._serve_both``), and the launcher's JSON
 for one baseline of each family.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import pytest

@@ -14,6 +14,8 @@ Tolerances, float32 on both sides (TF32 off):
   retained keys/values (magnitude ~1), 1e-5 on captured states and conv
   histories (~1e-2); retained positions and their validity exact.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ Tolerances, all float32 (TF32 off; the CPU has none):
   reduced model's states are ~1e-2);
 * the engine and ``run_serve``: exact ids, counters and modeled clock.
 """
+import torch_testing  # noqa: F401  (the thread cap, before anything builds)
+
 import dataclasses
 
 import jax
