@@ -72,6 +72,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      clock and launches identical, nothing built after warmup (warmup
      seconds, captures, the graph pool's bytes and the plan's activation
      reservation logged);
+     multipliers: the full llada-8b under dllm-serve with a seeded fault
+     plan (four slots, starvation preemption), with prefix sharing on the
+     shared-prefix prompts (all arriving at once) and with int8 slots,
+     each graphed = eager as above, then each served by run_serve on the
+     wall clock (shared_hits, phys_slots_peak; the faults' retries and
+     deferrals, at four slots for eight requests; wall_tok_s; the plan's
+     physical slots with and without
+     int8 at 24 GB and at the card's memory), and two serves at
+     run_serve's default 24 GB with the slot cap raised to 64, bf16 and
+     int8 slots, whose device bills (the engine's slot pool, the graph
+     pool and the staging beside the plan's weights and reservation),
+     re-sizes and allocator peaks are logged; each peak must stay under
+     24 GiB;
      serve: run_serve of the full llada-8b, zamba2-7b, mamba2-130m,
      qwen2.5-14b, gemma2-27b and gemma-2b (random bfloat16 weights from a
      seed), and of phi3.5-moe at 24 of its 32 layers and qwen3-moe at 8
@@ -1107,26 +1120,34 @@ def serve_plan(arch, system, serve_kw, hbm_gb, own_logits=False):
                          hbm_gb)
 
 
-def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
-    """run_serve of the full arch under a system, its slots sized by the
-    offline profiler at the card's memory, with the launch counts zeroed
-    just before and read just after; returns the counts."""
+def serve_full(arch, system, n_req, serve_kw, card, hbm_gb,
+               workload="livebench", rps=50.0, tag=None, **run_kw):
+    """run_serve of the full arch under a system on ``workload``, its slots
+    sized by the offline profiler at ``hbm_gb`` (``run_kw``: sharing, int8
+    slots, a fault seed, the slot cap, starvation preemption), with the
+    launch counts zeroed just before and read just after; returns the
+    JSON, the counts and the allocator's peak over the call."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import run_serve
 
-    plan, _ = serve_plan(arch, system, serve_kw, hbm_gb)
+    kw = dict(serve_kw, **run_kw)
+    plan, _ = serve_plan(arch, system, {k: v for k, v in kw.items()
+                                        if k != "fault_seed"}, hbm_gb)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_counters()
-    res = run_serve(arch, system, "livebench", 50.0, n_req,
+    res = run_serve(arch, system, workload, rps, n_req,
                     use_reduced=False, kernels=True, clock="wall",
                     size_by_profiler=True, hbm_gb=hbm_gb, device="cuda",
-                    n_layers=LAYERS.get(arch), **serve_kw)
+                    n_layers=LAYERS.get(arch), **kw)
     counts = {n: (c.launches, c.plain_calls)
               for n, c in build.COUNTERS.items()}
+    bill = res["device_bill"]
     assert res["plan_slots_logical"] == plan.max_slots, (res, plan)
-    assert res["max_slots"] == plan.phys_slots, (res, plan)
+    # a serve the device bill re-sized runs fewer slots than planned
+    assert (bill["resized_from"] or res["max_slots"]) == plan.phys_slots, \
+        (res, plan)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     keep = ("n_finished", "n_submitted", "committed_tokens", "iterations",
@@ -1138,9 +1159,14 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
             "padded_reuse_calls", "max_slots", "plan_slots_logical",
             "plan_slots_phys", "plan_slot_bytes", "pipeline",
             "compile_counts", "compiles_post_warmup", "dispatched_ahead",
-            "overlap_frac", "graph_pool_bytes")
+            "overlap_frac", "graph_pool_bytes", "prefix_sharing",
+            "kv_quant", "share_factor", "shared_hits", "shared_cow_promotes",
+            "phys_slots_peak", "dispatch_retries", "alloc_fault_iters",
+            "n_preemptions", "device_bill")
     replays = res["graph_replays"]
-    log(json.dumps(dict(phase="serve", arch=arch, system=system,
+    tag = tag or (arch if system == "dllm-serve" else f"{arch}_{system}")
+    log(json.dumps(dict(phase="serve", arch=arch, system=system, tag=tag,
+                        workload=workload, rps=rps,
                         n_layers=served_config(arch).n_layers,
                         **{k: res[k] for k in keep}, hbm_gb=hbm_gb,
                         plan=plan.summary(),
@@ -1148,7 +1174,6 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
                         graph_replays=sum(replays.values()),
                         graph_entries_replayed=len(replays),
                         max_memory_allocated=peak, launches=counts)))
-    tag = arch if system == "dllm-serve" else f"{arch}_{system}"
     with open(os.path.join(OUT_DIR, f"chip_smoke_serve_{tag}.json"),
               "w") as f:
         json.dump(dict(res, arch=arch, max_memory_allocated=peak,
@@ -1158,12 +1183,12 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb):
     assert res["pipeline"] and res["dispatched_ahead"] > 0, res
     assert res["compiles_post_warmup"] == 0, res["compile_counts"]
     assert sum(replays.values()) >= res["iterations"], replays
+    assert bill["fits"], bill
     for name in PATH_KERNELS[(arch, system)]:
-        assert counts[name][0] > 0, f"{arch} {system}: {name} never launched"
+        assert counts[name][0] > 0, f"{tag}: {name} never launched"
     for name, (_, plain) in counts.items():
-        assert plain == 0, f"{arch} {system}: {plain} plain-version calls " \
-            f"of {name}"
-    return {n: launches for n, (launches, _) in counts.items()}
+        assert plain == 0, f"{tag}: {plain} plain-version calls of {name}"
+    return res, {n: launches for n, (launches, _) in counts.items()}, peak
 
 
 GRAPH_COUNTERS = (
@@ -1172,10 +1197,25 @@ GRAPH_COUNTERS = (
     "refresh_tokens_exec", "reuse_tokens_real", "reuse_tokens_exec",
     "logit_tokens_real", "logit_tokens_exec", "packed_refresh_calls",
     "padded_refresh_calls", "packed_reuse_calls", "padded_reuse_calls",
-    "submitted", "finished", "dispatched_ahead")
+    "submitted", "finished", "dispatched_ahead", "preemptions",
+    "recomputed_tokens", "dispatch_retries", "alloc_fault_iters",
+    "slow_fault_s", "shared_hits", "shared_cow_promotes", "phys_slots_peak")
 
 
-def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
+def shared_requests(vocab, n_req):
+    """The shared-prefix trace's prompts, every one arriving at once:
+    co-resident twins are what the share ledger deduplicates."""
+    from repro_torch.data.workloads import (PrefixSpec, make_trace,
+                                            trace_prompts)
+
+    trace = make_trace("shared-prefix", n_req, 8.0, seed=3,
+                       prefix=PrefixSpec(n_prefixes=3, prefix_len=24))
+    return [(p, 16, 0.0) for p in trace_prompts(trace, vocab, seed=3)]
+
+
+def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
+                    feature=None, serve_over=None, fault_seed=None,
+                    shared=False):
     """The full arch under a system (its slots sized as ``run_serve`` sizes
     them, the launcher's pipelined loop, the modeled clock, the livebench
     trace ``run_serve`` draws; with ``own_logits`` the profile's own logit
@@ -1187,22 +1227,35 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
     from after warmup: the graphs' warmup runs every bucket once); the
     graphed engine builds nothing after warmup. Logs warmup seconds, the
     captures, the graph pool's bytes and the peak the captures add beside
-    the plan's activation reservation."""
+    the plan's activation reservation. ``serve_over`` replaces ServeConfig
+    fields after sizing (prefix sharing, int8 slots, starvation
+    preemption), ``fault_seed`` serves each engine under its own
+    ``FaultPlan.seeded(fault_seed, horizon=60)``, and ``shared`` serves
+    the shared-prefix prompts all at once in place of livebench's."""
+    import dataclasses
     import numpy as np
     from repro_torch.core.engine import Engine
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.data.workloads import make_trace, trace_prompts
     from repro_torch.kernels import build
     from repro_torch.params import init_params
 
     plan, serve = serve_plan(arch, system, serve_kw, hbm_gb, own_logits)
+    serve = dataclasses.replace(serve, **(serve_over or {}))
     cfg = served_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    trace = make_trace("livebench", n_req, 50.0, seed=0, scale=0.15)
-    prompts = trace_prompts(trace, cfg.vocab_size, seed=0)
     S, Sb = serve.max_seq_len, serve.block_size
+    if shared:
+        requests = shared_requests(cfg.vocab_size, n_req)
+    else:
+        trace = make_trace("livebench", n_req, 50.0, seed=0, scale=0.15)
+        requests = []
+        for t, p in zip(trace, trace_prompts(trace, cfg.vocab_size, seed=0)):
+            gl = max(Sb, min(t.gen_len, S - len(p) - Sb))
+            requests.append((p[: min(len(p), S - gl - Sb)], gl, t.arrival))
     out = {}
     for graphs in (False, True):
         gc.collect()
@@ -1210,15 +1263,14 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        faults = (None if fault_seed is None
+                  else FaultPlan.seeded(fault_seed, horizon=60))
         eng = Engine(cfg, serve, params=params, clock="modeled",
-                     device="cuda", graphs=graphs)
+                     device="cuda", graphs=graphs, faults=faults)
         warmup_s = eng.warmup()
         warm_peak = torch.cuda.max_memory_allocated() - base
-        reqs = []
-        for i, (t, p) in enumerate(zip(trace, prompts)):
-            gl = max(Sb, min(t.gen_len, S - len(p) - Sb))
-            reqs.append(eng.submit(p[: min(len(p), S - gl - Sb)],
-                                   gen_len=gl, arrival=t.arrival, rid=i))
+        reqs = [eng.submit(p, gen_len=g, arrival=t, rid=i)
+                for i, (p, g, t) in enumerate(requests)]
         build.reset_counters()
         st = eng.run()
         torch.cuda.synchronize()
@@ -1239,6 +1291,7 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
                                                        g["tokens"]))
     log(json.dumps(dict(
         phase="graphs", arch=arch, system=system, n_layers=cfg.n_layers,
+        feature=feature, counters=g["counters"],
         logit_mode=serve.logit_mode, n_requests=n_req,
         max_slots=serve.max_slots, ids_equal=same_ids,
         counters_equal=e["counters"] == g["counters"],
@@ -1264,6 +1317,92 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False):
     assert g["post_warmup"] == 0 and g["replays"] > 0, g["captures"]
     assert sum(g["captures"].values()) > 0 and e["replays"] == 0
     torch.cuda.empty_cache()
+    return g["counters"]
+
+
+def multipliers(serve_kw, card, hbm_gb, launches):
+    """Fault injection, prefix sharing and int8 slots on the full llada-8b
+    under dllm-serve with the kernels and graphs: each graphed = eager on
+    the modeled clock, then served on the wall clock at the card's memory
+    (their launches counted per path); then the device bill of a serve at
+    run_serve's default 24 GB with the slot cap raised to 64, with bf16
+    and with int8 slots, each of which must stay under 24 GiB on the
+    allocator."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.baselines import system_profiles
+    from repro_torch.launch.serve import profile_slots
+
+    features = (
+        ("faults", dict(fault_seed=1,
+                        serve_over=dict(max_slots=4,
+                                        preempt_starvation_s=0.05))),
+        ("sharing", dict(shared=True,
+                         serve_over=dict(prefix_sharing=True,
+                                         preempt_starvation_s=0.05))),
+        ("int8", dict(serve_over=dict(kv_quant="int8"))))
+    for feature, kw in features:
+        c = graphs_vs_eager("llada-8b", "dllm-serve", 8, serve_kw, hbm_gb,
+                            feature=feature, **kw)
+        assert {"faults": c["dispatch_retries"] > 0,
+                "sharing": c["shared_hits"] > 0,
+                "int8": c["finished"] == 8}[feature], (feature, c)
+
+    def count(tag, got):
+        for name in PATH_KERNELS[("llada-8b", "dllm-serve")]:
+            launches[name][f"llada-8b dllm-serve {tag}"] = got[name]
+
+    # every request arrives before the first plan, so twins are admitted
+    # together and their Refreshes share content keys
+    res, got, _ = serve_full("llada-8b", "dllm-serve", 8, serve_kw, card,
+                             hbm_gb, "shared-prefix", 1e9,
+                             "llada-8b_sharing", prefix_sharing=True)
+    assert res["shared_hits"] > 0 and res["share_factor"] > 1.0, res
+    count("sharing", got)
+    res, got, _ = serve_full("llada-8b", "dllm-serve", 8, serve_kw, card,
+                             hbm_gb, tag="llada-8b_int8", kv_quant="int8")
+    count("int8", got)
+    base = dataclasses.replace(
+        system_profiles(ServeConfig(max_refresh_per_iter=4,
+                                    **serve_kw))["dllm-serve"],
+        use_flash_kernel=True, logit_mode="fused")
+    # the plan's physical slots, capped at 64, with and without int8
+    slots = {f"{q}@{gb}GB": profile_slots(
+        get_config("llada-8b"), dataclasses.replace(base, kv_quant=q), 64,
+        gb)[0].phys_slots for q in ("none", "int8") for gb in (24, hbm_gb)}
+    log(json.dumps(dict(phase="multipliers", serve="int8 plan slots",
+                        slots=slots)))
+    assert slots["int8@24GB"] > slots["none@24GB"], slots
+    # four slots for eight requests: the run outlasts the plan's first
+    # dispatch fault (iteration 50) and requests wait while it runs
+    res, got, _ = serve_full("llada-8b", "dllm-serve", 8, serve_kw, card,
+                             hbm_gb, tag="llada-8b_faults", fault_seed=1,
+                             max_slots=4, preempt_starvation_s=0.05)
+    assert res["dispatch_retries"] > 0, res
+    count("faults", got)
+    # the device bill at run_serve's default budget, the slot cap lifted:
+    # bf16 slots, then int8 slots, which the plan sizes at four times as
+    # many; each bill beside the allocator's peak over the serve
+    for quant in ("none", "int8"):
+        tag = "llada-8b_24GB" + ("_int8" if quant == "int8" else "")
+        res, got, peak = serve_full("llada-8b", "dllm-serve", 8, serve_kw,
+                                    card, 24, tag=tag, max_slots=64,
+                                    kv_quant=quant)
+        count(f"uncapped at 24 GB, kv {quant}", got)
+        bill = res["device_bill"]
+        log(json.dumps(dict(phase="multipliers", serve=tag,
+                            plan_slots=res["plan_slots_phys"],
+                            slots=res["max_slots"],
+                            resized_from=bill["resized_from"],
+                            bill_total_bytes=bill["total_bytes"],
+                            budget_bytes=bill["budget_bytes"],
+                            graph_pool_bytes=bill["graph_pool_bytes"],
+                            kv_pool_bytes=bill["kv_pool_bytes"],
+                            plan_kv_pool_bytes=bill["plan_kv_pool_bytes"],
+                            max_memory_allocated=peak,
+                            peak_minus_bill=peak - bill["total_bytes"])))
+        assert peak < 24 << 30, (peak, bill)
 
 
 def footprint(dev, hbm_gb):
@@ -1624,6 +1763,9 @@ def main(argv) -> int:
         graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb, own_logits=own)
     log(f"phase graphs: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
+    t0 = time.perf_counter()
+    multipliers(serve_kw, card, hbm_gb, launches)
+    log(f"phase multipliers: {time.perf_counter() - t0:.3f} s")
     for arch, system, n_req in (("llada-8b", "dllm-serve", 8),
                                 ("zamba2-7b", "dllm-serve", 8),
                                 ("mamba2-130m", "dllm-serve", 4),
@@ -1643,7 +1785,8 @@ def main(argv) -> int:
                                 ("musicgen-medium", "fast-dllm", 8),
                                 ("internvl2-76b", "dllm-serve", 8)):
         t0 = time.perf_counter()
-        counts = serve_full(arch, system, n_req, serve_kw, card, hbm_gb)
+        _, counts, _ = serve_full(arch, system, n_req, serve_kw, card,
+                                  hbm_gb)
         for name in PATH_KERNELS[(arch, system)]:
             launches[name][f"{arch} {system}"] = counts[name]
         log(f"phase serve {arch} {system}: {time.perf_counter() - t0:.3f} s")

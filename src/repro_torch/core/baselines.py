@@ -47,9 +47,18 @@ def ablation_profiles(base: ServeConfig) -> Dict[str, ServeConfig]:
             "+scheduler": sched, "+budgeting": budget}
 
 
-def size_slots(cfg: ModelConfig, serve: ServeConfig,
-               hbm_bytes: int) -> ServeConfig:
-    """Clamp ``max_slots`` to what the profiler says fits ``hbm_bytes``
-    (at least one slot)."""
-    fit = plan_memory(cfg, serve, hbm_bytes).max_slots
-    return dataclasses.replace(serve, max_slots=max(1, fit))
+def size_slots(cfg: ModelConfig, serve: ServeConfig, hbm_bytes: int,
+               floor: int = 1, share_factor: float = 1.0) -> ServeConfig:
+    """Clamp ``max_slots`` to what the profiler says fits ``hbm_bytes`` (at
+    least ``floor``).
+
+    ``share_factor`` (the workload's measured prefix-sharing ratio) reaches
+    the plan so its logical capacity is reported, but sizing clamps to the
+    plan's PHYSICAL capacity: the pool reserves physical backing per
+    logical slot, so allocating the logical count would overshoot the
+    budget. int8 ``kv_quant`` genuinely shrinks ``slot_bytes``, so the
+    physical capacity itself grows."""
+    plan = plan_memory(cfg, serve, hbm_bytes, share_factor=share_factor)
+    fit = plan.phys_slots or plan.max_slots
+    return dataclasses.replace(
+        serve, max_slots=max(floor, min(serve.max_slots, fit)))

@@ -12,11 +12,21 @@ Byte counts come from shapes alone: the parameter tree of
 ``repro_torch.params.shapes`` and the slot pool's own cache geometry
 (:func:`_slot_cache_shapes`), each leaf billed in the dtype the engine keeps
 it in. One device: the reference's per-device sums over its sharding rules
-reduce to plain sums. Mesh serving, prefix sharing and int8 slots are not
-ported, and the profiler raises on them rather than bill something else.
+reduce to plain sums. Mesh serving is not ported, and the profiler raises
+on it rather than bill something else. The memory multipliers are the
+reference's: int8 ``kv_quant`` bills the KV leaves at one byte an element
+plus a float32 scale per (layer, slot), and ``prefix_sharing`` multiplies
+the physical slots by the trace's measured ``share_factor``.
 
 :func:`measure_logit_peak` measures each C1 mode's logit-stage peak on the
 card (the reference reads it from an XLA compile).
+
+:class:`DeviceBill` is the port's own, beside the plan: what a warmed serve
+holds on the card (the engine's slot pool at the serving geometry, the
+captured graphs' pool, the stage entries' device staging, the measured
+logit peak of an eager serve) with the plan's weights and activation
+reservation, held against the budget the plan was given.
+``launch.serve.run_serve`` re-sizes or refuses a serve that exceeds it.
 """
 from __future__ import annotations
 
@@ -36,16 +46,12 @@ def dtype_bytes(dtype: str) -> int:
 
 
 def _require_one_device(serve: ServeConfig) -> None:
-    """The profiler bills one device with plain slots; what it cannot bill
-    raises (the engine raises on the same options)."""
+    """The profiler bills one device; a mesh raises (the engine raises on
+    it too)."""
     if serve.mesh_shape is not None:
         raise NotImplementedError(
             "plan_memory: mesh serving is not ported yet (ROADMAP Queue A, "
             "'multi-GPU')")
-    if serve.prefix_sharing or serve.kv_quant != "none":
-        raise NotImplementedError(
-            "plan_memory: prefix sharing / int8 KV slots are not ported yet "
-            "(ROADMAP Queue A, 'robustness and the memory multipliers')")
 
 
 def _tree_elems(tree) -> int:
@@ -105,23 +111,25 @@ def logit_activation_bytes(cfg: ModelConfig, serve: ServeConfig,
 
 
 def _slot_cache_shapes(cfg: ModelConfig, serve: ServeConfig, retain: int):
-    """``(shape, dtype)`` of every leaf of one slot of the engine's pool:
-    the family's cache tree with its leading layer axis and a slot axis of
-    1. Keys and values in ``serve.dtype``, positions int32, validity bool,
-    SSM states float32, conv tails in ``serve.dtype``."""
+    """``(shape, dtype, quant)`` of every leaf of one slot of the engine's
+    pool: the family's cache tree with its leading layer axis and a slot
+    axis of 1. Keys and values in ``serve.dtype``, positions int32,
+    validity bool, SSM states float32, conv tails in ``serve.dtype``;
+    ``quant`` marks the leaves int8 storage quantizes (``PackedKV``
+    keys and values: ``kernels.kv_quant.quant_mask``)."""
     dt = serve.dtype
 
     def kv(nl):
         kshape = (nl, 1, cfg.n_kv_heads, retain, cfg.resolved_head_dim)
-        return [(kshape, dt), (kshape, dt), (kshape[:-1], "int32"),
-                (kshape[:-1], "bool")]
+        return [(kshape, dt, True), (kshape, dt, True),
+                (kshape[:-1], "int32", False), (kshape[:-1], "bool", False)]
 
     def ssm():
         from repro_torch.models.ssm import conv_channels
         return [((cfg.n_layers, 1, cfg.ssm_heads, cfg.ssm_head_dim,
-                  cfg.ssm_state), "float32"),
+                  cfg.ssm_state), "float32", False),
                 ((cfg.n_layers, 1, cfg.ssm_conv_kernel - 1,
-                  conv_channels(cfg)), dt)]
+                  conv_channels(cfg)), dt, False)]
 
     if cfg.family == "ssm":
         return ssm()
@@ -134,12 +142,19 @@ def _slot_cache_shapes(cfg: ModelConfig, serve: ServeConfig, retain: int):
 def kv_slot_bytes(cfg: ModelConfig, serve: ServeConfig) -> int:
     """Static per-request cache region (§4.5): the bytes of one slot at the
     engine's retained length ``min(retained_len, max_seq_len -
-    block_size)``."""
+    block_size)``. Under int8 ``kv_quant`` the quantized leaves are billed
+    at one byte an element plus their ``[L, 1]`` float32 scale."""
     _require_one_device(serve)
     retain = min(serve.retained_len,
                  max(1, serve.max_seq_len - serve.block_size))
-    return sum(math.prod(shape) * dtype_bytes(dt)
-               for shape, dt in _slot_cache_shapes(cfg, serve, retain))
+    int8 = serve.kv_quant == "int8"
+    total = 0
+    for shape, dt, quant in _slot_cache_shapes(cfg, serve, retain):
+        if int8 and quant:
+            total += math.prod(shape) + shape[0] * shape[1] * 4
+        else:
+            total += math.prod(shape) * dtype_bytes(dt)
+    return total
 
 
 def can_pack_tokens(cfg: ModelConfig) -> bool:
@@ -199,44 +214,137 @@ def backbone_activation_bytes(cfg: ModelConfig, serve: ServeConfig) -> int:
 @dataclass(frozen=True)
 class MemoryPlan:
     """The reference's plan, field for field (one device: ``mesh_devices``
-    1, ``share_factor`` 1.0, ``kv_quant`` "none")."""
+    1)."""
     weights_bytes: int
     activation_bytes: int       # reserved (incl. the logit stage's mode)
     logit_bytes: int
     slot_bytes: int             # bytes of one slot
     kv_pool_bytes: int
-    max_slots: int              # concurrent-request capacity
+    max_slots: int              # LOGICAL concurrent-request capacity
     mesh_devices: int = 1
+    # the memory multipliers: the physical slots the pool bytes fit, and
+    # the sharing / quantization knobs that turned them into max_slots
     phys_slots: int = 0
     share_factor: float = 1.0
     kv_quant: str = "none"
 
     def summary(self) -> str:
         gb = 1 << 30
+        mesh = f" mesh={self.mesh_devices}dev" if self.mesh_devices > 1 else ""
+        share = (f" share={self.share_factor:.2f}x"
+                 if self.share_factor != 1.0 else "")
+        quant = f" kv={self.kv_quant}" if self.kv_quant != "none" else ""
         return (f"weights={self.weights_bytes/gb:.2f}GiB/dev "
                 f"act={self.activation_bytes/gb:.3f}GiB "
                 f"(logit={self.logit_bytes/gb:.3f}GiB) "
                 f"kv_pool={self.kv_pool_bytes/gb:.2f}GiB "
-                f"slots={self.max_slots}")
+                f"slots={self.max_slots}{mesh}{share}{quant}")
 
 
-def plan_memory(cfg: ModelConfig, serve: ServeConfig,
-                hbm_bytes: int) -> MemoryPlan:
+def plan_memory(cfg: ModelConfig, serve: ServeConfig, hbm_bytes: int,
+                guard_band: float = GUARD_BAND,
+                share_factor: float = 1.0) -> MemoryPlan:
     """The offline profiler's output: the activation reservation (for
     ``max_num_batched_tokens`` query rows all needing logits) and the KV
     pool that the rest of ``hbm_bytes`` holds, capped at
-    ``serve.max_slots``."""
+    ``serve.max_slots``.
+
+    ``share_factor`` is the workload's measured logical/physical occupancy
+    ratio (``data.workloads.prefix_share_factor``): with
+    ``serve.prefix_sharing`` on, every physical slot backs that many
+    logical residents on average, so the plan multiplies capacity before
+    the cap. int8 ``serve.kv_quant`` instead shrinks ``slot_bytes``, so
+    more physical slots fit outright."""
     _require_one_device(serve)
     weights = weight_bytes_per_device(cfg)
     logit = logit_activation_bytes(cfg, serve, serve.max_num_batched_tokens)
     act = backbone_activation_bytes(cfg, serve) + logit
-    guard = int(hbm_bytes * GUARD_BAND)
+    guard = int(hbm_bytes * guard_band)
     slot = kv_slot_bytes(cfg, serve)
     pool = max(0, hbm_bytes - weights - act - guard)
     phys = pool // slot if slot else serve.max_slots
-    slots = min(serve.max_slots, phys)
+    share = share_factor if serve.prefix_sharing else 1.0
+    slots = min(serve.max_slots, int(phys * share))
     return MemoryPlan(weights, act, logit, slot, pool, int(slots),
-                      phys_slots=int(slots))
+                      phys_slots=int(min(serve.max_slots, phys)),
+                      share_factor=share, kv_quant=serve.kv_quant)
+
+
+@dataclass(frozen=True)
+class DeviceBill:
+    """The bytes a warmed serve holds on the card, against the budget its
+    plan was given less the guard band: the plan's weights; the engine's
+    own slot pool (its slots and the scratch slot, each ``slot_bytes`` at
+    the serving geometry: what the engine allocated); the larger of the
+    plan's activation reservation (at the profiler's geometry, its logit
+    term measured for an eager serve on the card) and the captured graph
+    pool, which holds a captured serve's activations; and the stage
+    entries' device staging. ``plan_kv_pool_bytes`` is the plan's pool for
+    the same slots at the profiler's geometry, beside the bill, not in
+    it."""
+    budget_bytes: int           # hbm_bytes less GUARD_BAND
+    weights_bytes: int
+    kv_pool_bytes: int          # slot_bytes x (slots + the scratch slot)
+    activation_bytes: int
+    graph_pool_bytes: int
+    staging_bytes: int          # the stage entries' device inputs
+    slot_bytes: int             # one slot of the engine's pool
+    slots: int
+    plan_kv_pool_bytes: int     # the plan's slot bytes x slots
+
+    @property
+    def total_bytes(self) -> int:
+        return (self.weights_bytes + self.kv_pool_bytes
+                + max(self.activation_bytes, self.graph_pool_bytes)
+                + self.staging_bytes)
+
+    @property
+    def excess_bytes(self) -> int:
+        return max(0, self.total_bytes - self.budget_bytes)
+
+    @property
+    def fits(self) -> bool:
+        return self.excess_bytes == 0
+
+    @property
+    def slots_over(self) -> int:
+        """Slots to drop to pay for the excess: ``ceil(excess /
+        slot_bytes)``."""
+        return -(-self.excess_bytes // max(1, self.slot_bytes))
+
+    def as_dict(self) -> dict:
+        return dict(budget_bytes=self.budget_bytes,
+                    weights_bytes=self.weights_bytes,
+                    kv_pool_bytes=self.kv_pool_bytes,
+                    activation_bytes=self.activation_bytes,
+                    graph_pool_bytes=self.graph_pool_bytes,
+                    staging_bytes=self.staging_bytes,
+                    slot_bytes=self.slot_bytes, slots=self.slots,
+                    plan_kv_pool_bytes=self.plan_kv_pool_bytes,
+                    total_bytes=self.total_bytes,
+                    excess_bytes=self.excess_bytes, fits=self.fits)
+
+
+def bill_device(plan: MemoryPlan, hbm_bytes: int, slots: int,
+                slot_bytes: int, graph_pool_bytes: int = 0,
+                staging_bytes: int = 0,
+                logit_peak: "int | None" = None) -> DeviceBill:
+    """The bill of a serve of ``slots`` slots of ``slot_bytes`` each (the
+    engine's pool, ``KVPool.slot_bytes``) planned by ``plan`` on
+    ``hbm_bytes``: the plan's weights and activation reservation, with
+    ``logit_peak`` (a measured logit-stage peak, ``measure_logit_peak``)
+    in place of the plan's ``logit_bytes`` when given, plus the pool, the
+    captured graphs' pool and the staging bytes."""
+    act = plan.activation_bytes
+    if logit_peak is not None:
+        act += int(logit_peak) - plan.logit_bytes
+    return DeviceBill(
+        budget_bytes=hbm_bytes - int(hbm_bytes * GUARD_BAND),
+        weights_bytes=plan.weights_bytes,
+        kv_pool_bytes=int(slot_bytes) * (slots + 1), activation_bytes=act,
+        graph_pool_bytes=int(graph_pool_bytes),
+        staging_bytes=int(staging_bytes), slot_bytes=int(slot_bytes),
+        slots=slots, plan_kv_pool_bytes=plan.slot_bytes * slots)
 
 
 def measure_logit_peak(cfg: ModelConfig, serve: ServeConfig, n_tokens: int,

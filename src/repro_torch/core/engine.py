@@ -41,9 +41,27 @@ reference's plain jnp path, in torch ops. Every family the port registers
 (dense, moe, ssm, hybrid, and the modality frontends vlm and audio) serves
 on both paths. A frontend arch's requests carry ``frontend_len`` projected
 rows ahead of their text: every Refresh spans ``F + text`` rows, and block
-and Reuse positions count the prefix. Mesh serving, fault injection,
-prefix sharing and int8 KV raise ``NotImplementedError`` (ROADMAP Queue
-A).
+and Reuse positions count the prefix. Mesh serving raises
+``NotImplementedError`` (ROADMAP Queue A).
+
+Robustness and the memory multipliers, as in the reference:
+
+* ``faults`` (a :class:`~repro_torch.core.faults.FaultPlan`) is consumed at
+  the reference's sites: each iteration ticks the schedule (a slow fault is
+  charged to the modeled clock or slept), the scheduler defers admission on
+  allocation faults and loses the slots a memory-pressure event steals,
+  and a dispatch fault is raised before the stage's entry runs (under
+  graphs: before its replay, so a retried stage replays once), retried
+  with exponential backoff on the modeled clock (slept on the wall clock,
+  at most 0.05 s) up to ``fault_retries`` attempts.
+* ``prefix_sharing``: each Refresh row's content key goes through the
+  pool's share ledger before the entry runs; the host rewrites the
+  entry's slot-index input (a deduplicated row writes the scratch slot,
+  a Reuse row reads its owner's row), and copy-on-write promotes are
+  eager row copies on the serving stream, queued before the replay that
+  overwrites the old owner.
+* ``kv_quant="int8"``: the pool quantizes inside the Refresh entries'
+  write and the Reuse entries dequantize at their KV load.
 
 ``ServeConfig.pipeline`` (the default) runs the reference's dispatch-ahead
 loop: iteration i+1 is planned while iteration i runs on the device, then
@@ -74,11 +92,13 @@ from repro_torch.core.budgeting import (admission_block_reason,
                                         can_pack_tokens,
                                         pow2_bucket as _bucket,
                                         token_bucket_round)
+from repro_torch.core.faults import FaultError, FaultPlan
 from repro_torch.core.graphs import Field, HostResult, StageGraphs
 from repro_torch.core.kv_pool import KVPool
 from repro_torch.core.request import Outcome, Request, State
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ops as OPS
 from repro_torch.kernels.flash_varlen import PAD_SEG
 from repro_torch.models import backbone as BB
 from repro_torch.models import layers as L
@@ -101,8 +121,7 @@ class DeviceModel:
 
 @dataclass
 class EngineStats:
-    """The reference's counters, field for field (the ones this slice never
-    moves stay 0)."""
+    """The reference's counters, field for field."""
     iterations: int = 0
     refresh_steps: int = 0
     reuse_steps: int = 0
@@ -289,21 +308,20 @@ class Engine:
                  params=None, seed: int = 0,
                  clock: Optional[str] = None,
                  device_model: Optional[DeviceModel] = None,
-                 faults=None, stream_cb: Optional[Callable] = None,
+                 faults: Optional[FaultPlan] = None,
+                 stream_cb: Optional[Callable] = None,
                  device="cuda", graphs: bool = True):
-        """``stream_cb`` is called once per committed (request, iteration)
+        """``faults`` is the run's injected fault schedule (None: none).
+        ``stream_cb`` is called once per committed (request, iteration)
         at sync, when the values exist on the host, with the reference's
         event dict. ``graphs`` captures each (stage, bucket) entry as a CUDA
         graph on the card; ``graphs=False`` runs the same entries eagerly
         (the oracle), as the CPU always does."""
-        if faults is not None:
-            raise _not_ported("fault injection",
-                              "robustness and the memory multipliers")
+        if serve.kv_quant not in ("none", "int8"):
+            raise ValueError(f"ServeConfig.kv_quant must be 'none' or "
+                             f"'int8', got {serve.kv_quant!r}")
         if serve.mesh_shape is not None:
             raise _not_ported("mesh serving", "multi-GPU")
-        if serve.prefix_sharing or serve.kv_quant != "none":
-            raise _not_ported("prefix sharing / int8 KV",
-                              "robustness and the memory multipliers")
         self.device = devices.resolve(device)
         if self.device.type == "cuda" and not serve.use_flash_kernel:
             raise ValueError(
@@ -342,8 +360,17 @@ class Engine:
         self._rng = np.random.default_rng(seed)
         self.mesh_devices = 1
         self.scheduler = make_scheduler(serve)
-        self.pool = KVPool(serve.max_slots, self.device)
+        self.pool = KVPool(serve.max_slots, self.device,
+                           sharing=serve.prefix_sharing,
+                           kv_quant=serve.kv_quant)
+        self._sharing = serve.prefix_sharing
+        # the scheduler drives the pool's take/free ledger and consumes the
+        # fault plan's allocation faults and memory-pressure steals
         self.scheduler.pool = self.pool
+        self.faults = faults
+        self.scheduler.faults = faults
+        self._iter = 0               # engine iteration (the fault schedule's)
+        self._fault_blocked = False  # the last plan was held by faults
         self._stream_cb = stream_cb
         self.graphs = StageGraphs(self.device, graphs)
         self._hdtype = params["embed"]["table"].dtype
@@ -442,10 +469,14 @@ class Engine:
                       Field("slots", (n,), i64, scratch)]
             stage = (BB.serve_reuse_packed if name == "reuse_packed"
                      else BB.serve_reuse)
+            kv_quant = self.serve.kv_quant
 
             def fn(x):
-                return stage(P, cfg, x["btok"], x["bpos"],
-                             pool.gather(x["slots"]), ctx)
+                # the KV-load dequantization point (int8 pools): inside the
+                # entry, so the dequantized caches are transient
+                cache = OPS.dequantize_gathered(pool.gather(x["slots"]),
+                                                kv_quant, pool.gathered_dtypes)
+                return stage(P, cfg, x["btok"], x["bpos"], cache, ctx)
         elif name in ("decode_packed", "decode"):
             (n,) = key
             fields = [Field("h", (n, cfg.d_model), self._hdtype, host=False)]
@@ -505,6 +536,8 @@ class Engine:
             # a large capture serve the smaller ones after it
             for key in reversed(keys):
                 self._prepare(name, key, run=key == keys[0])
+        # a sharing pool's promote copy, once, before any serve needs it
+        self.pool.warm_aux()
         self.pool.clear_slot(self.pool.scratch_slot)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -613,13 +646,19 @@ class Engine:
                 events += [r.deadline for r in self.scheduler.waiting
                            if now < r.deadline < math.inf]
                 nxt = min(events, default=None)
+                if nxt is None and self._fault_blocked:
+                    # injected allocation faults or memory-pressure steals
+                    # hold admission; the schedule is finite and advances
+                    # per iteration, so spin: no stall
+                    it += 1
+                    continue
                 if nxt is None:
                     raise RuntimeError(
                         f"engine stalled with work left at t={now:.3f}: "
                         f"{len(self.scheduler.running)} running / "
                         f"{len(self.scheduler.waiting)} waiting requests and "
-                        f"an empty plan that no future arrival or deadline "
-                        f"can unblock")
+                        f"an empty plan that no future arrival, deadline "
+                        f"or fault schedule can unblock")
                 if self.clock == "modeled":
                     self.vtime = max(self.vtime, nxt)
                 else:
@@ -636,6 +675,10 @@ class Engine:
         self.stats.iterations = it
         self.stats.compile_counts = dict(self.graphs.compile_counts)
         self.stats.graph_replays = self.graphs.replays
+        if self.pool.ledger is not None:
+            self.stats.shared_hits = self.pool.ledger.hits
+            self.stats.shared_cow_promotes = self.pool.ledger.cow_promotes
+            self.stats.phys_slots_peak = self.pool.phys_peak
         return self.stats
 
     # -- modeled-clock cost accounting -------------------------------------
@@ -675,14 +718,30 @@ class Engine:
         return True
 
     def _begin_iteration(self, now: float) -> _Prepared:
-        """Plan one iteration: scheduler plan and packed layout (host work
-        only)."""
+        """Plan one iteration: the fault schedule's tick, scheduler plan and
+        packed layout (host work only)."""
         t0 = time.perf_counter()
+        self._iter += 1
+        if self.faults is not None:
+            self.faults.begin_iteration(self._iter)
+            d = self.faults.take_slow_delay()
+            if d:
+                self.stats.slow_fault_s += d
+                if self.clock == "modeled":
+                    self.vtime += d
+                else:
+                    time.sleep(min(d, 0.05))
         plan = self.scheduler.plan(now)
         for r in plan.rejected + plan.shed:
             self._tally(r)
         self.stats.preemptions += len(plan.preempted)
         self.stats.recomputed_tokens += plan.recomputed_tokens
+        if plan.alloc_faults:
+            self.stats.alloc_fault_iters += 1
+        # a fault-held iteration is no stall: run() spins through it
+        self._fault_blocked = plan.alloc_faults > 0 or (
+            self.faults is not None and bool(self.scheduler.waiting)
+            and self.faults.blocking())
         lifecycle = bool(plan.rejected or plan.shed or plan.preempted)
         layout = None
         if plan.has_exec:
@@ -775,7 +834,7 @@ class Engine:
             x = dec.host()
             if packed:
                 x["valid"][:N] = True
-            result = dec.to_host(dec())
+            result = dec.to_host(self._dispatch("decode", dec))
             # C1: serial sub-batches serialize on the device; monolithic
             # runs one big call (launch amortized, memory unbounded)
             if self.serve.logit_mode == "monolithic":
@@ -862,6 +921,49 @@ class Engine:
                     tokens=np.array(newblk)))
         pending.result.release()
 
+    def _dispatch(self, stage: str, call: Callable):
+        """Run one stage entry under the fault plan: an injected dispatch
+        fault is raised before ``call`` runs (before a graph's replay, so a
+        retried stage runs once), then retried with exponential backoff,
+        charged to the modeled clock or slept on the wall clock (at most
+        0.05 s), up to ``fault_retries`` attempts; past them the
+        :class:`FaultError` propagates. Without a plan, a plain call."""
+        if self.faults is None:
+            return call()
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                if self.faults.take_dispatch_fault(stage):
+                    raise FaultError(
+                        f"injected {stage} dispatch fault "
+                        f"(iter {self._iter}, attempt {attempt})")
+                return call()
+            except FaultError:
+                if attempt >= self.serve.fault_retries:
+                    raise
+                self.stats.dispatch_retries += 1
+                backoff = self.model.launch_s * (2 ** (attempt - 1))
+                if self.clock == "modeled":
+                    self.vtime += backoff
+                else:
+                    time.sleep(min(backoff, 0.05))
+
+    def _refresh(self, e, x, chunk: List[Request]):
+        """Dispatch a filled Refresh entry. With sharing, its requests'
+        content keys go through the share ledger first (inside the
+        dispatch, so once per stage whatever the retries): promotes are
+        queued as row copies ahead of the replay, and a deduplicated row's
+        slot input becomes the scratch slot. Padding rows keep the scratch
+        slot and bypass the ledger."""
+        def call():
+            if self._sharing:
+                x["slots"][: len(chunk)] = self.pool.route_shared(
+                    [r.slot for r in chunk],
+                    [r.refresh_key() for r in chunk])
+            return e()
+        return self._dispatch("refresh", call)
+
     # ------------------------------------------------------------------
     def _check_slots(self, reqs: List[Request]) -> None:
         """Slot-handle integrity guard before any pool write or gather."""
@@ -895,7 +997,7 @@ class Engine:
             x["slots"][j] = r.slot
             if F:
                 x["frontend"][j] = r.frontend
-        dst.copy_(e()[:n].reshape(dst.shape))
+        dst.copy_(self._refresh(e, x, chunk)[:n].reshape(dst.shape))
         self.stats.padded_refresh_calls += 1
         self.stats.refresh_tokens_real += sum(r.refresh_len for r in chunk)
         self.stats.refresh_tokens_exec += b * (F + S)
@@ -932,7 +1034,7 @@ class Engine:
             x["slots"][j] = r.slot
             if F:
                 x["frontend"][j] = r.frontend
-        dst.copy_(e()[:n].reshape(dst.shape))
+        dst.copy_(self._refresh(e, x, chunk)[:n].reshape(dst.shape))
         self.stats.packed_refresh_calls += 1
         self.stats.refresh_tokens_real += t_real
         self.stats.refresh_tokens_exec += tp
@@ -955,8 +1057,9 @@ class Engine:
             s = self._fe_len + r.block_start
             x["btok"][off: off + Sb] = r.block_tokens()
             x["bpos"][off: off + Sb] = self._ar[s: s + Sb]
-            x["slots"][j] = r.slot
-        dst.copy_(e()[: n * Sb])
+        # referrers read their owner's row
+        x["slots"][:n] = self.pool.resolve([r.slot for r in reqs])
+        dst.copy_(self._dispatch("reuse", e)[: n * Sb])
         self.stats.packed_reuse_calls += 1
         self.stats.reuse_tokens_real += n * Sb
         self.stats.reuse_tokens_exec += rp * Sb
@@ -975,8 +1078,8 @@ class Engine:
             s = self._fe_len + r.block_start
             x["btok"][j] = r.block_tokens()
             x["bpos"][j] = self._ar[s: s + Sb]
-            x["slots"][j] = r.slot
-        dst.copy_(e()[:n].reshape(dst.shape))
+        x["slots"][:n] = self.pool.resolve([r.slot for r in reqs])
+        dst.copy_(self._dispatch("reuse", e)[:n].reshape(dst.shape))
         self.stats.padded_reuse_calls += 1
         self.stats.reuse_tokens_real += n * Sb
         self.stats.reuse_tokens_exec += b * Sb

@@ -117,9 +117,12 @@ class StageEntry:
         self._cuda = dev.type == "cuda"
         self._staging: List[_Staging] = []
         self._cur: Optional[_Staging] = None
+        # device bytes of the static inputs, outside the graph pool
+        self.device_bytes = 0
         if self._cuda:
             self._dev_buf = torch.empty((self._total,), dtype=torch.uint8,
                                         device=dev)
+            self.device_bytes = self._total
         else:
             # the CPU runs on the host buffer itself: no copy to make
             self._staging.append(_Staging(self._host_fields, self._off,
@@ -130,8 +133,10 @@ class StageEntry:
             for f in self._host_fields}
         for f in fields:
             if not f.host:
-                self.inputs[f.name] = torch.zeros(f.shape, dtype=f.dtype,
-                                                  device=dev)
+                t = torch.zeros(f.shape, dtype=f.dtype, device=dev)
+                self.inputs[f.name] = t
+                if self._cuda:
+                    self.device_bytes += t.numel() * t.element_size()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.calls = 0
@@ -294,6 +299,15 @@ class StageGraphs:
     def replays(self) -> Dict[str, int]:
         return {e.label: e.replays for e in self.entries.values()
                 if e.replays}
+
+    def staging_bytes(self) -> int:
+        """Device bytes the entries' static inputs hold beside the graph
+        pool: each entry's copy of its host-filled fields (a frontend
+        arch's payloads, ``[rp, F, frontend_dim]`` float32 a packed Refresh
+        bucket, dominate) and its device-side fields (the logit stage's
+        hidden rows). 0 on the CPU, where an entry runs on its host
+        buffer."""
+        return sum(e.device_bytes for e in self.entries.values())
 
     def pool_bytes(self) -> int:
         """Bytes the shared graph pool holds (0 without graphs)."""

@@ -8,53 +8,104 @@ request slot: a ``PackedKV`` (``k/v [L, slots+1, K, retain, dh]``,
 ``max_slots``, is scratch for padding rows. Refresh
 writes a freshly packed cache into its requests' slots in place
 (``index_copy_``, the form the reference's donated scatter takes here);
-Reuse gathers the slots of its sub-batch. Both stay on the device.
+Reuse gathers the slots of its sub-batch. Both stay on the device, and
+both run inside the captured stage entries: the host only rewrites the
+slot-index tensor an entry takes.
 
 Slot lifecycle: :meth:`take` / :meth:`free` keep a free-set plus a per-slot
 generation counter; ``free`` bumps the generation so a stale holder is
 detectable. Double-free and double-take raise.
 
-Content-addressed sharing and int8 slot storage are not ported yet
-(ROADMAP Queue A, 'robustness and the memory multipliers').
+Content-addressed sharing (``sharing=True``), as the reference's: a
+:class:`~repro_torch.core.share_ledger.ShareLedger` sits between logical
+slots and physical rows. :meth:`route_shared` records each Refresh row's
+content key and returns the slots its scatter writes: a row whose key is
+already resident goes to the scratch slot (the write is skipped; the
+logical slot becomes a referrer of the owning row). :meth:`resolve` maps
+referrers to their owner for the Reuse gathers, and :meth:`free` releases
+references. Owned bytes that other slots still reference are promoted to a
+surviving referrer by one device row copy (:meth:`_copy_row`), eager on
+the serving stream, issued before the replay that overwrites the old
+owner — copy-on-write in both the divergent-Refresh and the
+free-while-shared direction. Generations stay logical, so preemption
+composes with sharing unchanged.
+
+int8 slot storage (``kv_quant="int8"``): the pool's float KV leaves are
+stored quantized with per-(layer, slot) float32 scales
+(``kernels.kv_quant``); the pool is then ``{"data": int8 tree, "scale":
+{leaf: [L, slots+1]}}``. :meth:`write` quantizes, :meth:`gather` returns
+that quantized view, and the Reuse entries dequantize at their KV load
+(``kernels.ops.dequantize_gathered``).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-
-def tree_leaves(cache) -> List[torch.Tensor]:
-    """The tensors of a cache tree (nested named tuples), in field order."""
-    if isinstance(cache, torch.Tensor):
-        return [cache]
-    return [t for field in cache for t in tree_leaves(field)]
+from repro_torch.core.share_ledger import ShareLedger
 
 
-def tree_map(fn: Callable, cache):
-    """The same cache tree with ``fn`` applied to every tensor."""
-    if isinstance(cache, torch.Tensor):
-        return fn(cache)
-    return type(cache)(*[tree_map(fn, field) for field in cache])
+def tree_leaves(tree) -> list:
+    """The leaves of a cache tree (nested named tuples, tuples, lists and
+    dicts, a dict in sorted key order: ``jax.tree.leaves``' order), in
+    field order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for field in tree for t in tree_leaves(field)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """The same tree with ``fn`` applied to every leaf, in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        fields = [tree_map(fn, f) for f in tree]
+        return (type(tree)(*fields) if hasattr(tree, "_fields")
+                else type(tree)(fields))
+    return fn(tree)
 
 
 class KVPool:
     def __init__(self, max_slots: int, device, sharing: bool = False,
                  kv_quant: str = "none"):
-        if sharing or kv_quant != "none":
-            raise NotImplementedError(
-                "KVPool: prefix sharing and int8 slot storage are not ported "
-                "yet (ROADMAP Queue A, 'robustness and the memory "
-                "multipliers')")
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"KVPool: kv_quant must be 'none' or 'int8', "
+                             f"got {kv_quant!r}")
         self.max_slots = max_slots
         self.scratch_slot = max_slots
         self.device = torch.device(device)
+        self.kv_quant = kv_quant
+        self.ledger: Optional[ShareLedger] = ShareLedger() if sharing \
+            else None
+        self.phys_peak = 0         # high-water distinct-owner occupancy
         self.cache = None          # cache tree, slot axis = 1
+        self._dtypes = None        # pre-quantization leaf dtypes (by index)
         self._free = set(range(max_slots))
         self._gen = np.zeros(max_slots + 1, np.int64)
 
     # -- slot lifecycle ----------------------------------------------------
+    @property
+    def slots_in_use(self) -> list:
+        return sorted(set(range(self.max_slots)) - self._free)
+
+    @property
+    def phys_slots_in_use(self) -> int:
+        """Distinct content-holding rows: with sharing the ledger's owner
+        count, without it the logical slots in use."""
+        if self.ledger is not None:
+            return self.ledger.phys_slots
+        return self.max_slots - len(self._free)
+
+    def shared_refs(self, slot: int) -> int:
+        """Live references backed by ``slot`` (0 without sharing); the
+        scheduler's preemption prefers victims that own no shared bytes."""
+        return self.ledger.refcount(slot) if self.ledger is not None else 0
+
     def take(self, slot: int) -> int:
         """Claim ``slot``; returns its current generation. Raises if it is
         already in use."""
@@ -66,13 +117,18 @@ class KVPool:
 
     def free(self, slots: Sequence[int]) -> None:
         """Return slots, bumping each generation. Raises on double-free,
-        before any mutation."""
+        before any mutation. With sharing each slot's reference is released
+        first, and bytes other slots still reference are promoted."""
         for s in slots:
             if s in self._free:
                 raise RuntimeError(f"KVPool: double-free of slot {s}")
             if not 0 <= s < self.max_slots:
                 raise RuntimeError(f"KVPool: free of invalid slot {s}")
         for s in slots:
+            if self.ledger is not None:
+                promote = self.ledger.release(s)
+                if promote is not None:
+                    self._copy_row(*promote)
             self._free.add(s)
             self._gen[s] += 1
 
@@ -85,10 +141,40 @@ class KVPool:
         if self.cache is not None:
             return
         n = self.max_slots + 1
-        self.cache = tree_map(
-            lambda c: torch.zeros((c.shape[0], n) + tuple(c.shape[2:]),
-                                  dtype=c.dtype, device=self.device),
-            cache_example)
+
+        def alloc(c, dtype=None):
+            return torch.zeros((c.shape[0], n) + tuple(c.shape[2:]),
+                               dtype=dtype or c.dtype, device=self.device)
+
+        if self.kv_quant == "int8":
+            from repro_torch.kernels import kv_quant as KQ
+            leaves = tree_leaves(cache_example)
+            flags = KQ.quant_leaf_flags(cache_example)
+            self._dtypes = {str(i): leaf.dtype
+                            for i, (leaf, q) in enumerate(zip(leaves, flags))
+                            if q}
+            data = KQ.map_leaves(
+                lambda i, c: alloc(c, torch.int8 if flags[i] else None),
+                cache_example)
+            scale = {k: torch.zeros((leaves[int(k)].shape[0], n),
+                                    dtype=torch.float32, device=self.device)
+                     for k in self._dtypes}
+            self.cache = {"data": data, "scale": scale}
+        else:
+            self.cache = tree_map(alloc, cache_example)
+
+    def slot_bytes(self) -> int:
+        """Device bytes one slot takes across the pool's leaves (int8 data
+        and its scales included); 0 before the pool exists."""
+        if self.cache is None:
+            return 0
+        return sum(t.nbytes // t.shape[1] for t in tree_leaves(self.cache))
+
+    @property
+    def gathered_dtypes(self):
+        """Pre-quantization leaf dtypes for ``dequantize_gathered`` (None
+        until the pool exists, or when storage is exact)."""
+        return self._dtypes
 
     def _index(self, slots) -> torch.Tensor:
         if isinstance(slots, torch.Tensor):
@@ -98,14 +184,24 @@ class KVPool:
     def write(self, slots, cache) -> None:
         """Scatter ``cache`` (slot axis 1) into ``slots`` (a list, or an
         int64 tensor on the pool's device, as the stage entries pass it),
-        in place. Repeated scratch-slot entries (padding rows) race,
-        harmlessly."""
+        in place; int8 storage quantizes first. Repeated scratch-slot
+        entries (padding rows, deduplicated rows) race, harmlessly."""
         self.ensure(cache)
         idx = self._index(slots)
-        for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
+        if self.kv_quant == "int8":
+            from repro_torch.kernels import kv_quant as KQ
+            cache, scales = KQ.quantize_slot_leaves(cache)
+            for k, s in scales.items():
+                self.cache["scale"][k].index_copy_(1, idx, s)
+            dst_tree = self.cache["data"]
+        else:
+            dst_tree = self.cache
+        for dst, src in zip(tree_leaves(dst_tree), tree_leaves(cache)):
             dst.index_copy_(1, idx, src)
 
     def gather(self, slots):
+        """The rows of ``slots`` (physical rows: see :meth:`resolve`); the
+        quantized view ``{"data", "scale"}`` under int8."""
         idx = self._index(slots)
         return tree_map(lambda t: t.index_select(1, idx), self.cache)
 
@@ -114,3 +210,59 @@ class KVPool:
         if self.cache is not None:
             for t in tree_leaves(self.cache):
                 t[:, slot].zero_()
+
+    # -- sharing -----------------------------------------------------------
+    def _copy_row(self, src: int, dst: int) -> None:
+        """Device row copy ``src -> dst`` (the COW promote), queued on the
+        current stream behind every stage it was issued after. A slice
+        copy: no index tensor to upload, so no host sync. A no-op before
+        the pool exists (it holds no bytes to preserve then)."""
+        if self.cache is None:
+            return
+        for t in tree_leaves(self.cache):
+            t.narrow(1, dst, 1).copy_(t.narrow(1, src, 1))
+
+    def warm_aux(self) -> None:
+        """Run the promote copy once (scratch -> scratch, content
+        irrelevant), as the reference warms its copy jit, so a sharing
+        pool's first promote is no first launch mid-serve. No-op without
+        sharing."""
+        if self.ledger is not None and self.cache is not None:
+            self._copy_row(self.scratch_slot, self.scratch_slot)
+
+    def resolve(self, slots: Sequence[int]) -> List[int]:
+        """The physical rows backing ``slots``: referrers read their
+        owner's row (the identity without sharing)."""
+        if self.ledger is None:
+            return list(slots)
+        return [self.ledger.resolve(s) for s in slots]
+
+    def route_shared(self, slots: Sequence[int],
+                     keys: Sequence[Optional[bytes]]) -> List[int]:
+        """Record one Refresh batch's content keys in the ledger and return
+        the slots its scatter writes: a row whose key already has an owner
+        goes to the scratch slot (the logical slot becomes a referrer).
+        Divergent rows promote their old content first (device copies
+        issued now, ahead of the scatter). ``keys[j] is None`` (padding and
+        warmup rows) and the scratch slot bypass the ledger."""
+        if self.ledger is None:
+            raise RuntimeError("KVPool: route_shared on a pool constructed "
+                               "without sharing=True")
+        scatter = list(slots)
+        for j, (s, key) in enumerate(zip(slots, keys)):
+            if key is None or not 0 <= s < self.max_slots:
+                continue
+            do_write, promote = self.ledger.record_write(s, key)
+            if promote is not None:
+                self._copy_row(*promote)
+            if not do_write:
+                scatter[j] = self.scratch_slot
+        self.phys_peak = max(self.phys_peak, self.ledger.phys_slots)
+        return scatter
+
+    def write_shared(self, slots: Sequence[int], cache,
+                     keys: Sequence[Optional[bytes]]) -> None:
+        """Content-aware write: :meth:`route_shared`, then one scatter of
+        the whole batch (the reference's ``write_shared``)."""
+        self.ensure(cache)
+        self.write(self.route_shared(slots, keys), cache)

@@ -139,6 +139,16 @@ class Request:
             return self.refresh_len
         return self.cfg.block_size
 
+    def refresh_key(self) -> bytes:
+        """Content address of this request's next Refresh capture: the
+        captured cache is a deterministic function of (tokens, geometry,
+        frontend) under the engine's fixed params, so two requests with
+        equal keys produce identical pool rows (the dedup law of the
+        pool's shared writes)."""
+        from repro_torch.core.share_ledger import content_key
+        return content_key(self.tokens, self.cfg.block_size, self.total_len,
+                           self.block_start, self.frontend)
+
     def block_tokens(self) -> np.ndarray:
         s = self.block_start
         return self.tokens[s: s + self.cfg.block_size]

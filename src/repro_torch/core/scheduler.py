@@ -8,8 +8,11 @@ pre-allocated pool and logits are bounded separately by ``max_num_logits``.
 
 ``plan()`` also rejects never-admittable waiters, sheds expired ones, bounds
 the waiting queue under ``queue_cap``, and with ``preempt_starvation_s``
-preempts the youngest Reuse-phase resident for a starved head waiter. The
-fault hooks are not ported yet.
+preempts the youngest Reuse-phase resident for a starved head waiter
+(preferring one whose slot owns no shared content). An injected fault plan
+(``core/faults.py``) cuts the free slots by its memory-pressure steals and
+defers admission on its transient allocation faults
+(``IterationPlan.alloc_faults``).
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ class IterationPlan:
     rejected: List[Request] = field(default_factory=list)
     shed: List[Request] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)   # requeued, live
+    alloc_faults: int = 0        # injected transient slot-alloc failures hit
     recomputed_tokens: int = 0
 
     @property
@@ -138,6 +142,7 @@ class PhaseMultiplexedScheduler:
         self.running: List[Request] = []
         self._free_slots = list(range(cfg.max_slots))[::-1]
         self.pool = None            # KVPool (take/free generation ledger)
+        self.faults = None          # FaultPlan (alloc faults, mem steals)
 
     # -- queue ops ----------------------------------------------------------
     def submit(self, req: Request) -> List[Request]:
@@ -203,22 +208,32 @@ class PhaseMultiplexedScheduler:
                 keep.append(r)
         self.waiting = keep
 
+    def _stolen(self) -> int:
+        return self.faults.stolen_slots() if self.faults is not None else 0
+
     def _maybe_preempt(self, now: float, plan: IterationPlan) -> None:
         """When the head waiter has starved past ``preempt_starvation_s``
         with no free slot, the youngest Reuse-phase resident rolls its block
-        back, frees its slot and requeues at the TAIL of the queue."""
+        back, frees its slot and requeues at the TAIL of the queue. A victim
+        whose slot owns shared content (a free would cost a promote copy) is
+        taken only when no other is eligible; without sharing that is the
+        youngest-first order."""
         thr = self.cfg.preempt_starvation_s
         if not thr or not self.waiting:
             return
         head = self.waiting[0]
         if head.arrival > now or now - head.arrival < thr:
             return
-        if self._free_slots:
+        if len(self._free_slots) - self._stolen() > 0:
             return                      # a slot is free; admission will run
-        for victim in reversed(self.running):
-            if victim.phase is not Phase.REUSE or \
-                    victim.n_preempted >= self.cfg.max_preemptions:
-                continue
+        eligible = [v for v in reversed(self.running)
+                    if v.phase is Phase.REUSE
+                    and v.n_preempted < self.cfg.max_preemptions]
+
+        def owns_shared(v):
+            return self.pool is not None and self.pool.shared_refs(v.slot) > 1
+        for victim in ([v for v in eligible if not owns_shared(v)]
+                       or eligible)[:1]:
             self.running.remove(victim)
             self._release_slot(victim)
             plan.recomputed_tokens += victim.rollback_block()
@@ -253,14 +268,20 @@ class PhaseMultiplexedScheduler:
                 else:
                     plan.deferred.append(r)
 
-        # 2) greedy FCFS admission into released headroom
-        while (self.waiting and self._free_slots
+        # 2) greedy FCFS admission into released headroom; a stop here is
+        # transient (a future arrival, the budget, a memory-pressure steal,
+        # an injected allocation fault)
+        stolen = self._stolen()
+        while (self.waiting and len(self._free_slots) - stolen > 0
                and len(plan.refresh) < refresh_slots):
             cand = self.waiting[0]
             if cand.arrival > now:
                 break
             cost = cand.refresh_len  # first step is a Refresh
             if cost > budget:
+                break
+            if self.faults is not None and self.faults.take_alloc_fault():
+                plan.alloc_faults += 1     # transient: admit next iteration
                 break
             self.waiting.pop(0)
             self._claim_slot(cand)
@@ -297,9 +318,13 @@ class RequestLevelScheduler(PhaseMultiplexedScheduler):
         # static batching: admit only when the previous batch fully drained
         # (the engine executes oversized refresh sets in serial chunks)
         drained = not self.running
-        while drained and self.waiting and self._free_slots:
+        stolen = self._stolen()
+        while drained and self.waiting and len(self._free_slots) - stolen > 0:
             cand = self.waiting[0]
             if cand.arrival > now or cand.refresh_len > budget:
+                break
+            if self.faults is not None and self.faults.take_alloc_fault():
+                plan.alloc_faults += 1
                 break
             self.waiting.pop(0)
             self._claim_slot(cand)

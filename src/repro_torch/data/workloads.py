@@ -122,4 +122,24 @@ def trace_prompts(trace: List[TraceRequest], vocab_size: int,
     return out
 
 
+def prefix_share_factor(trace: List[TraceRequest]) -> float:
+    """Logical/physical slot ratio the trace admits under whole-slot
+    content sharing: requests whose prompt is drawn VERBATIM from the pool
+    (prefix covers the full prompt) and that share (prefix_id, prompt_len,
+    gen_len) produce bit-identical token arrays — one physical slot backs
+    the group. Everything else (unique prompts, partial prefixes) is billed
+    one slot each. This is the ``share_factor`` fed to
+    ``budgeting.plan_memory`` / ``baselines.size_slots``."""
+    groups: Dict[Tuple[int, int, int], int] = {}
+    unique = 0
+    for t in trace:
+        if t.prefix_id >= 0 and t.prefix_len >= t.prompt_len:
+            key = (t.prefix_id, t.prompt_len, t.gen_len)
+            groups[key] = groups.get(key, 0) + 1
+        else:
+            unique += 1
+    phys = len(groups) + unique
+    return len(trace) / phys if phys else 1.0
+
+
 WORKLOADS = ("livebench", "burst", "osc", "shared-prefix")

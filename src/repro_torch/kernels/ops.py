@@ -166,3 +166,19 @@ def ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap_rows, *, chunk: int = 64):
         xdt, dA, Bm.float().contiguous(), Cm.float().contiguous(),
         reset.float().contiguous(), _i32(cap_rows), chunk=ct)
     return y, cap
+
+
+def dequantize_gathered(gathered, kv_quant: str, dtypes):
+    """The Reuse stages' KV-load dequantization point (ref ``ops.py``
+    ``dequantize_gathered``). Under ``kv_quant="int8"`` the slot pool's
+    gather returns the quantized view ``{"data": int8-leaf tree, "scale":
+    per-leaf [L, B] float32}``; this scales the KV leaves back to
+    ``dtypes`` inside the Reuse entry, so the dequantized tensors are
+    transient activations of that stage, never pool state. The attention
+    kernels keep their bf16/f32 contracts. ``"none"`` passes the gathered
+    cache through untouched."""
+    if kv_quant == "none":
+        return gathered
+    from repro_torch.kernels.kv_quant import dequantize_slot_leaves
+    return dequantize_slot_leaves(gathered["data"], gathered["scale"],
+                                  dtypes)

@@ -34,10 +34,31 @@ entry is captured as a CUDA graph in warmup and replayed (the engine's
 ``graphs=False`` runs the same entries eagerly, as the oracle).
 ``compile_counts`` counts the entries built (captures, on the card), and the
 JSON adds ``graph_replays`` (replays per entry) and ``graph_pool_bytes``
-(the captured graphs' shared memory pool, which the profiler's plan does not
-bill; 0 without graphs). Keys whose feature the
-port does not have yet carry the reference's "off" value:
-``mesh_devices=1``, sharing and faults at zero.
+(the captured graphs' shared memory pool; 0 without graphs). Keys whose
+feature the port does not have yet carry the reference's "off" value:
+``mesh_devices=1``.
+
+The device bill (``core.budgeting.bill_device``): after warmup a profiler-
+sized serve bills what it holds on the card — the plan's weights, the
+engine's slot pool at the serving geometry (the plan sizes slots at the
+paper's larger geometry, ``PLAN_GEOMETRY``), the graph pool (billed
+against the plan's activation reservation, the larger of the two), the
+stage entries' device staging, and, for an eager serve on the card, the
+measured logit-stage peak in place of the plan's logit term — and holds
+the sum against ``hbm_gb`` less the guard band. A serve that exceeds it is
+re-sized once (``ceil(excess / slot_bytes)`` slots fewer, the engine built
+and warmed again on the same weights); one that still exceeds it raises
+``ValueError``. The JSON's ``device_bill`` holds the final bill, the
+plan's pool for the same slots beside it, the slot count it was re-sized
+from (None: it fit) and each engine's warmup seconds.
+
+Robustness and the memory multipliers, as in the reference: ``--faults
+SEED`` serves under ``FaultPlan.seeded(SEED)`` (dispatch faults retried
+with backoff, allocation faults, memory-pressure steals, slow
+iterations); ``--sharing`` turns on content-addressed prefix sharing in
+the slot pool (the trace is drawn before the plan, so its measured
+``share_factor`` reaches the profiler); ``--kv-quant int8`` stores the KV
+slots as int8 with per-(layer, slot) scales.
 
 Admission, as in the reference: ``--queue-cap`` bounds the waiting queue
 (0: unbounded) and ``--queue-policy`` rejects a new arrival or evicts the
@@ -50,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import time
@@ -60,10 +82,13 @@ import numpy as np
 from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.baselines import size_slots, system_profiles
-from repro_torch.core.budgeting import plan_memory
+from repro_torch.core.budgeting import (bill_device, measure_logit_peak,
+                                        plan_memory)
 from repro_torch.core.engine import Engine
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.request import State
-from repro_torch.data.workloads import make_trace, trace_prompts
+from repro_torch.data.workloads import (make_trace, prefix_share_factor,
+                                        trace_prompts)
 
 
 # the paper's Table 3 geometry, at which the profiler plans every run
@@ -71,15 +96,81 @@ PLAN_GEOMETRY = dict(max_seq_len=2048, max_num_batched_tokens=4000,
                      max_num_logits=2048)
 
 
-def profile_slots(full_cfg, serve: ServeConfig, max_slots: int, hbm_gb: int):
+def profile_slots(full_cfg, serve: ServeConfig, max_slots: int, hbm_gb: int,
+                  share_factor: float = 1.0):
     """The offline profiler (§4.2) on the full model at the plan geometry:
-    monolithic logit reservations and dense caches buy fewer slots. Returns
-    the plan and ``serve`` with ``max_slots`` clamped to it."""
+    monolithic logit reservations and dense caches buy fewer slots, sharing
+    (``share_factor``) and int8 slots buy more. Returns the plan and
+    ``serve`` with ``max_slots`` clamped to its physical capacity."""
     plan_serve = dataclasses.replace(serve, max_slots=max_slots,
                                      **PLAN_GEOMETRY)
-    plan = plan_memory(full_cfg, plan_serve, hbm_gb << 30)
-    sized = size_slots(full_cfg, plan_serve, hbm_gb << 30)
-    return plan, dataclasses.replace(serve, max_slots=sized.max_slots)
+    plan = plan_memory(full_cfg, plan_serve, hbm_gb << 30,
+                       share_factor=share_factor)
+    sized = size_slots(full_cfg, plan_serve, hbm_gb << 30,
+                       share_factor=share_factor)
+    return plan, dataclasses.replace(serve, max_slots=max(1, sized.max_slots))
+
+
+def device_bill(eng: Engine, plan, full_cfg, hbm_bytes: int):
+    """The bill of a warmed engine against the plan that sized it: its
+    slot pool, graph pool and staging bytes, and for an eager engine on
+    the card the measured logit peak of its C1 mode at the plan
+    geometry."""
+    peak = None
+    if eng.device.type == "cuda" and not eng.graphs.capture:
+        plan_serve = dataclasses.replace(eng.serve, **PLAN_GEOMETRY)
+        peak = measure_logit_peak(
+            full_cfg, plan_serve, plan_serve.max_num_batched_tokens,
+            eng.device)[eng.serve.logit_mode]
+    return bill_device(plan, hbm_bytes, eng.serve.max_slots,
+                       eng.pool.slot_bytes(),
+                       graph_pool_bytes=eng.graphs.pool_bytes(),
+                       staging_bytes=eng.graphs.staging_bytes(),
+                       logit_peak=peak)
+
+
+def fit_to_budget(build, serve: ServeConfig, plan, full_cfg,
+                  hbm_bytes: int):
+    """Build and warm an engine for ``serve`` (``build(serve, params)``
+    returns the engine and its warmup seconds) and bill it. One that does
+    not fit is re-sized once: ``ceil(excess / slot_bytes)`` slots fewer,
+    built again on the same weights (the graph pool only shrinks with
+    fewer slots and buckets). Returns ``(engine, bill, resized_from,
+    warmup seconds of each engine built)``; raises ``ValueError`` naming
+    every figure when the re-sized serve still does not fit."""
+    eng, warmup_s = build(serve, None)
+    warmups = [warmup_s]
+    bill = device_bill(eng, plan, full_cfg, hbm_bytes)
+    if bill.fits:
+        return eng, bill, None, warmups
+    resized_from = serve.max_slots
+    serve = dataclasses.replace(serve,
+                                max_slots=serve.max_slots - bill.slots_over)
+    if serve.max_slots < 1:
+        raise ValueError(_refusal(bill, resized_from))
+    params, on_card = eng.params, eng.device.type == "cuda"
+    del eng
+    gc.collect()
+    if on_card:
+        import torch
+        torch.cuda.empty_cache()
+    eng, warmup_s = build(serve, params)
+    warmups.append(warmup_s)
+    bill = device_bill(eng, plan, full_cfg, hbm_bytes)
+    if not bill.fits:
+        raise ValueError(_refusal(bill, resized_from))
+    return eng, bill, resized_from, warmups
+
+
+def _refusal(bill, resized_from: int) -> str:
+    return (f"serve does not fit the card's budget even re-sized from "
+            f"{resized_from} to {bill.slots} slots: weights "
+            f"{bill.weights_bytes} + kv pool {bill.kv_pool_bytes} + "
+            f"max(activations {bill.activation_bytes}, graph pool "
+            f"{bill.graph_pool_bytes}) + staging {bill.staging_bytes} = "
+            f"{bill.total_bytes} B against {bill.budget_bytes} B (the "
+            f"budget less its guard band; excess {bill.excess_bytes} B, "
+            f"{bill.slot_bytes} B a slot)")
 
 
 def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
@@ -93,15 +184,20 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               queue_cap: int = 0, queue_policy: str = "reject",
               deadline_slack: float = float("inf"),
               preempt_starvation_s: float = 0.0,
+              fault_seed: Optional[int] = None,
               kernels: Optional[bool] = None,
+              prefix_sharing: bool = False,
+              kv_quant: str = "none",
               pipeline: bool = True,
               stream: bool = False,
               device: str = "cuda",
               n_layers: Optional[int] = None) -> dict:
     """The reference's ``run_serve`` on the port, with its defaults, and
-    without the options of features not ported yet (mesh, faults, sharing,
-    int8 KV); ``device`` picks where the engine runs; ``n_layers`` cuts the
-    arch's depth (what is served and what the profiler plans)."""
+    without the option of a feature not ported yet (mesh); ``device`` picks
+    where the engine runs; ``n_layers`` cuts the arch's depth (what is
+    served and what the profiler plans). A profiler-sized serve is billed
+    on the device after warmup, and re-sized or refused when it does not
+    fit."""
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -114,7 +210,8 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         steps_per_block=steps_per_block, max_seq_len=max_seq_len,
         max_slots=max_slots, max_refresh_per_iter=4,
         queue_cap=queue_cap, queue_policy=queue_policy,
-        preempt_starvation_s=preempt_starvation_s, pipeline=pipeline)
+        preempt_starvation_s=preempt_starvation_s,
+        prefix_sharing=prefix_sharing, kv_quant=kv_quant, pipeline=pipeline)
     serve = system_profiles(base)[system]
     if kernels:
         serve = dataclasses.replace(serve, use_flash_kernel=True,
@@ -122,11 +219,15 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
     elif kernels is not None:
         serve = dataclasses.replace(serve, use_flash_kernel=False,
                                     logit_mode="chunked")
+    # the trace first: the profiler's sharing-aware sizing reads its
+    # measured share factor
     trace = make_trace(workload, n, rps, seed=seed, scale=length_scale,
                        deadline_slack=deadline_slack)
+    share = prefix_share_factor(trace) if serve.prefix_sharing else 1.0
     plan = None
     if size_by_profiler:
-        plan, serve = profile_slots(full_cfg, serve, max_slots, hbm_gb)
+        plan, serve = profile_slots(full_cfg, serve, max_slots, hbm_gb,
+                                    share_factor=share)
     stream_cb = None
     if stream:
         # one event per request per iteration, fired at its sync: the first
@@ -137,9 +238,23 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
                 print(f"  stream rid={ev['rid']} block={ev['block_idx']} "
                       f"+{ev['n_committed']} tok "
                       f"{'FIN ' if ev['finished'] else ''}{tok}...")
-    eng = Engine(cfg, serve, seed=seed, clock=clock, stream_cb=stream_cb,
-                 device=device)
-    warmup_s = eng.warmup()
+
+    def build(serve, params=None):
+        # a fresh plan a run: a FaultPlan is consumed as it serves
+        faults = (FaultPlan.seeded(fault_seed) if fault_seed is not None
+                  else None)
+        eng = Engine(cfg, serve, params=params, seed=seed, clock=clock,
+                     faults=faults, stream_cb=stream_cb, device=device)
+        return eng, eng.warmup()
+
+    bill = resized_from = None
+    if plan is None:
+        eng, warmup_s = build(serve, None)
+        warmups = [warmup_s]
+    else:
+        eng, bill, resized_from, warmups = fit_to_budget(
+            build, serve, plan, full_cfg, hbm_gb << 30)
+        serve, warmup_s = eng.serve, warmups[-1]
     prompts = trace_prompts(trace, cfg.vocab_size, seed=seed)
     reqs = []
     for i, (t, p) in enumerate(zip(trace, prompts)):
@@ -214,7 +329,7 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         max_slots=serve.max_slots,
         prefix_sharing=serve.prefix_sharing,
         kv_quant=serve.kv_quant,
-        share_factor=1.0,
+        share_factor=share,
         shared_hits=stats.shared_hits,
         shared_cow_promotes=stats.shared_cow_promotes,
         phys_slots_peak=stats.phys_slots_peak,
@@ -232,6 +347,8 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         / eng.work_split,
         graph_replays=dict(stats.graph_replays),
         graph_pool_bytes=eng.graphs.pool_bytes(),
+        device_bill=None if bill is None else dict(
+            bill.as_dict(), resized_from=resized_from, warmup_s=warmups),
     )
 
 
@@ -258,6 +375,14 @@ def main():
     ap.add_argument("--preempt-starvation", type=float, default=0.0,
                     help="starvation threshold (s) that triggers "
                          "preempt-and-requeue (0 = disabled)")
+    ap.add_argument("--faults", type=int, default=None, metavar="SEED",
+                    help="serve under FaultPlan.seeded(SEED) (chaos mode)")
+    ap.add_argument("--sharing", action="store_true",
+                    help="content-addressed prefix sharing in the slot pool "
+                         "(copy-on-write on divergence; same ids as without)")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="KV slot storage (int8: per-(layer, slot) abs-max "
+                         "scales, dequantized at the Reuse KV load)")
     ap.add_argument("--kernels", action="store_true",
                     help="the kernel paths (use_flash_kernel + "
                          "logit_mode=fused) on top of the system profile; "
@@ -279,7 +404,9 @@ def main():
                     queue_cap=args.queue_cap, queue_policy=args.queue_policy,
                     deadline_slack=args.deadline,
                     preempt_starvation_s=args.preempt_starvation,
+                    fault_seed=args.faults,
                     kernels=True if args.kernels else None,
+                    prefix_sharing=args.sharing, kv_quant=args.kv_quant,
                     clock=args.clock, pipeline=not args.no_pipeline,
                     stream=args.stream, device=args.device)
     print(json.dumps(res, indent=2))

@@ -202,9 +202,10 @@ def test_request_level_scheduler_plans_match_reference():
     assert n_plans > 10
 
 
-# the port's own keys: replays per captured stage entry and the captured
-# graphs' pool (none and 0 on the CPU)
-PORT_ONLY = {"graph_replays", "graph_pool_bytes"}
+# the port's own keys: replays per captured stage entry, the captured
+# graphs' pool (none and 0 on the CPU) and the device bill of a
+# profiler-sized serve (None without the profiler)
+PORT_ONLY = {"graph_replays", "graph_pool_bytes", "device_bill"}
 
 
 @pytest.mark.parametrize("workload", ["burst", "livebench"])
@@ -251,17 +252,24 @@ def test_unported_engine_options_raise():
     # the pipelined loop is ported: the reference's default constructs
     assert TEngine(tcfg, dataclasses.replace(base, pipeline=True),
                    device="cpu").serve.pipeline
-    for bad in (dict(mesh_shape=(1, 2)),
-                dict(prefix_sharing=True), dict(kv_quant="int8")):
-        with pytest.raises(NotImplementedError):
-            TEngine(tcfg, dataclasses.replace(base, **bad), device="cpu")
+    # so are prefix sharing and int8 slots (ROADMAP A4); mesh serving is
+    # not, and an unknown slot storage is refused as the reference does
+    for ok in (dict(prefix_sharing=True), dict(kv_quant="int8")):
+        TEngine(tcfg, dataclasses.replace(base, **ok), device="cpu")
+    with pytest.raises(NotImplementedError):
+        TEngine(tcfg, dataclasses.replace(base, mesh_shape=(1, 2)),
+                device="cpu")
+    with pytest.raises(ValueError, match="kv_quant"):
+        TEngine(tcfg, dataclasses.replace(base, kv_quant="fp4"),
+                device="cpu")
     # the profiler bills what it can serve, and raises on the rest
     from repro_torch.core.budgeting import plan_memory
-    for bad in (dict(kv_quant="int8"), dict(prefix_sharing=True),
-                dict(mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError):
-            plan_memory(get_config("llada-8b"),
-                        dataclasses.replace(base, **bad), 24 << 30)
+    for ok in (dict(kv_quant="int8"), dict(prefix_sharing=True)):
+        plan_memory(get_config("llada-8b"), dataclasses.replace(base, **ok),
+                    24 << 30)
+    with pytest.raises(NotImplementedError):
+        plan_memory(get_config("llada-8b"),
+                    dataclasses.replace(base, mesh_shape=(1, 2)), 24 << 30)
 
 
 def test_cuda_engine_requires_the_kernel_paths(monkeypatch):

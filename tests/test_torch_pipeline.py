@@ -16,8 +16,10 @@
 * :mod:`repro_torch.core.graphs` entries on the CPU: eager, on their host
   buffers.
 
-The reference's faults-and-preemption case (``test_engine_pipeline.py``)
-waits for fault injection in the port (ROADMAP Queue A, item 7).
+* Under preemption and a seeded fault plan (the reference's
+  ``test_bit_identical_under_preemption_and_faults``): the port's
+  pipelined and synchronous loops against each other and against the
+  reference's pipelined loop.
 """
 import dataclasses
 
@@ -32,12 +34,14 @@ from repro.configs import ARCHS, reduced
 from repro.configs.base import ServeConfig as JServe
 from repro.core.baselines import system_profiles as jprofiles
 from repro.core.engine import Engine as JEngine
+from repro.core.faults import FaultPlan as JFaultPlan
 from repro.models import backbone as JBB
 from repro_torch.configs import get_config, reduced as treduced
 from repro_torch.configs.base import ServeConfig as TServe
 from repro_torch.core.baselines import ablation_profiles as tablation
 from repro_torch.core.baselines import system_profiles as tprofiles
 from repro_torch.core.engine import Engine as TEngine, stage_keys
+from repro_torch.core.faults import FaultPlan as TFaultPlan
 from repro_torch.core.graphs import Field, StageGraphs
 from repro_torch.core.kv_pool import tree_leaves
 from repro_torch.core.request import State
@@ -162,6 +166,64 @@ def test_stream_events_match_reference():
         assert np.array_equal(np.asarray(a["tokens"]), b["tokens"])
     assert sum(e["n_committed"] for e in tev) == ps.committed_tokens
     assert sum(e["finished"] for e in tev) == len(preqs)
+
+
+# the reference's chaos-and-preemption geometry (test_engine_pipeline.py)
+CHAOS = dict(max_num_batched_tokens=512, max_num_logits=64, block_size=8,
+             steps_per_block=8, max_seq_len=128, max_slots=4,
+             max_refresh_per_iter=2, selection="head", scheduler="phase",
+             logit_mode="chunked", preempt_starvation_s=0.05)
+
+
+def _chaos_serve(engine_cls, serve, plan, cfg, params):
+    kw = {} if engine_cls is JEngine else dict(device="cpu")
+    eng = engine_cls(cfg, serve, params=params, seed=0, clock="modeled",
+                     faults=plan, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size - 1,
+                                    int(rng.integers(8, 40))),
+                       gen_len=16, arrival=0.05 * i, rid=i)
+            for i in range(6)]
+    return eng, reqs, eng.run()
+
+
+def test_pipelined_matches_sync_and_reference_under_faults():
+    """Preemption plus ``FaultPlan.seeded(3)``: in-flight commits of a
+    preempted request are discarded as the synchronous loop overwrites
+    them, and retried dispatches replay once; the port's two loops and the
+    reference's pipelined loop agree on ids, times, counters and clock."""
+    def reference():
+        jcfg = reduced(ARCHS["llada-8b"])
+        jp = JBB.init_params(jcfg, jax.random.PRNGKey(0))
+        je, jreqs, js = _chaos_serve(JEngine, JServe(**CHAOS),
+                                     JFaultPlan.seeded(3), jcfg, jp)
+        return (je.vtime, [r.tokens.copy() for r in jreqs],
+                [(r.t_admitted, r.t_finished) for r in jreqs],
+                _stats_rows(js, HOST_TIMES | JAX_ONLY),
+                jax.tree.map(np.asarray, jp))
+    jvtime, jtokens, jtimes, want, tree = cached(("pipelined-chaos",),
+                                                 reference)
+    tcfg = treduced(get_config("llada-8b"))
+    tp = from_jax(tree, tcfg, "cpu")
+    runs = {}
+    for pipeline in (True, False):
+        runs[pipeline] = _chaos_serve(
+            TEngine, TServe(**CHAOS, pipeline=pipeline),
+            TFaultPlan.seeded(3), tcfg, tp)
+    (pe, preqs, ps), (se, sreqs, ss) = runs[True], runs[False]
+    for a, b, c, t in zip(jtokens, preqs, sreqs, jtimes):
+        assert np.array_equal(a, b.tokens) and np.array_equal(a, c.tokens)
+        assert t == (b.t_admitted, b.t_finished) == \
+            (c.t_admitted, c.t_finished)
+    assert jvtime == pe.vtime == se.vtime
+    got = _stats_rows(ps, HOST_TIMES | JAX_ONLY)
+    assert {k: got[k] for k in want} == want
+    assert _stats_rows(ss, HOST_TIMES | LOOP_ONLY) == \
+        _stats_rows(ps, HOST_TIMES | LOOP_ONLY)
+    assert ps.preemptions + ps.dispatch_retries > 0
+    assert ps.dispatched_ahead > 0 and ss.dispatched_ahead == 0
+    for a, b in zip(tree_leaves(pe.pool.cache), tree_leaves(se.pool.cache)):
+        assert torch.equal(a, b)
 
 
 # the launcher's geometry, and the one the bucket-cover serves run at: the

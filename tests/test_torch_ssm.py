@@ -329,8 +329,9 @@ def run_serve_matches(arch):
     want = jrun_serve(arch, "dllm-serve", "burst", 4.0, 3, **kw)
     got = trun_serve(arch, "dllm-serve", "burst", 4.0, 3, device="cpu", **kw)
     # the port's own keys: replays per captured stage entry, the captured
-    # graphs' pool
-    assert set(got) == set(want) | {"graph_replays", "graph_pool_bytes"}
+    # graphs' pool, the device bill (None without the profiler)
+    assert set(got) == set(want) | {"graph_replays", "graph_pool_bytes",
+                                    "device_bill"}
     assert got["n_finished"] == 3 and got["padded_refresh_calls"] == 0
     skip = HOST_TIMES | JAX_ONLY | {"warmup_s", "wall_clock_s", "wall_tok_s",
                                     "overlap_frac", "compiles_post_warmup"}
