@@ -107,7 +107,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      finish, every kernel of the path must have launched (warmup's eager
      runs and the run's graph replays), nothing may be built after warmup,
      and no plain version may have run;
-  6. the kernels line, the card line, and the result line.
+  6. train: masked-diffusion training, which runs torch ops under
+     autograd and no hand kernel (as the reference's runs no Pallas
+     kernel): the reduced llada-8b, gemma2-27b, phi3.5-moe, zamba2-7b and
+     musicgen-medium (its frontend through make_train_step), float32, a
+     loss with its gradients and three steps on the card against the
+     same on the CPU; the chunked loss's allocator peak at llada-8b's head
+     over 4,096 rows, at chunk 2,048 under the single chunk's; then
+     ``Trainer`` for 5 steps of 8 x 2,048 tokens at the published widths,
+     bfloat16: llada-8b at 8 of its 32 layers (a checkpoint at step 3 and
+     a second Trainer resuming there) and the whole mamba2-130m, with
+     every loss and grad_norm finite, every random weight moved, and all
+     eight kernels' counters at 0 over each run; step time, tokens a
+     second, the peak beside 16 bytes a parameter and the share of 989
+     TFLOP/s are logged;
+  7. the kernels line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
@@ -123,8 +137,10 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1054,6 +1070,13 @@ def check_reduced_iteration(dev, arch, system="dllm-serve", **overrides):
 # phase 5: serve the full models through the kernels
 # ---------------------------------------------------------------------------
 
+def kernel_counts():
+    """(launches, plain-version calls) of every kernel wrapper."""
+    from repro_torch.kernels import build
+    return {n: (c.launches, c.plain_calls)
+            for n, c in build.COUNTERS.items()}
+
+
 BASELINE_KERNELS = ("packed_flash_attention", "fused_logit_argmax")
 DENSE_KERNELS = ("flash_varlen", "flash_varlen_cross", "head_score_varlen",
                  "fused_logit_argmax")
@@ -1141,8 +1164,7 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb,
                     use_reduced=False, kernels=True, clock="wall",
                     size_by_profiler=True, hbm_gb=hbm_gb, device="cuda",
                     n_layers=LAYERS.get(arch), **kw)
-    counts = {n: (c.launches, c.plain_calls)
-              for n, c in build.COUNTERS.items()}
+    counts = kernel_counts()
     bill = res["device_bill"]
     assert res["plan_slots_logical"] == plan.max_slots, (res, plan)
     # a serve the device bill re-sized runs fewer slots than planned
@@ -1277,8 +1299,7 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
         out[graphs] = dict(
             tokens=[r.tokens.copy() for r in reqs], vtime=eng.vtime,
             counters={k: getattr(st, k) for k in GRAPH_COUNTERS},
-            launches={n: (c.launches, c.plain_calls)
-                      for n, c in build.COUNTERS.items()},
+            launches=kernel_counts(),
             warmup_s=warmup_s, captures=st.compile_counts,
             post_warmup=st.compiles_post_warmup,
             replays=sum(st.graph_replays.values()),
@@ -1503,8 +1524,7 @@ def prefill_full(dev, serve, arch="llada-8b", Sb=None):
                               mode="fused")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {n: (c.launches, c.plain_calls)
-              for n, c in build.COUNTERS.items()}
+    counts = kernel_counts()
     assert counts["flash_refresh"][0] == attn_layers, counts
     assert counts["fused_logit_argmax"][0] > 0, counts
     for name, (_, n_plain) in counts.items():
@@ -1541,6 +1561,260 @@ def prefill_full(dev, serve, arch="llada-8b", Sb=None):
     assert full[0] < 1.0 and full[1] < 0.15, full
     assert same, "the fused decode's ids differ from the logits' argmax"
     return {n: c for n, (c, _) in counts.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: masked-diffusion training (torch ops under autograd, no kernel)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = {"llada-8b": 8}    # of 32: its moments do not fit at full depth
+TRAIN_RTOL = 1e-5                 # tests/test_torch_train.py's tolerances
+
+
+def assert_no_kernel(counts, tag):
+    """The training path runs no hand kernel (the reference's runs no
+    Pallas kernel): no wrapper launched, none ran its plain version."""
+    assert all(c == (0, 0) for c in counts.values()), (tag, counts)
+    assert len(counts) == 8, sorted(counts)
+
+
+def train_reduced(dev, arch, **overrides):
+    """The reduced arch (float32, TF32 off) trained on the card and on the
+    CPU from the same weights (the port's ``init_params``, seed 0) and the
+    same corruption (a CPU generator drives both runs' draws): one loss
+    with its gradients, then three ``make_train_step`` steps (musicgen-
+    medium with its frontend). Held as the CPU tests hold the port to the
+    reference: the loss, the steps' loss, grad_norm and lr within 1e-5
+    relative, every gradient and moment leaf within 1e-5 of its largest
+    magnitude; the parameters within 0.1·lr (Adam makes the float32 noise
+    of a gradient near zero an update of order lr: reduced zamba2-7b's
+    reach 0.029·lr on the card against 0.0012-0.0092 for the others)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import frontend_batch, synthetic_batch
+    from repro_torch.kernels import build
+    from repro_torch.params import copy_to, init_params, named_leaves, \
+        trainable
+    from repro_torch.train import loss as TL
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = reduced(get_config(arch), **overrides)
+    tc = TrainConfig(microbatches=2, loss_chunk=16, warmup_steps=2)
+
+    def batch(step, d):
+        fe = frontend_batch(cfg, 4, step, seed=2)
+        return (torch.from_numpy(synthetic_batch(cfg, 4, 16, step, seed=2))
+                .to(d), None if fe is None else torch.from_numpy(fe).to(d))
+
+    runs = []
+    build.reset_counters()
+    for d in (dev, "cpu"):
+        params = trainable(copy_to(init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"), d))
+        leaves = named_leaves(params)
+        gen = torch.Generator().manual_seed(1)
+        tokens, fe = batch(0, d)
+        loss, _ = TL.loss_fn(params, cfg, tc, tokens, gen, fe)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves],
+                                    allow_unused=True, materialize_grads=True)
+        run = dict(loss=loss.item(), grads={n: g.cpu() for (n, _), g in
+                                            zip(leaves, grads)}, steps=[])
+        opt = TO.init_opt_state(params)
+        step = make_train_step(cfg, tc, 20)
+        for s in range(3):
+            tokens, fe = batch(s, d)
+            params, opt, m = step(params, opt, tokens, gen, fe)
+            run["steps"].append({k: v.item() for k, v in m.items()})
+        run.update(params={n: t.detach().cpu() for n, t in leaves},
+                   m={n: t.cpu() for n, t in opt["m"].items()},
+                   v={n: t.cpu() for n, t in opt["v"].items()})
+        runs.append(run)
+    counts = kernel_counts()
+    card, cpu = runs
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    errs = dict(loss=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                steps=max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                          zip(card["steps"], cpu["steps"]) for k in a),
+                grads=max(rel(card["grads"][n], g)
+                          for n, g in cpu["grads"].items()),
+                m=max(rel(card["m"][n], t) for n, t in cpu["m"].items()),
+                v=max(rel(card["v"][n], t) for n, t in cpu["v"].items()),
+                params_over_lr=max(
+                    (card["params"][n] - t).abs().max().item()
+                    for n, t in cpu["params"].items()) / tc.learning_rate)
+    log(json.dumps(dict(phase="train-reduced", arch=arch, overrides=overrides,
+                        loss=card["loss"], steps=card["steps"], errs=errs)))
+    for k in ("loss", "steps", "grads", "m", "v"):
+        assert errs[k] <= TRAIN_RTOL, (arch, k, errs[k])
+    assert errs["params_over_lr"] <= 0.1, (arch, errs)
+    assert_no_kernel(counts, f"reduced {arch}")
+
+
+def loss_peak(dev, chunk, rows=4096):
+    """Allocator peak over diffusion_loss forward and backward of ``rows``
+    tokens at llada-8b's head (D 4096, V 126,464, untied, bfloat16), above
+    what was allocated before it: the head and its gradient buffer are not
+    counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_head as LM
+
+    cfg = get_config("llada-8b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g, device=dev,
+                     dtype=torch.bfloat16) * 0.02).requires_grad_()
+    h = torch.randn((1, rows, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size - 1, (1, rows), generator=g,
+                           device=dev)
+    weights = (torch.rand((1, rows), generator=g, device=dev) < 0.5).float()
+    w.grad = torch.zeros_like(w)
+    h.grad = torch.zeros_like(h)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    LM.diffusion_loss({"lm_head": w}, cfg, h, labels, weights,
+                      chunk=chunk).backward()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def train_full(dev, arch, card, resume=False, lr=None):
+    """``Trainer`` on the arch at its published widths (``TRAIN_LAYERS``
+    cuts llada-8b's depth), random bfloat16 weights from seed 0, for 5
+    steps of a global batch of 8 sequences of 2,048 tokens in 4
+    microbatches (loss chunk 2,048, warmup 2, remat on; ``lr`` in place of
+    the default learning rate). Every step's loss
+    and grad_norm finite, every parameter moved, no kernel launched. With
+    ``resume`` it checkpoints at step 3, and a second ``Trainer`` on the
+    same directory resumes there (start_step 3, one restart) and takes one
+    step. Logs each step's loss and grad_norm, the median step time of
+    steps 2-5, tokens a second, the allocator's peak beside 16 bytes a
+    parameter (bf16 weights and gradients, float32 accumulator, m and v),
+    and the model FLOPs a step (6·N·tokens plus attention's 12·L·S²·d·B,
+    recompute not counted; N leaves out an untied input embedding, a
+    lookup that does no matmul) over the median as a share of 989
+    TFLOP/s."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import build
+    from repro_torch.train.train_loop import Trainer
+
+    cfg = get_config(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
+    G, S, n_steps = 8, 2048, 5
+    tc = TrainConfig(microbatches=4, loss_chunk=2048, warmup_steps=2)
+    if lr is not None:
+        tc = dataclasses.replace(tc, learning_rate=lr)
+    ckpt_dir = os.path.join(OUT_DIR, f"train_ckpt_{arch}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    data = lambda s: synthetic_batch(cfg, G, S, s, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    tr = Trainer(cfg, tc, ckpt_dir, G, S, seed=0,
+                 ckpt_every=3 if resume else 1000, device=dev)
+    n_params = sum(t.numel() for t in tr.params.parameters())
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else tr.params["embed"]["table"].numel())
+    # a leaf's float64 sum moves when any of its elements does
+    fingerprint = lambda t: torch.sum(t.detach(), dtype=torch.float64)
+    before = {n: (fingerprint(t), t.detach().flatten()[:4096].float().std())
+              for n, t in tr.params.named_parameters()}
+    t0 = time.perf_counter()
+    logs = tr.run(n_steps, data)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_counts()
+    still = [n for n, t in tr.params.named_parameters()
+             if torch.equal(fingerprint(t), before[n][0])]
+    step_s = statistics.median(m["dt"] for m in logs[1:])
+    tokens = G * S
+    attn = (12 * cfg.n_layers * S * S * cfg.d_model * G
+            if cfg.family != "ssm" else 0)
+    flops = 6 * n_matmul * tokens + attn
+    rec = dict(phase="train", arch=arch, n_layers=cfg.n_layers,
+               dtype=cfg.dtype, global_batch=G, seq_len=S,
+               microbatches=tc.microbatches, loss_chunk=tc.loss_chunk,
+               learning_rate=tc.learning_rate, n_params=n_params,
+               n_matmul_params=n_matmul, steps=[{k: m[k] for k in (
+                   "step", "loss", "grad_norm", "lr", "dt")} for m in logs],
+               seconds=secs, median_step_s_2_5=step_s,
+               tokens_per_s=tokens / step_s, max_memory_allocated=peak,
+               reckoned_resident_bytes=16 * n_params,
+               model_flops_per_step=flops,
+               share_of_989_tflops=flops / step_s / PEAK_OPS_S[torch.bfloat16],
+               checkpoints=tr.events.checkpoints, unmoved=still,
+               disk_free_bytes=shutil.disk_usage(ckpt_dir).free, card=card)
+    assert all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in logs), logs
+    # every randomly drawn leaf moved; a constant start may sit where a
+    # step is under half its bf16 spacing (the Mamba2 D_skip starts at
+    # 1.0, spacing 2^-7): logged, not held
+    assert not [n for n in still if before[n][1] > 0], \
+        f"{arch}: weights that never moved: {still}"
+    assert_no_kernel(counts, arch)
+    if resume:
+        assert tr.events.checkpoints == 1, tr.events
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, tc, ckpt_dir, G, S, seed=0, ckpt_every=1000,
+                      device=dev)
+        rec.update(resumed_start_step=tr2.start_step,
+                   restarts=tr2.events.restarts,
+                   restore_s=time.perf_counter() - t0)
+        assert tr2.start_step == 3 and tr2.events.restarts == 1, rec
+        more = tr2.run(1, data)
+        assert math.isfinite(more[0]["loss"]), more
+        assert_no_kernel(kernel_counts(), f"{arch} resumed")
+        rec["resumed_step"] = more[0]
+        del tr2
+    else:
+        del tr
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps(rec))
+    return rec
+
+
+def train_phase(dev, card):
+    """Phase 6: the reduced card-vs-CPU steps, the C1 loss peaks, then
+    llada-8b (8 of 32 layers, with a resume) and mamba2-130m at their
+    published widths."""
+    for arch, over in (("llada-8b", {}), ("gemma2-27b", {}),
+                       ("phi3.5-moe-42b-a6.6b", {}), ("zamba2-7b", {}),
+                       ("musicgen-medium", {})):
+        train_reduced(dev, arch, **over)
+    peaks = {c: loss_peak(dev, c) for c in (2048, 4096)}
+    log(json.dumps(dict(phase="train-loss-peak", arch="llada-8b", rows=4096,
+                        peak_bytes_by_chunk=peaks, card=card)))
+    assert peaks[2048] < peaks[4096], peaks
+    for arch, resume, lr in (("llada-8b", True, None),
+                             ("llada-8b", False, 3e-5),
+                             ("mamba2-130m", False, None)):
+        rec = train_full(dev, arch, card, resume=resume, lr=lr)
+        if lr is not None:   # a tenth of the default rate descends
+            assert rec["steps"][-1]["loss"] < rec["steps"][0]["loss"], rec
+        log(f"  train {arch} x{rec['n_layers']} layers, lr "
+            f"{rec['learning_rate']:g}: losses "
+            f"{[round(m['loss'], 4) for m in rec['steps']]}, median step "
+            f"{rec['median_step_s_2_5']:.4f} s, "
+            f"{rec['tokens_per_s']:.1f} tok/s, peak "
+            f"{rec['max_memory_allocated']} B (reckoned resident "
+            f"{rec['reckoned_resident_bytes']} B), "
+            f"{rec['share_of_989_tflops']:.4f} of 989 TFLOP/s ({card})")
 
 
 def main(argv) -> int:
@@ -1799,6 +2073,10 @@ def main(argv) -> int:
         launches["flash_refresh"][f"{arch} padded prefill"] = \
             counts["flash_refresh"]
         log(f"phase prefill {arch}: {time.perf_counter() - t0:.3f} s")
+    # 6. masked-diffusion training: torch ops under autograd, no kernel
+    t0 = time.perf_counter()
+    train_phase(dev, card)
+    log(f"phase train: {time.perf_counter() - t0:.3f} s")
     launches["head_score"] = {}
     for name, r in results.items():
         r["launches"] = sum(launches[name].values())

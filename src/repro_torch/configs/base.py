@@ -3,6 +3,8 @@
 * ModelConfig  — architecture hyperparameters.
 * ServeConfig  — the paper's serving knobs (max_num_batched_tokens,
                  max_num_logits, retention ratio, block size, ...).
+* TrainConfig  — the masked-diffusion trainer's knobs (microbatches,
+                 AdamW, gradient compression, the loss chunk).
 
 Frozen dataclasses, so a config hashes and compares by value. The port keeps
 every field of the reference, including the ones it does not serve yet
@@ -173,6 +175,26 @@ class ServeConfig:
         if self.max_refresh_per_iter > 0:
             return min(self.max_slots, self.max_refresh_per_iter)
         return self.max_slots
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-substrate knobs for train_step."""
+    microbatches: int = 16               # grad-accumulation steps
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    remat: bool = True
+    zero1: bool = True                   # shard Adam moments over data axis
+                                         # (a mesh's; no effect on one device)
+    grad_compression: str = "none"       # none | bf16 | int8
+    mask_ratio_min: float = 0.1          # masked-diffusion mask schedule
+    mask_ratio_max: float = 1.0
+    loss_chunk: int = 2048               # token-axis chunk for the CE (C1 in training)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,6 +1,11 @@
-"""Model API the engine calls: parameters and the serving stages.
+"""Model API the engine and the trainer call: parameters, the serving
+stages and the training forward.
 
   * :func:`init_params` — random weights for an arch, drawn on the device.
+  * :func:`train_forward` — the full-sequence forward of the
+    masked-diffusion loss: final-normed hidden states and the MoE aux loss.
+    Torch ops under autograd, as the reference's is jnp under
+    ``value_and_grad``: no hand kernel runs on it.
   * :func:`serve_refresh` / :func:`serve_reuse` — the padded stages: a
     ``[B, S]`` batch per Refresh, a ``[B, Sb]`` block batch per Reuse (the
     oracle, and the path of the three baseline systems).
@@ -101,6 +106,33 @@ def _serve_chunk_cfg(cfg: ModelConfig, block_size: int) -> ModelConfig:
         if c != cfg.ssm_chunk:
             return dataclasses.replace(cfg, ssm_chunk=c)
     return cfg
+
+
+def train_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend=None, *, remat: bool = True):
+    """tokens [B, S] (and frontend [B, F, frontend_dim] for a frontend
+    arch) -> (final-normed hidden [B, S (+ F), D], aux). The attention
+    families run the padded ``forward_full`` at the arch's mask mode, ssm
+    the Mamba2 stack layer by layer, hybrid its groups; ``remat``
+    recomputes each layer (and each hybrid group) in backward. aux is the
+    mean MoE load-balance loss over layers, 0 elsewhere."""
+    x = embed_inputs(params, cfg, tokens, frontend)
+    B, S_len, _ = x.shape
+    positions = torch.arange(S_len, dtype=torch.int32,
+                             device=x.device).expand(B, S_len)
+    aux = 0.0
+    if cfg.family in ATTN_FAMILIES:
+        h, _, aux = T.forward_full(params["stack"], cfg, x, positions,
+                                   mask_mode=mask_mode(cfg), remat=remat)
+    elif cfg.family == "ssm":
+        h = x
+        for p in T.layer_slices(params["stack"]):
+            h = (L.remat(S.mamba_block, p, h, cfg) if remat
+                 else S.mamba_block(p, h, cfg))
+    else:
+        h, _ = HY.forward_full(params["stack"], cfg, x, positions,
+                               remat=remat)
+    return _final(params, cfg, h), aux
 
 
 class RefreshOut(NamedTuple):

@@ -46,12 +46,15 @@ def _split_groups(cfg: ModelConfig):
 
 
 def forward_full(params, cfg: ModelConfig, x, positions, *,
-                 token_valid=None, serve=None, block_start=None):
-    """Padded hybrid Refresh: the Mamba2 groups, each followed by the
-    shared block's causal ``_layer_full``, then the tail. x [B, S, D];
-    positions/token_valid [B, S]; block_start [B]. With ``serve`` every
-    layer captures its serving cache at ``block_start``. Returns (hidden
-    [B, S, D], :class:`HybridCache` or None)."""
+                 token_valid=None, serve=None, block_start=None,
+                 remat: bool = False):
+    """Padded hybrid Refresh, and the training forward: the Mamba2 groups,
+    each followed by the shared block's causal ``_layer_full``, then the
+    tail. x [B, S, D]; positions/token_valid [B, S]; block_start [B]. With
+    ``serve`` every layer captures its serving cache at ``block_start``.
+    ``remat`` (training) recomputes in backward at the reference's two
+    levels: each Mamba layer, and each group with its shared block.
+    Returns (hidden [B, S, D], :class:`HybridCache` or None)."""
     B, S_len, _ = x.shape
     if token_valid is None:
         token_valid = torch.ones((B, S_len), dtype=torch.bool,
@@ -62,22 +65,27 @@ def forward_full(params, cfg: ModelConfig, x, positions, *,
     groups, tail = _split_groups(cfg)
     states, convs, packs = [], [], []
 
+    mamba_p = T.layer_slices(mamba)
+
     def mamba_layers(x, layers):
         for l in layers:
-            p = T.layer_params(mamba, l)
             if capture is None:
-                x = S.mamba_block(p, x, cfg)
+                x = (L.remat(S.mamba_block, mamba_p[l], x, cfg) if remat
+                     else S.mamba_block(mamba_p[l], x, cfg))
                 continue
-            x, st, hi = S.mamba_block(p, x, cfg, capture_at=capture)
+            x, st, hi = S.mamba_block(mamba_p[l], x, cfg, capture_at=capture)
             states.append(st)
             convs.append(hi)
         return x
 
-    for layers in groups:
+    def group(x, layers):
         x = mamba_layers(x, layers)
-        x, packed, _ = T._layer_full(shared, x, cfg, positions, cos, sin,
-                                     False, token_valid, "causal", serve,
-                                     capture)
+        return T._layer_full(shared, x, cfg, positions, cos, sin, False,
+                             token_valid, "causal", serve, capture)
+
+    for layers in groups:
+        x, packed, _ = (L.remat(group, x, layers) if remat
+                        else group(x, layers))
         packs.append(packed)
     x = mamba_layers(x, tail)
     if serve is None:

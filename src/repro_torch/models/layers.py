@@ -9,7 +9,11 @@ back to the working dtype.
 reference. On the card it runs as plain PyTorch (einsum, softmax) except
 where ``use_kernel`` selects the ``flash_refresh`` kernel, because the
 reference computes it in jnp outside any Pallas kernel on the engine's
-path; only its ``use_kernel`` branch is a kernel there.
+path; only its ``use_kernel`` branch is a kernel there. Under autograd
+(training) each query chunk is recomputed in backward (:func:`remat`), as
+the reference's ``jax.checkpoint`` around it: the float32 ``[B, K, G, c,
+Sk]`` scores are never kept for backward. With nothing that needs a
+gradient, as on every serving path, the chunks run as plain calls.
 """
 from __future__ import annotations
 
@@ -17,11 +21,20 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 DEFAULT_Q_CHUNK = 1024
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in backward in place of
+    being kept (``jax.checkpoint``). The bodies it wraps draw no random
+    numbers, so no RNG state is stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -105,18 +118,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ok = ok & ((qp[:, :, None] - kv_pos[:, None, :]).abs() <= window)
         return ok
 
-    outs = []
-    for c0 in range(0, Sq, q_chunk):
-        qb = qg[:, c0: c0 + q_chunk]
+    def block(qb, qp, qs, k, v):   # qb [B, c, K, G, dh] -> same
         s = torch.einsum("bqkgd,bskd->bkgqs", qb, k).float() * scale
         if attn_softcap:
             s = attn_softcap * torch.tanh(s / attn_softcap)
-        ok = chunk_mask(q_pos[:, c0: c0 + q_chunk],
-                        q_seg[:, c0: c0 + q_chunk] if has_seg else None)
+        ok = chunk_mask(qp, qs)
         if ok is not None:
             s = s.masked_fill(~ok[:, None, None], -1e30)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v))
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    outs = []
+    for c0 in range(0, Sq, q_chunk):
+        args = (qg[:, c0: c0 + q_chunk], q_pos[:, c0: c0 + q_chunk],
+                q_seg[:, c0: c0 + q_chunk] if has_seg else None, k, v)
+        outs.append(remat(block, *args) if grad else block(*args))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, dh)
 
 

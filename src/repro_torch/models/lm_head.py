@@ -15,6 +15,11 @@ iteration's hidden rows
 The last two are the reference's plain jnp path (no Pallas kernel), here
 as torch ops, on the card as on the CPU. None of the three reads the
 device from the host, so each can be captured in a stage's CUDA graph.
+
+The same decomposition bounds the training loss (:func:`diffusion_loss`):
+the masked-diffusion cross-entropy runs over token-axis chunks whose
+``[chunk, V]`` logits are recomputed in backward, so neither pass holds
+the ``[T, V]`` tensor. Torch ops under autograd, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -125,3 +131,43 @@ def decode_tokens_packed(params, cfg: ModelConfig, h: torch.Tensor,
         ids[c0: c0 + chunk] = i
         conf[c0: c0 + chunk] = c
     return ids, conf
+
+
+def diffusion_loss(params, cfg: ModelConfig, h: torch.Tensor,
+                   labels: torch.Tensor, weights: torch.Tensor, *,
+                   chunk: int = 2048) -> torch.Tensor:
+    """Masked-diffusion CE, token-axis chunked (C1 applied to training):
+    ``sum(nll · w) / max(sum(w), 1)`` over h [B, S, D], labels [B, S] and
+    weights [B, S] (float; 0 where unsupervised). The B·S rows are padded
+    to a multiple of ``chunk`` and stride-chunked as in the reference
+    (chunk b takes rows ``{a·nch + b}``); each chunk's ``[chunk, V]``
+    float32 logits (softcapped where the config asks) are recomputed in
+    backward, never kept. Returns a float32 scalar."""
+    B, S, D = h.shape
+    hf = h.reshape(B * S, D)
+    lf = labels.reshape(-1)
+    wf = weights.reshape(-1).float()
+    N = B * S
+    chunk = min(chunk, N)
+    pad = (-N) % chunk
+    if pad:
+        hf = F.pad(hf, (0, 0, 0, pad))
+        lf = F.pad(lf, (0, pad))
+        wf = F.pad(wf, (0, pad))
+    nch = hf.shape[0] // chunk
+    # chunk b is column b of the [chunk, nch] row grid: a strided view
+    hc = hf.reshape(chunk, nch, D).transpose(0, 1)
+    lc = lf.reshape(chunk, nch).t()
+    wc = wf.reshape(chunk, nch).t()
+
+    def body(hb, lb, wb):
+        z = _logits(params, cfg, hb)                      # [chunk, V] f32
+        gold = z.gather(1, lb[:, None].long())[:, 0]
+        return ((torch.logsumexp(z, dim=-1) - gold) * wb).sum()
+
+    tot = wf.new_zeros(())
+    cnt = wf.new_zeros(())
+    for b in range(nch):
+        tot = tot + L.remat(body, hc[b], lc[b], wc[b])
+        cnt = cnt + wc[b].sum()
+    return tot / cnt.clamp_min(1.0)

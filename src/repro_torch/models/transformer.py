@@ -37,7 +37,7 @@ the ``T`` each stage runs (the engine's buckets), as in the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -75,8 +75,21 @@ def _check_kernel_path(serve: ServeContext, device) -> None:
 
 
 def layer_params(stack, l: int) -> Dict[str, torch.Tensor]:
-    """Layer ``l``'s slice of the stacked ``[L, ...]`` weights."""
+    """Layer ``l``'s slice of the stacked ``[L, ...]`` weights, for code
+    that visits one layer at a time with frozen weights (the serving stages
+    and decode loops). Code under autograd that walks every layer takes
+    :func:`layer_slices`."""
     return {name: t[l] for name, t in stack.items()}
+
+
+def layer_slices(stack) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's slice of the stacked ``[L, ...]`` weights, as views
+    from one ``unbind`` a tensor: under autograd each stacked weight gets
+    one gradient of its whole ``[L, ...]`` shape, where a slice a layer
+    (:func:`layer_params`) would give L zero-filled ones to sum."""
+    names = [name for name, _ in stack.items()]
+    per_name = [t.unbind(0) for _, t in stack.items()]
+    return [dict(zip(names, ts)) for ts in zip(*per_name)]
 
 
 def _qkv(p, x, cfg: ModelConfig, cos, sin):
@@ -149,11 +162,15 @@ def _layer_full(p, x, cfg: ModelConfig, positions, cos, sin,
 
 def forward_full(stack, cfg: ModelConfig, x, positions, *,
                  token_valid=None, mask_mode: str = "bidirectional",
-                 serve: Optional[ServeContext] = None, block_start=None):
-    """Padded full-sequence forward over the layer stack. x [B, S, D];
-    positions [B, S]; token_valid [B, S]; block_start [B]. With ``serve``
-    each layer selects and packs its retained KV. Returns (hidden
-    [B, S, D], PackedKV with a leading [L] axis or None, aux)."""
+                 serve: Optional[ServeContext] = None, block_start=None,
+                 remat: bool = False):
+    """Padded full-sequence forward over the layer stack: the padded
+    Refresh, and the training forward. x [B, S, D]; positions [B, S];
+    token_valid [B, S]; block_start [B]. With ``serve`` each layer selects
+    and packs its retained KV. ``remat`` (the training forward) recomputes
+    each layer in backward, as the reference checkpoints its scan body.
+    Returns (hidden [B, S, D], PackedKV with a leading [L] axis or None,
+    aux: the mean of the layers' MoE aux losses)."""
     B, S, _ = x.shape
     if token_valid is None:
         token_valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
@@ -169,10 +186,11 @@ def forward_full(stack, cfg: ModelConfig, x, positions, *,
             torch.empty((nl, B, K, ret), dtype=torch.int32, device=x.device),
             torch.empty((nl, B, K, ret), dtype=torch.bool, device=x.device))
     aux = 0.0
-    for l in range(nl):
-        x, packed, aux_l = _layer_full(
-            layer_params(stack, l), x, cfg, positions, cos, sin, flags[l],
-            token_valid, mask_mode, serve, block_start)
+    for l, p in enumerate(layer_slices(stack)):
+        args = (p, x, cfg, positions, cos, sin, flags[l], token_valid,
+                mask_mode, serve, block_start)
+        x, packed, aux_l = (L.remat(_layer_full, *args) if remat
+                            else _layer_full(*args))
         aux = aux + aux_l
         if out is not None:
             for dst, src in zip(out, packed):

@@ -19,11 +19,12 @@ The layout is the reference's (``repro.models.backbone.init_params``):
   patch or frame embeddings into the model width.
 
 Modules index like the reference's dicts (``params["stack"]["wq"]``), so
-the model code reads the same in both packages.
+the model code reads the same in both packages. Serving holds the leaves
+frozen; the trainer makes its tree :func:`trainable`.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,17 +116,21 @@ def _init(t: torch.Tensor, name: str, generator) -> torch.Tensor:
                      generator=generator)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device) -> Group:
     """Random weights by the reference's init law, drawn directly on
     ``device`` in ``cfg.dtype`` (a full-size model is never staged in host
-    float32). ``generator`` must live on ``device``."""
+    float32). ``generator`` must live on ``device``; with None the leaves
+    are left uninitialised, for a checkpoint's restore to fill."""
     dtype = DTYPES[cfg.dtype]
 
+    def leaf(shape, name):
+        t = torch.empty(shape, dtype=dtype, device=device)
+        return t if generator is None else _init(t, name, generator)
+
     def make(tree):
-        return Group({n: make(s) if isinstance(s, dict) else _init(
-            torch.empty(s, dtype=dtype, device=device), n, generator)
-            for n, s in tree.items()})
+        return Group({n: make(s) if isinstance(s, dict) else leaf(s, n)
+                      for n, s in tree.items()})
 
     return make(shapes(cfg))
 
@@ -150,6 +155,26 @@ def from_jax(tree, cfg: ModelConfig, device, dtype=None) -> Group:
                                                          dtype=dtype)
 
     return conv(tree, shapes(cfg), "")
+
+
+def tree_order(name: str) -> Tuple[str, ...]:
+    """Sort key of a dotted leaf name: the order ``jax.tree.flatten`` gives
+    the reference's nested dicts (keys sorted at every level)."""
+    return tuple(name.split("."))
+
+
+def named_leaves(tree: Group) -> List[Tuple[str, torch.Tensor]]:
+    """Every leaf of a tree with its dotted name (``stack.mamba.w_z``), in
+    :func:`tree_order`."""
+    return sorted(tree.named_parameters(), key=lambda kv: tree_order(kv[0]))
+
+
+def trainable(tree: Group) -> Group:
+    """The tree itself, its leaves now recording gradients (the trainer's
+    parameters; serving keeps them frozen)."""
+    for t in tree.parameters():
+        t.requires_grad_(True)
+    return tree
 
 
 def copy_to(tree: Group, device) -> Group:
