@@ -107,6 +107,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      finish, every kernel of the path must have launched (warmup's eager
      runs and the run's graph replays), nothing may be built after warmup,
      and no plain version may have run;
+     mesh: each of rows 1-7 on each half of the model axis at full width
+     (llada-8b's 32 heads and 126,464-column head, zamba2-7b's 112 and
+     mamba2-130m's 24 state heads; the argmax halves merged) against the
+     unsharded launch; ``launch.shard_check`` on two ranks co-located on
+     cuda:0 over gloo (eager, the kernels, float32, TF32 off): llada-8b at
+     full width cut to 8 of 32 layers at meshes (1, 2) and (2, 1) and on
+     the padded path at (1, 2), and the whole mamba2-130m at (1, 2), each
+     against the one-device serve at the same depth and dtype by the
+     tool's own law (ids, counters and the mesh's size exactly, the pool
+     by ``shard_check.pool_close``), every kernel of the path launched in
+     the one-device serve and on each rank, the ranks' collective share
+     logged, and beside llada-8b's (1, 2) the one-device serve against
+     itself with its row-parallel sums reordered (the size of float32
+     reordering alone); then llada-8b (8 layers, bfloat16) graphed on a
+     (1, 1) mesh = no mesh graphed;
   6. train: masked-diffusion training, which runs torch ops under
      autograd and no hand kernel (as the reference's runs no Pallas
      kernel): the reduced llada-8b, gemma2-27b, phi3.5-moe, zamba2-7b and
@@ -1571,6 +1586,403 @@ TRAIN_LAYERS = {"llada-8b": 8}    # of 32: its moments do not fit at full depth
 TRAIN_RTOL = 1e-5                 # tests/test_torch_train.py's tolerances
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: per-shard kernels, co-located shard checks, (1, 1) graphed
+# ---------------------------------------------------------------------------
+
+def shard_cmp(name, tag, full, parts, tol, dim, dev_calls):
+    """Each model shard's output against its slice of the unsharded one
+    (``dim`` the head axis): the max abs error over the shards, exact when
+    0; ``dev_calls`` the (unsharded, shard) calls to time, if any."""
+    n = len(parts)
+    err = max((p.float() - f.float()).abs().max().item() for p, f in
+              zip(parts, full.float().chunk(n, dim=dim)))
+    row = dict(max_abs_err=err, exact=err == 0.0, tol=tol)
+    timed = ""
+    if dev_calls is not None:
+        full_call, shard_calls = dev_calls
+        row.update(unsharded_ms=time_ms(full_call, queued=True),
+                   shard_ms=[time_ms(c, queued=True) for c in shard_calls])
+        timed = (f" unsharded_device_ms={row['unsharded_ms']:.4f} "
+                 f"shard_device_ms={[round(t, 4) for t in row['shard_ms']]}")
+    log(f"  mesh shards {name} {tag}: max_abs_err={err:.3g} (tol {tol:.3g}; "
+        f"{'exact' if err == 0 else 'not exact'}){timed}")
+    assert err <= tol, (name, tag, err)
+    return row
+
+
+def mesh_kernels(dev, g, llada, zamba, mamba, serve, results):
+    """Rows 1-7 on each half of the model axis at full width, one process:
+    the inputs sliced as ``Rules`` shards them (llada-8b's 32 query and KV
+    heads, zamba2-7b's 112 and mamba2-130m's 24 state heads, llada-8b's
+    126,464-column head), each half launched alone and held to the
+    unsharded launch. Rows 1-3, 6 and 7 in bfloat16 (1e-2; exact where a
+    head's arithmetic does not depend on the head count), row 5 in float32
+    (1e-4 of the largest output), row 4's ids and maxima exact after the
+    merge and its sums to 1e-5 relative."""
+    from repro_torch.kernels import logit_argmax as LA
+    from repro_torch.kernels import ops
+    bf, m = torch.bfloat16, 2
+    H, K, dh = llada.n_heads, llada.n_kv_heads, llada.resolved_head_dim
+    hq, hk = H // m, K // m
+    # row 1: the Refresh stream of four segments in the token bucket
+    T = serve.max_num_batched_tokens
+    seg, pos, valid = stream([256, 250, 240, 230], T - 976, dev)
+    q = torch.randn((T, H, dh), generator=g, device=dev).to(bf)
+    k = torch.randn((T, K, dh), generator=g, device=dev).to(bf)
+    v = torch.randn((T, K, dh), generator=g, device=dev).to(bf)
+
+    def fv(q, k, v):
+        return ops.flash_varlen_attention(q, k, v, seg_ids=seg, positions=pos,
+                                          kv_valid=valid)
+    shards = [(q[:, r * hq:(r + 1) * hq].contiguous(),
+               k[:, r * hk:(r + 1) * hk].contiguous(),
+               v[:, r * hk:(r + 1) * hk].contiguous()) for r in range(m)]
+    out = {"flash_varlen": shard_cmp(
+        "flash_varlen", "llada-8b H=32/2", fv(q, k, v),
+        [fv(*a) for a in shards], 1e-2, 1,
+        (lambda: fv(q, k, v), [lambda a=a: fv(*a) for a in shards]))}
+    # row 3: the same stream's keys scored by each request's block queries
+    Sb = serve.block_size
+    cu = torch.tensor([0, 256, 506, 746], device=dev)
+    rows = (cu[:, None] + 100 + torch.arange(Sb, device=dev)).long()
+    qb = q[rows]                                     # [R, Sb, H, dh]
+
+    def hs(qb, k):
+        return ops.head_score_varlen(qb, k, seg)
+    hshards = [(qb[:, :, r * hq:(r + 1) * hq], k[:, r * hk:(r + 1) * hk])
+               for r in range(m)]
+    full = hs(qb, k)
+    parts = [hs(*a) for a in hshards]
+    fin = torch.isfinite(full)
+    full, parts = (full.masked_fill(~fin, 0),
+                   [p.masked_fill(~f, 0) for p, f in
+                    zip(parts, fin.chunk(m, dim=1))])
+    out["head_score_varlen"] = shard_cmp(
+        "head_score_varlen", "llada-8b K=32/2", full, parts, 1e-2, 1,
+        (lambda: hs(qb, k), [lambda a=a: hs(*a) for a in hshards]))
+    # row 2: every slot's Reuse block against [retained ; live] keys
+    R, Cr = serve.max_slots, min(serve.retained_len,
+                                 serve.max_seq_len - Sb)
+    Tq, Tkv = R * Sb, R * (Cr + Sb)
+    qr = torch.randn((Tq, H, dh), generator=g, device=dev).to(bf)
+    kr = torch.randn((K, Tkv, dh), generator=g, device=dev).to(bf)
+    vr = torch.randn((K, Tkv, dh), generator=g, device=dev).to(bf)
+    ar = torch.arange(R, dtype=torch.int32, device=dev)
+    q_seg, kv_seg = ar.repeat_interleave(Sb), ar.repeat_interleave(Cr + Sb)
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=dev).repeat(R) + 200
+    kv_pos = torch.randint(0, 300, (K, Tkv), generator=g, device=dev,
+                           dtype=torch.int32)
+    kv_valid = torch.rand((K, Tkv), generator=g, device=dev) < 0.6
+    kv_valid.view(K, R, Cr + Sb)[:, :, Cr:] = True
+
+    def fx(q, k, v, kp, kv):
+        return ops.flash_varlen_cross_attention(
+            q, k, v, q_seg=q_seg, q_pos=q_pos, kv_seg=kv_seg, kv_pos=kp,
+            kv_valid=kv)
+    xshards = [(qr[:, r * hq:(r + 1) * hq].contiguous(),
+                kr[r * hk:(r + 1) * hk], vr[r * hk:(r + 1) * hk],
+                kv_pos[r * hk:(r + 1) * hk], kv_valid[r * hk:(r + 1) * hk])
+               for r in range(m)]
+    args = (qr, kr, vr, kv_pos, kv_valid)
+    out["flash_varlen_cross"] = shard_cmp(
+        "flash_varlen_cross", "llada-8b H=32/2", fx(*args),
+        [fx(*a) for a in xshards], 1e-2, 1,
+        (lambda: fx(*args), [lambda a=a: fx(*a) for a in xshards]))
+    # row 6: the padded Reuse's cache half, each slot's block against its
+    # retained keys (a valid key in every row)
+    q6 = torch.randn((R, Sb, H, dh), generator=g, device=dev).to(bf)
+    k6 = torch.randn((R, K, Cr, dh), generator=g, device=dev).to(bf)
+    v6 = torch.randn((R, K, Cr, dh), generator=g, device=dev).to(bf)
+    ok6 = torch.rand((R, K, 1, Cr), generator=g, device=dev) < 0.6
+    ok6[..., 0] = True
+
+    def pf(q, k, v, ok):
+        return ops.packed_flash_attention(q, k, v, ok)
+    pshards = [(q6[:, :, r * hq:(r + 1) * hq].contiguous(),
+                k6[:, r * hk:(r + 1) * hk], v6[:, r * hk:(r + 1) * hk],
+                ok6[:, r * hk:(r + 1) * hk]) for r in range(m)]
+    args6 = (q6, k6, v6, ok6)
+    out["packed_flash_attention"] = shard_cmp(
+        "packed_flash_attention", "llada-8b H=32/2", pf(*args6),
+        [pf(*a) for a in pshards], 1e-2, 2,
+        (lambda: pf(*args6), [lambda a=a: pf(*a) for a in pshards]))
+    # row 7: the padded full-sequence attention, two sequences of 2048
+    # (the second padded from 1900)
+    S7 = 2048
+    q7 = torch.randn((2, S7, H, dh), generator=g, device=dev).to(bf)
+    k7 = torch.randn((2, S7, K, dh), generator=g, device=dev).to(bf)
+    v7 = torch.randn((2, S7, K, dh), generator=g, device=dev).to(bf)
+    p7 = torch.arange(S7, dtype=torch.int32, device=dev).expand(2, S7)
+    ok7 = p7 < torch.tensor([[S7], [1900]], device=dev)
+
+    def fr(q, k, v):
+        return ops.flash_refresh_attention(
+            q, k, v, q_pos=p7, kv_pos=p7, kv_valid=ok7,
+            mask_mode="bidirectional", window=0, is_local=False, softcap=0.0)
+    rshards = [(q7[:, :, r * hq:(r + 1) * hq], k7[:, :, r * hk:(r + 1) * hk],
+                v7[:, :, r * hk:(r + 1) * hk]) for r in range(m)]
+    out["flash_refresh"] = shard_cmp(
+        "flash_refresh", "llada-8b H=32/2", fr(q7, k7, v7),
+        [fr(*a) for a in rshards], 1e-2, 2,
+        (lambda: fr(q7, k7, v7), [lambda a=a: fr(*a) for a in rshards]))
+    del q6, k6, v6, q7, k7, v7
+    # row 5: the SSD scan over each half of the state heads, float32
+    lens = [256, 250, 240, 230]
+    seg5, pos5, _ = stream(lens, T - sum(lens), dev)
+    cap = torch.tensor([199, 256 + 95, 506 + 231, 746 + 7],
+                       dtype=torch.int32, device=dev)
+    for c in (zamba, mamba):
+        Hs, P, N = c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        xh = torch.randn((T, Hs, P), generator=g, device=dev)
+        dt = 0.01 + torch.rand((T, Hs), generator=g, device=dev)
+        A = -torch.ones(Hs, device=dev)
+        Bm = torch.randn((T, N), generator=g, device=dev)
+        Cm = torch.randn((T, N), generator=g, device=dev)
+        reset = pos5 == 0
+
+        h2 = Hs // m
+        sargs = [(xh[:, r * h2:(r + 1) * h2].contiguous(),
+                  dt[:, r * h2:(r + 1) * h2].contiguous(),
+                  A[r * h2:(r + 1) * h2].contiguous()) for r in range(m)]
+        yf, sf = ops.ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap)
+        got = [ops.ssm_segment_scan(*a, Bm, Cm, reset, cap) for a in sargs]
+        scale = max(1.0, yf.abs().max().item(), sf.abs().max().item())
+        tag = f"{c.name} Hs={Hs}/2"
+        row = shard_cmp(
+            "ssm_segment_scan", tag + " y", yf, [y for y, _ in got],
+            1e-4 * scale, 1,
+            (lambda: ops.ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap),
+             [lambda a=a: ops.ssm_segment_scan(*a, Bm, Cm, reset, cap)
+              for a in sargs]))
+        st = shard_cmp("ssm_segment_scan", tag + " states", sf,
+                       [s for _, s in got], 1e-4 * scale, 1, None)
+        row["max_abs_err"] = max(row["max_abs_err"], st["max_abs_err"])
+        row["exact"] = row["exact"] and st["exact"]
+        out[f"ssm_segment_scan {c.name}"] = row
+    # row 4: each half of llada-8b's [D, V] head, then the merge
+    D, V = llada.d_model, llada.vocab_size
+    Tl = serve.max_num_logits
+    h = torch.randn((Tl, D), generator=g, device=dev).to(bf)
+    w = torch.empty((D, V), device=dev, dtype=bf).normal_(0, 0.02,
+                                                          generator=g)
+    ok = torch.ones(Tl, dtype=torch.bool, device=dev)
+    halves = [w[:, r * (V // m):(r + 1) * (V // m)].contiguous()
+              for r in range(m)]
+    idx, mx, s = LA.fused_logit_argmax_call(h, w, ok)
+    parts = [LA.fused_logit_argmax_call(h, wh, ok) for wh in halves]
+    gid, gm, gs = ops.merge_vocab_shards(
+        torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+        torch.stack([p[2] for p in parts]), V // m)
+    assert torch.equal(gid, idx), "merged argmax ids differ"
+    assert torch.equal(gm, mx), "merged maxima differ"
+    err_s = ((gs - s).abs() / s).max().item()
+    assert err_s <= 1e-5, err_s
+    t_full = time_ms(lambda: LA.fused_logit_argmax_call(h, w, ok),
+                     queued=True)
+    t_half = [time_ms(lambda wh=wh: LA.fused_logit_argmax_call(h, wh, ok),
+                      queued=True) for wh in halves]
+    out["fused_logit_argmax"] = dict(
+        ids_equal=True, max_equal=True, max_abs_err=err_s, tol=1e-5,
+        exact=err_s == 0.0, unsharded_ms=t_full, shard_ms=t_half)
+    log(f"  mesh shards fused_logit_argmax llada-8b V=126464/2 T={Tl}: ids "
+        f"and maxima equal after the merge, sums max_rel_err={err_s:.3g} "
+        f"(tol 1e-5) unsharded_device_ms={t_full:.4f} shard_device_ms="
+        f"{[round(t, 4) for t in t_half]}")
+    for name, row in out.items():
+        results[name.split(" ")[0]].setdefault("mesh_shards", {})[
+            name.split(" ", 1)[1] if " " in name else "llada-8b"] = row
+
+
+def reorder_witness(dev, cfg, seed: int = 0, n: int = 5) -> dict:
+    """What reordering float32 sums alone does to the shard check's pool
+    at this width and depth: the one-device serve of ``shard_check``'s
+    trace (its serve config with the kernels, its weights from ``seed``)
+    against the same serve with every row-parallel contraction turned by
+    half (the query and KV heads, ``wo``'s heads and the MLP's ``d_ff``
+    units rolled: the same function in exact arithmetic, other float32
+    sums; the pool's KV heads rolled back before comparing). The mesh's
+    pool difference is read beside it."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.kv_pool import tree_leaves
+    from repro_torch.launch import shard_check as SC
+    from repro_torch.launch.mesh import SimMesh
+    from repro_torch.launch.sharding import Rules, spec_axes, spec_leaves
+    from repro_torch.params import init_params
+    import numpy as np
+    serve = SC.serve_config(True, True, False)
+    prompts = SC.trace_prompts(cfg, n, seed)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    roll = {"wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1, "wo": 1,
+            "w_gate": 2, "w_up": 2, "w_down": 1}
+    retain = min(serve.retained_len, serve.max_seq_len - serve.block_size)
+    spec = Rules(cfg, SimMesh((1, 2)), train=False).cache(
+        serve.max_slots + 1, retain, data_parallel=False,
+        slot_data_parallel=True)
+    heads = ["model" in spec_axes(sp[2]) for sp in spec_leaves(spec)]
+    out = []
+    for turned in (False, True):
+        if turned:
+            for name, t in params["stack"].items():
+                if name in roll:
+                    d = roll[name]
+                    t.copy_(torch.roll(t, t.shape[d] // 2, dims=d))
+        eng = Engine(cfg, serve, params=params, seed=seed, device=dev,
+                     graphs=False)
+        reqs = [eng.submit(p, gen_len=16, arrival=0.0, rid=i)
+                for i, p in enumerate(prompts)]
+        eng.run()
+        pool = [t.float() for t in tree_leaves(eng.pool.full_cache())]
+        if turned:
+            pool = [torch.roll(t, -t.shape[2] // 2, dims=2) if h else t
+                    for t, h in zip(pool, heads)]
+        out.append(([r.output_tokens() for r in reqs], pool))
+        del eng, reqs
+    (ids_a, pool_a), (ids_b, pool_b) = out
+    err, mag = 0.0, 0.0
+    for a, b in zip(pool_a, pool_b):
+        e = (a - b).abs().max().item()
+        if e > err:
+            err, mag = e, a.abs().max().item()
+    close = all(SC.pool_close(a.cpu().numpy(), b.cpu().numpy())
+                for a, b in zip(pool_a, pool_b))
+    del params, pool_a, pool_b
+    torch.cuda.empty_cache()
+    return dict(ids_equal=all(np.array_equal(np.asarray(a), np.asarray(b))
+                              for a, b in zip(ids_a, ids_b)),
+                pool_max_err=err, pool_max_abs=mag, pool_close=close)
+
+
+def mesh_phase(dev, serve, card, launches, results):
+    """Mesh serving on the one card: (1) the per-shard kernels; (2) the
+    shard-check tool on two ranks co-located on cuda:0 over gloo (eager,
+    the kernel paths, float32, TF32 off): llada-8b at full width cut to 8
+    of its 32 layers at meshes (1, 2) and (2, 1) and on the padded path at
+    (1, 2), and the whole mamba2-130m at (1, 2), each against the
+    one-device serve at the same depth and dtype (the tool's own law: ids,
+    counters and the mesh's size exactly, the pool by ``pool_close``),
+    every kernel of the path launched in the one-device serve and on each
+    rank; beside llada-8b's (1, 2) the one-device reordering witness; (3)
+    llada-8b (8 layers, bfloat16) graphed on a (1, 1) mesh against no mesh
+    graphed: ids, counters and launches identical. Each part's seconds are
+    logged."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shard_check as SC
+    llada, zamba = get_config("llada-8b"), get_config("zamba2-7b")
+    mamba = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(24)
+    mesh_kernels(dev, g, llada, zamba, mamba, serve, results)
+    del g
+    log(f"  mesh part kernels: {time.perf_counter() - t0:.3f} s")
+    llada8 = dataclasses.replace(llada, n_layers=8, dtype="float32")
+    mamba32 = dataclasses.replace(mamba, dtype="float32")
+    for arch, cfg, mesh, varlen, kernels in (
+            ("llada-8b", llada8, (1, 2), True, DENSE_KERNELS),
+            ("llada-8b", llada8, (2, 1), True, DENSE_KERNELS),
+            ("llada-8b", llada8, (1, 2), False, BASELINE_KERNELS),
+            ("mamba2-130m", mamba32, (1, 2), True,
+             ("ssm_segment_scan", "fused_logit_argmax"))):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = SC.check(arch, mesh, varlen=varlen, kernels=True,
+                       device="cuda", colocate=True, cfg=cfg)
+        path = "" if varlen else "_padded"
+        tag = f"{arch} mesh {mesh[0]}x{mesh[1]}{path.replace('_', ' ')}"
+        with open(os.path.join(OUT_DIR, f"shard_check_{arch}_{mesh[0]}x"
+                               f"{mesh[1]}{path}.json"), "w") as f:
+            json.dump(rec, f, indent=2)
+        share = [c / max(s, 1e-9) for c, s in zip(rec["rank_collective_s"],
+                                                   rec["rank_serve_s"])]
+        log(json.dumps(dict(
+            phase="mesh shard_check", arch=arch, n_layers=cfg.n_layers,
+            dtype=cfg.dtype, mesh=mesh, varlen=varlen, ok=rec["ok"],
+            diffs=rec["diffs"], pool_max_err=rec["pool_max_err"],
+            pool_max_abs=rec["pool_max_abs"],
+            mesh_devices=rec["mesh_devices"], stats=rec["stats"],
+            one_device_s=rec["one_device_s"], mesh_s=rec["mesh_s"],
+            rank_serve_s=rec["rank_serve_s"],
+            rank_collective_s=rec["rank_collective_s"],
+            rank_collectives=rec["rank_collectives"],
+            collective_share=share, card=card,
+            seconds=time.perf_counter() - t0)))
+        assert rec["ok"], (tag, rec["diffs"])
+        runs = [rec["one_device_launches"]] + rec["rank_launches"]
+        for name in kernels:
+            assert all(r[name][0] > 0 for r in runs), (tag, name, runs)
+            launches[name][tag] = sum(r[name][0] for r in runs)
+        assert all(c[1] == 0 for r in runs for c in r.values()), runs
+        if arch == "llada-8b" and mesh == (1, 2) and varlen:
+            t0 = time.perf_counter()
+            wit = reorder_witness(dev, cfg)
+            log(json.dumps(dict(
+                phase="mesh reorder witness", arch=arch,
+                n_layers=cfg.n_layers, dtype=cfg.dtype, **wit,
+                mesh_pool_max_err=rec["pool_max_err"],
+                mesh_pool_max_abs=rec["pool_max_abs"], card=card,
+                seconds=time.perf_counter() - t0)))
+    t0 = time.perf_counter()
+    mesh_1x1_graphed(dev, serve)
+    log(f"  mesh part 1x1 graphed: {time.perf_counter() - t0:.3f} s")
+
+
+def mesh_1x1_graphed(dev, serve):
+    """llada-8b at 8 layers (bfloat16) under dllm-serve with the kernels,
+    graphed, on the modeled clock: a (1, 1) mesh against no mesh on the
+    same weights, ids, counters, vtime and launches (warmup and run)
+    identical."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.baselines import system_profiles
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import build
+    from repro_torch.params import init_params
+    cfg = dataclasses.replace(get_config("llada-8b"), n_layers=8)
+    sv = dataclasses.replace(system_profiles(serve)["dllm-serve"],
+                             use_flash_kernel=True, logit_mode="fused",
+                             max_refresh_per_iter=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, int(rng.integers(16, 96)))
+               for _ in range(8)]
+    out = []
+    for mesh in (None, (1, 1)):
+        build.reset_counters()
+        eng = Engine(cfg, dataclasses.replace(sv, mesh_shape=mesh),
+                     params=params, clock="modeled", device=dev, graphs=True)
+        eng.warmup()
+        reqs = [eng.submit(p, gen_len=32, arrival=0.0, rid=i)
+                for i, p in enumerate(prompts)]
+        st = eng.run()
+        torch.cuda.synchronize()
+        out.append(dict(tokens=[r.tokens.copy() for r in reqs],
+                        counters={k: getattr(st, k) for k in GRAPH_COUNTERS},
+                        vtime=eng.vtime, launches=kernel_counts(),
+                        replays=sum(st.graph_replays.values()),
+                        mesh_devices=eng.mesh_devices))
+        del eng, reqs
+    a, b = out
+    same = all(np.array_equal(x, y) for x, y in zip(a["tokens"],
+                                                    b["tokens"]))
+    log(json.dumps(dict(phase="mesh 1x1 graphed", ids_equal=same,
+                        counters_equal=a["counters"] == b["counters"],
+                        vtime_equal=a["vtime"] == b["vtime"],
+                        launches_equal=a["launches"] == b["launches"],
+                        replays=b["replays"], mesh_devices=b["mesh_devices"],
+                        launches={n: c for n, (c, _) in b["launches"].items()
+                                  if c})))
+    assert same and a["counters"] == b["counters"] and a["vtime"] == b["vtime"]
+    assert a["launches"] == b["launches"] and b["replays"] > 0
+    assert b["mesh_devices"] == 1
+    del params
+    torch.cuda.empty_cache()
+
+
 def assert_no_kernel(counts, tag):
     """The training path runs no hand kernel (the reference's runs no
     Pallas kernel): no wrapper launched, none ran its plain version."""
@@ -2073,6 +2485,11 @@ def main(argv) -> int:
         launches["flash_refresh"][f"{arch} padded prefill"] = \
             counts["flash_refresh"]
         log(f"phase prefill {arch}: {time.perf_counter() - t0:.3f} s")
+    # mesh serving on the one card: per-shard kernels, two co-located
+    # ranks over gloo, a (1, 1) mesh graphed
+    t0 = time.perf_counter()
+    mesh_phase(dev, serve, card, launches, results)
+    log(f"phase mesh: {time.perf_counter() - t0:.3f} s")
     # 6. masked-diffusion training: torch ops under autograd, no kernel
     t0 = time.perf_counter()
     train_phase(dev, card)

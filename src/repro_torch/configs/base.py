@@ -7,9 +7,8 @@
                  AdamW, gradient compression, the loss chunk).
 
 Frozen dataclasses, so a config hashes and compares by value. The port keeps
-every field of the reference, including the ones it does not serve yet
-(mesh, sharing, int8 KV): the engine raises on those, so
-a config means the same thing in both packages.
+every field of the reference, so a config means the same thing in both
+packages.
 """
 from __future__ import annotations
 
@@ -163,6 +162,17 @@ class ServeConfig:
         for d in self.mesh_shape or ():
             n *= d
         return n
+
+    @property
+    def mesh_model(self) -> int:
+        """Size of the tensor-parallel (``model``) axis: the trailing mesh
+        dim."""
+        return self.mesh_shape[-1] if self.mesh_shape else 1
+
+    @property
+    def mesh_data(self) -> int:
+        """The data-parallel axis: every leading mesh dim together."""
+        return self.mesh_devices // self.mesh_model
 
     @property
     def retained_len(self) -> int:

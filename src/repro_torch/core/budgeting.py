@@ -11,10 +11,13 @@ coupling, reproduced by arithmetic rather than hard-coded.
 Byte counts come from shapes alone: the parameter tree of
 ``repro_torch.params.shapes`` and the slot pool's own cache geometry
 (:func:`_slot_cache_shapes`), each leaf billed in the dtype the engine keeps
-it in. One device: the reference's per-device sums over its sharding rules
-reduce to plain sums. Mesh serving is not ported, and the profiler raises
-on it rather than bill something else. The memory multipliers are the
-reference's: int8 ``kv_quant`` bills the KV leaves at one byte an element
+it in. Under ``ServeConfig.mesh_shape`` every term is per device, as in
+the reference: weights and slot bytes follow the ``launch.sharding.Rules``
+specs (over a :class:`~repro_torch.launch.mesh.SimMesh`, so any mesh is
+planned from one process), the logit and backbone reservations shrink
+with the vocabulary, FFN and heads the model axis divides, and the slot
+count is per data replica times ``mesh_data``. The memory multipliers are
+the reference's: int8 ``kv_quant`` bills the KV leaves at one byte an element
 plus a float32 scale per (layer, slot), and ``prefix_sharing`` multiplies
 the physical slots by the trace's measured ``share_factor``.
 
@@ -31,7 +34,6 @@ reservation, held against the budget the plan was given.
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
@@ -45,28 +47,53 @@ def dtype_bytes(dtype: str) -> int:
     return _BYTES[dtype]
 
 
-def _require_one_device(serve: ServeConfig) -> None:
-    """The profiler bills one device; a mesh raises (the engine raises on
-    it too)."""
-    if serve.mesh_shape is not None:
-        raise NotImplementedError(
-            "plan_memory: mesh serving is not ported yet (ROADMAP Queue A, "
-            "'multi-GPU')")
+def _tp_div(n: int, m: int) -> int:
+    """Shard count the model axis gives a dimension of size ``n``: ``m`` on
+    exact division (the ``Rules.div`` law), else 1."""
+    return m if m > 1 and n and n % m == 0 and n >= m else 1
 
 
-def _tree_elems(tree) -> int:
+def _sharded_bytes(mesh, shape, spec, itemsize: int,
+                   quant: bool = False) -> int:
+    """Per-device bytes of one leaf: each dimension divided (ceil) by the
+    combined size of the mesh axes its spec entry names. An int8-quantized
+    leaf is one byte an element plus its ``[L, B]`` float32 scale, billed
+    whole (the cache rules never shard those two axes within a slot)."""
+    from repro_torch.launch.sharding import spec_axes
+    total = 1 if quant else itemsize
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        shards = 1
+        for a in spec_axes(entry):
+            shards *= mesh.shape[a]
+        total *= -(-dim // shards)
+    if quant:
+        total += shape[0] * shape[1] * 4
+    return total
+
+
+def _shape_leaves(tree) -> list:
+    """The shape leaves of a ``params.shapes`` tree, in ``spec_leaves``
+    order (sorted keys)."""
     if isinstance(tree, dict):
-        return sum(_tree_elems(t) for t in tree.values())
-    return math.prod(tree)
+        return [s for k in sorted(tree) for s in _shape_leaves(tree[k])]
+    return [tuple(tree)]
 
 
 @functools.lru_cache(maxsize=None)
-def weight_bytes_per_device(cfg: ModelConfig) -> int:
-    """Parameter bytes of the one device: every leaf of
-    ``params.shapes(cfg)`` in ``cfg.dtype`` (the dtype ``init_params``
-    draws them in)."""
+def weight_bytes_per_device(cfg: ModelConfig, mesh_shape=None) -> int:
+    """Parameter bytes of one device under the serving placement
+    (``Rules.params``, serve time) of ``mesh_shape`` (None: one device):
+    every leaf of ``params.shapes(cfg)`` in ``cfg.dtype``, the dtype
+    ``init_params`` draws them in."""
+    from repro_torch.launch.mesh import SimMesh
+    from repro_torch.launch.sharding import Rules, spec_leaves
     from repro_torch.params import shapes
-    return _tree_elems(shapes(cfg)) * dtype_bytes(cfg.dtype)
+    mesh = SimMesh(tuple(mesh_shape) if mesh_shape else (1, 1))
+    tree = shapes(cfg)
+    specs = spec_leaves(Rules(cfg, mesh, train=False).params(tree))
+    b = dtype_bytes(cfg.dtype)
+    return sum(_sharded_bytes(mesh, shape, spec, b)
+               for shape, spec in zip(_shape_leaves(tree), specs))
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -97,10 +124,10 @@ def logit_exec_tokens(serve: ServeConfig, n_logit_tokens: int) -> int:
 def logit_activation_bytes(cfg: ModelConfig, serve: ServeConfig,
                            n_logit_tokens: int) -> int:
     """Peak bytes of the output-projection stage under each C1 mode, billed
-    by executed rows (the engine's bucketing, not the real count)."""
-    _require_one_device(serve)
+    by executed rows (the engine's bucketing, not the real count).
+    Vocab-parallel under a mesh: a device holds its ``[n, V/m]`` shard."""
     n_exec = logit_exec_tokens(serve, n_logit_tokens)
-    V = cfg.vocab_size
+    V = cfg.vocab_size // _tp_div(cfg.vocab_size, serve.mesh_model)
     if serve.logit_mode == "monolithic":
         return n_exec * V * 4           # the full [N, V] float32 logits
     if serve.logit_mode == "chunked":
@@ -142,19 +169,23 @@ def _slot_cache_shapes(cfg: ModelConfig, serve: ServeConfig, retain: int):
 def kv_slot_bytes(cfg: ModelConfig, serve: ServeConfig) -> int:
     """Static per-request cache region (§4.5): the bytes of one slot at the
     engine's retained length ``min(retained_len, max_seq_len -
-    block_size)``. Under int8 ``kv_quant`` the quantized leaves are billed
-    at one byte an element plus their ``[L, 1]`` float32 scale."""
-    _require_one_device(serve)
+    block_size)``, per device under a mesh by the pool's own
+    ``Rules.cache`` specs (KV heads over ``model``, else the retained
+    length; SSM states over their heads; nothing over ``data`` within a
+    slot). Under int8 ``kv_quant`` the quantized leaves are billed at one
+    byte an element plus their ``[L, 1]`` float32 scale."""
+    from repro_torch.launch.mesh import SimMesh
+    from repro_torch.launch.sharding import Rules, spec_leaves
     retain = min(serve.retained_len,
                  max(1, serve.max_seq_len - serve.block_size))
+    mesh = SimMesh(serve.mesh_shape or (1, 1))
+    specs = spec_leaves(Rules(cfg, mesh, train=False).cache(
+        1, retain, data_parallel=False))
     int8 = serve.kv_quant == "int8"
-    total = 0
-    for shape, dt, quant in _slot_cache_shapes(cfg, serve, retain):
-        if int8 and quant:
-            total += math.prod(shape) + shape[0] * shape[1] * 4
-        else:
-            total += math.prod(shape) * dtype_bytes(dt)
-    return total
+    return sum(_sharded_bytes(mesh, shape, spec, dtype_bytes(dt),
+                              quant=int8 and quant)
+               for (shape, dt, quant), spec in zip(
+                   _slot_cache_shapes(cfg, serve, retain), specs))
 
 
 def can_pack_tokens(cfg: ModelConfig) -> bool:
@@ -203,18 +234,22 @@ def reuse_exec_tokens(serve: ServeConfig, cfg: ModelConfig) -> int:
 
 def backbone_activation_bytes(cfg: ModelConfig, serve: ServeConfig) -> int:
     """Workspace for attention and MLP over the widest stage's executed
-    tokens, double-buffered."""
-    _require_one_device(serve)
+    tokens, double-buffered. Under a mesh the FFN hidden and the heads
+    shrink by the model axis where it divides them; the ``[T, 3D]`` stream
+    stays whole."""
+    m = serve.mesh_model
     T = max(max_exec_tokens(serve, cfg), reuse_exec_tokens(serve, cfg))
-    width = max(cfg.d_ff, cfg.n_heads * cfg.resolved_head_dim,
+    width = max(cfg.d_ff // _tp_div(cfg.d_ff, m),
+                cfg.n_heads * cfg.resolved_head_dim
+                // _tp_div(cfg.n_heads, m),
                 3 * cfg.d_model)
     return T * width * dtype_bytes(serve.dtype) * 2
 
 
 @dataclass(frozen=True)
 class MemoryPlan:
-    """The reference's plan, field for field (one device: ``mesh_devices``
-    1)."""
+    """The reference's plan, field for field: bytes per device, slots
+    global."""
     weights_bytes: int
     activation_bytes: int       # reserved (incl. the logit stage's mode)
     logit_bytes: int
@@ -254,18 +289,21 @@ def plan_memory(cfg: ModelConfig, serve: ServeConfig, hbm_bytes: int,
     ``serve.prefix_sharing`` on, every physical slot backs that many
     logical residents on average, so the plan multiplies capacity before
     the cap. int8 ``serve.kv_quant`` instead shrinks ``slot_bytes``, so
-    more physical slots fit outright."""
-    _require_one_device(serve)
-    weights = weight_bytes_per_device(cfg)
+    more physical slots fit outright. Under a mesh ``hbm_bytes`` is one
+    device's memory, and the pool's slot axis shards over ``data``: the
+    slots are each replica's times ``mesh_data``."""
+    weights = weight_bytes_per_device(cfg, serve.mesh_shape)
     logit = logit_activation_bytes(cfg, serve, serve.max_num_batched_tokens)
     act = backbone_activation_bytes(cfg, serve) + logit
     guard = int(hbm_bytes * guard_band)
     slot = kv_slot_bytes(cfg, serve)
     pool = max(0, hbm_bytes - weights - act - guard)
-    phys = pool // slot if slot else serve.max_slots
+    replicas = max(1, serve.mesh_data)
+    phys = replicas * (pool // slot) if slot else serve.max_slots
     share = share_factor if serve.prefix_sharing else 1.0
     slots = min(serve.max_slots, int(phys * share))
     return MemoryPlan(weights, act, logit, slot, pool, int(slots),
+                      mesh_devices=serve.mesh_devices,
                       phys_slots=int(min(serve.max_slots, phys)),
                       share_factor=share, kv_quant=serve.kv_quant)
 
@@ -328,20 +366,26 @@ class DeviceBill:
 def bill_device(plan: MemoryPlan, hbm_bytes: int, slots: int,
                 slot_bytes: int, graph_pool_bytes: int = 0,
                 staging_bytes: int = 0,
-                logit_peak: "int | None" = None) -> DeviceBill:
+                logit_peak: "int | None" = None,
+                pool_rows: "int | None" = None) -> DeviceBill:
     """The bill of a serve of ``slots`` slots of ``slot_bytes`` each (the
     engine's pool, ``KVPool.slot_bytes``) planned by ``plan`` on
     ``hbm_bytes``: the plan's weights and activation reservation, with
     ``logit_peak`` (a measured logit-stage peak, ``measure_logit_peak``)
     in place of the plan's ``logit_bytes`` when given, plus the pool, the
-    captured graphs' pool and the staging bytes."""
+    captured graphs' pool and the staging bytes. On a mesh the bill is one
+    device's: ``plan`` and ``slot_bytes`` are per device, and
+    ``pool_rows`` is the rows of the pool that device holds (default
+    ``slots + 1``, the scratch slot's included)."""
     act = plan.activation_bytes
     if logit_peak is not None:
         act += int(logit_peak) - plan.logit_bytes
     return DeviceBill(
         budget_bytes=hbm_bytes - int(hbm_bytes * GUARD_BAND),
         weights_bytes=plan.weights_bytes,
-        kv_pool_bytes=int(slot_bytes) * (slots + 1), activation_bytes=act,
+        kv_pool_bytes=int(slot_bytes) * (slots + 1 if pool_rows is None
+                                         else pool_rows),
+        activation_bytes=act,
         graph_pool_bytes=int(graph_pool_bytes),
         staging_bytes=int(staging_bytes), slot_bytes=int(slot_bytes),
         slots=slots, plan_kv_pool_bytes=plan.slot_bytes * slots)

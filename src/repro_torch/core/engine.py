@@ -41,8 +41,22 @@ reference's plain jnp path, in torch ops. Every family the port registers
 (dense, moe, ssm, hybrid, and the modality frontends vlm and audio) serves
 on both paths. A frontend arch's requests carry ``frontend_len`` projected
 rows ahead of their text: every Refresh spans ``F + text`` rows, and block
-and Reuse positions count the prefix. Mesh serving raises
-``NotImplementedError`` (ROADMAP Queue A).
+and Reuse positions count the prefix.
+
+Mesh serving (``ServeConfig.mesh_shape = (data, model)``), as the
+reference's, for the dense, frontend and scan families: one engine a rank
+of ``launch.mesh.spawn``, each holding its shard of the weights
+(``launch.sharding.Rules.params``) and of the slot pool
+(``Rules.cache``: slots over ``data``, heads or retained length over
+``model``). The stages run tensor-parallel over ``model`` (local heads,
+FFN hidden, inner width and vocabulary; ``layers.tp_sum`` after each
+row-parallel product) and replicate the streams over ``data``. Every
+rank plans the same iterations: the host state is identical, and on the
+wall clock rank 0's ``now`` is broadcast once an iteration. The kernels'
+divisibility law is checked before any group is built
+(``kernel_partition_plan``); an MoE arch, int8 slots and gloo ranks asked
+to capture graphs on the card raise. A ``(1, 1)`` mesh builds no group and
+is bit-identical to no mesh.
 
 Robustness and the memory multipliers, as in the reference:
 
@@ -100,11 +114,12 @@ from repro_torch.core.scheduler import make_scheduler
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as OPS
 from repro_torch.kernels.flash_varlen import PAD_SEG
+from repro_torch.launch import mesh as M
 from repro_torch.models import backbone as BB
 from repro_torch.models import layers as L
 from repro_torch.models import lm_head as LM
 from repro_torch.models import transformer as T
-from repro_torch.params import init_params
+from repro_torch.params import init_params, shard_cut, shard_params
 
 
 @dataclass(frozen=True)
@@ -249,9 +264,25 @@ class _Pending:
     log_row: dict
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A, "
-                               f"'{item}')")
+def _check_mesh_config(cfg: ModelConfig, serve: ServeConfig) -> None:
+    """What a mesh cannot serve raises before any group or device is
+    touched: a kernel dimension the model axis does not divide
+    (``kernel_partition_plan``), int8 slots (the reference's reason), and
+    an MoE arch (expert parallelism, ROADMAP A5b)."""
+    if serve.mesh_model > 1 and (serve.use_flash_kernel
+                                 or serve.logit_mode == "fused"):
+        from repro_torch.launch.sharding import kernel_partition_plan
+        kernel_partition_plan(cfg, serve)
+    if serve.kv_quant != "none":
+        raise NotImplementedError(
+            "kv_quant='int8' is not yet composed with mesh serving — "
+            "the quantized pool's scale leaves need their own "
+            "Rules.cache-derived placement (see docs/memory.md)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh needs expert parallelism (moe_impl='ep') "
+            f"and the serve-time fsdp_always expert stacks, which are not "
+            f"ported yet (ROADMAP A5b)")
 
 
 def _pow2s(hi: int) -> List[int]:
@@ -321,7 +352,7 @@ class Engine:
             raise ValueError(f"ServeConfig.kv_quant must be 'none' or "
                              f"'int8', got {serve.kv_quant!r}")
         if serve.mesh_shape is not None:
-            raise _not_ported("mesh serving", "multi-GPU")
+            _check_mesh_config(cfg, serve)
         self.device = devices.resolve(device)
         if self.device.type == "cuda" and not serve.use_flash_kernel:
             raise ValueError(
@@ -337,13 +368,41 @@ class Engine:
         self.model = device_model or DeviceModel()
         self.vtime = 0.0
         self._n_params = cfg.n_active_params()
+        # the serving mesh (None without one): this rank's, built by
+        # launch.mesh.spawn; a one-device mesh in process, with no group
+        self.mesh = M.serving_mesh(serve.mesh_shape, self.device)
+        self.mesh_devices = self.mesh.size if self.mesh is not None else 1
+        if self.mesh is not None and self.mesh.staged and graphs:
+            raise ValueError(
+                "ranks co-located on one GPU talk over gloo, whose "
+                "collectives run on host tensors and cannot be captured in "
+                "a CUDA graph: build the engine with graphs=False")
+        rules = cut = None
+        if self.mesh is not None:
+            from repro_torch.launch.sharding import Rules
+            rules = Rules(cfg, self.mesh, train=False)
+            cut = shard_cut(rules, self.mesh)
         if params is None:
+            # each leaf drawn whole (the one-device stream) and cut to this
+            # rank's shard before the next is drawn
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, self.device)
-        self.params = params
-        self.mask_id = diffusion.mask_token_id(cfg.vocab_size)
+            params = init_params(cfg, gen, self.device, cut=cut)
         retain = min(serve.retained_len,
                      serve.max_seq_len - serve.block_size)
+        pool_spec, self._pool_pad = None, 0
+        if self.mesh is not None:
+            params = shard_params(params, rules, self.mesh)
+            # the pool's slot axis shards over data: pad it to a multiple
+            self._pool_pad = (-(serve.max_slots + 1)) % serve.mesh_data
+            pool_spec = rules.cache(
+                serve.max_slots + 1 + self._pool_pad, retain,
+                data_parallel=False, slot_data_parallel=True)
+            self.mesh.kernel_dims = dict(
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                ssm_heads=cfg.ssm_heads if cfg.ssm_state else 0,
+                vocab_size=cfg.vocab_size)
+        self.params = params
+        self.mask_id = diffusion.mask_token_id(cfg.vocab_size)
         self.ctx = T.ServeContext(
             block_size=serve.block_size, retain=retain,
             kernel_size=serve.kernel_size, selection=serve.selection,
@@ -358,11 +417,25 @@ class Engine:
         # the synthetic frontend payloads, drawn in submit order as the
         # reference's engine draws them
         self._rng = np.random.default_rng(seed)
-        self.mesh_devices = 1
         self.scheduler = make_scheduler(serve)
         self.pool = KVPool(serve.max_slots, self.device,
                            sharing=serve.prefix_sharing,
-                           kv_quant=serve.kv_quant)
+                           kv_quant=serve.kv_quant, mesh=self.mesh,
+                           spec=pool_spec, pad_slots=self._pool_pad)
+        # the modeled clock's credit for the mesh, the reference's: the
+        # model axis splits the share of the weights it really shards (1.0
+        # when nothing divides), the data axis carries mesh_data replica
+        # streams of the slot pool
+        self._tp_work_split = 1.0
+        if serve.mesh_model > 1:
+            from repro_torch.core.budgeting import weight_bytes_per_device
+            self._tp_work_split = (
+                weight_bytes_per_device(cfg, None)
+                / max(1, weight_bytes_per_device(cfg,
+                                                 (1, serve.mesh_model))))
+        self._dp_work_split = (float(serve.mesh_data)
+                               if self.mesh is not None
+                               and serve.mesh_data > 1 else 1.0)
         self._sharing = serve.prefix_sharing
         # the scheduler drives the pool's take/free ledger and consumes the
         # fault plan's allocation faults and memory-pressure steals
@@ -382,8 +455,9 @@ class Engine:
 
     @property
     def work_split(self) -> float:
-        """Modeled work division across devices: 1.0 on one device."""
-        return 1.0
+        """Modeled work division across the mesh: the model axis's share
+        times the data axis's replica streams (1.0 on one device)."""
+        return self._tp_work_split * self._dp_work_split
 
     @property
     def kernels_active(self) -> bool:
@@ -622,6 +696,9 @@ class Engine:
                 now = self.vtime
             else:
                 now = (time.perf_counter() - start) / time_scale
+                if self.mesh is not None:
+                    # every rank plans the iteration rank 0 plans
+                    now = self.mesh.broadcast_float(now)
             prep = self._begin_iteration(now)
             if pending is not None:
                 # the plan above was built while the previous dispatch was

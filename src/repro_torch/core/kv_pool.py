@@ -36,9 +36,25 @@ stored quantized with per-(layer, slot) float32 scales
 {leaf: [L, slots+1]}}``. :meth:`write` quantizes, :meth:`gather` returns
 that quantized view, and the Reuse entries dequantize at their KV load
 (``kernels.ops.dequantize_gathered``).
+
+On a serving mesh (``mesh`` and the pool's ``Rules.cache`` ``spec``, as the
+reference's sharded pool): the slot axis, padded by ``pad_slots`` to a
+multiple of the data axis, shards over ``data`` (data rank i holds rows
+``[i·n, (i+1)·n)``, plus one sink row that absorbs the writes of rows it
+does not own), and within a slot the KV heads or SSM state heads are the
+rank's own (the stage computes them per shard), while a retained length
+the spec shards over ``model`` (KV heads that do not divide) is cut from
+the whole cache the stage computed. :meth:`write` stores only this rank's
+rows and shard; :meth:`gather` returns every requested row on every data
+rank (each owner contributes its rows, then one ``all_reduce`` over
+``data``: exact, every other rank adds zeros) and ``all_gather``s a cut
+retained length over ``model``; a promote copy between rows of different
+data ranks travels the same way. The slot ledger stays on the host,
+identical on every rank.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -58,6 +74,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_map_i(fn: Callable, tree):
+    """:func:`tree_map` with ``fn(i, leaf)`` at the ``i``-th leaf."""
+    index = itertools.count()
+    return tree_map(lambda leaf: fn(next(index), leaf), tree)
+
+
 def tree_map(fn: Callable, tree):
     """The same tree with ``fn`` applied to every leaf, in
     :func:`tree_leaves` order."""
@@ -72,10 +94,13 @@ def tree_map(fn: Callable, tree):
 
 class KVPool:
     def __init__(self, max_slots: int, device, sharing: bool = False,
-                 kv_quant: str = "none"):
+                 kv_quant: str = "none", mesh=None, spec=None,
+                 pad_slots: int = 0):
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"KVPool: kv_quant must be 'none' or 'int8', "
                              f"got {kv_quant!r}")
+        if mesh is not None and kv_quant != "none":
+            raise NotImplementedError("KVPool: int8 slots on a mesh")
         self.max_slots = max_slots
         self.scratch_slot = max_slots
         self.device = torch.device(device)
@@ -87,6 +112,46 @@ class KVPool:
         self._dtypes = None        # pre-quantization leaf dtypes (by index)
         self._free = set(range(max_slots))
         self._gen = np.zeros(max_slots + 1, np.int64)
+        self._layout(mesh, spec, pad_slots)
+
+    def _layout(self, mesh, spec, pad_slots: int) -> None:
+        """The mesh layout: rows this data rank owns, and per leaf the
+        dimension cut over ``model`` from the stage's whole cache (None:
+        none) and whether its head axis (2) is the rank's own."""
+        self.mesh = mesh
+        d = mesh.shape["data"] if mesh is not None else 1
+        rows = self.max_slots + 1 + pad_slots
+        if rows % d:
+            raise ValueError(f"KVPool: {rows} rows do not divide the "
+                             f"{d}-way data axis")
+        self._dsplit = d > 1
+        self._n_loc = rows // d
+        self._lo = (mesh.index("data") if d > 1 else 0) * self._n_loc
+        self._cut: List[Optional[int]] = []
+        self._head_split: List[bool] = []
+        if mesh is not None and mesh.shape["model"] > 1:
+            from repro_torch.launch.sharding import spec_axes, spec_leaves
+            for sp in spec_leaves(spec):
+                named = [i for i, e in enumerate(sp)
+                         if "model" in spec_axes(e)]
+                self._cut.append(next((i for i in named if i != 2), None))
+                self._head_split.append(2 in named)
+
+    def _owned(self, idx: torch.Tensor):
+        """(owned mask, local row) of global slot indices; rows another
+        data rank owns map to the sink row."""
+        own = (idx >= self._lo) & (idx < self._lo + self._n_loc)
+        return own, torch.where(own, idx - self._lo,
+                                torch.full_like(idx, self._n_loc))
+
+    def _cut_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the ``i``-th leaf of a stage's cache."""
+        dim = self._cut[i] if self._cut else None
+        if dim is None:
+            return t
+        m = self.mesh.shape["model"]
+        n = t.shape[dim] // m
+        return t.narrow(dim, self.mesh.index("model") * n, n)
 
     # -- slot lifecycle ----------------------------------------------------
     @property
@@ -140,11 +205,16 @@ class KVPool:
         """Allocate the pool from the first Refresh output's shapes."""
         if self.cache is not None:
             return
-        n = self.max_slots + 1
+        n = self._n_loc + 1 if self._dsplit else self.max_slots + 1
 
         def alloc(c, dtype=None):
             return torch.zeros((c.shape[0], n) + tuple(c.shape[2:]),
                                dtype=dtype or c.dtype, device=self.device)
+
+        if self.mesh is not None:
+            self.cache = tree_map_i(lambda i, c: alloc(self._cut_leaf(i, c)),
+                                    cache_example)
+            return
 
         if self.kv_quant == "int8":
             from repro_torch.kernels import kv_quant as KQ
@@ -165,10 +235,17 @@ class KVPool:
 
     def slot_bytes(self) -> int:
         """Device bytes one slot takes across the pool's leaves (int8 data
-        and its scales included); 0 before the pool exists."""
+        and its scales included; on a mesh, this device's shard of it); 0
+        before the pool exists."""
         if self.cache is None:
             return 0
         return sum(t.nbytes // t.shape[1] for t in tree_leaves(self.cache))
+
+    @property
+    def rows(self) -> int:
+        """Rows of the pool this device holds: every slot and the scratch
+        slot, or on a data axis its share and the sink row."""
+        return self._n_loc + 1 if self._dsplit else self.max_slots + 1
 
     @property
     def gathered_dtypes(self):
@@ -188,6 +265,13 @@ class KVPool:
         entries (padding rows, deduplicated rows) race, harmlessly."""
         self.ensure(cache)
         idx = self._index(slots)
+        if self.mesh is not None:
+            if self._dsplit:
+                idx = self._owned(idx)[1]
+            for i, (dst, src) in enumerate(zip(tree_leaves(self.cache),
+                                               tree_leaves(cache))):
+                dst.index_copy_(1, idx, self._cut_leaf(i, src))
+            return
         if self.kv_quant == "int8":
             from repro_torch.kernels import kv_quant as KQ
             cache, scales = KQ.quantize_slot_leaves(cache)
@@ -203,13 +287,47 @@ class KVPool:
         """The rows of ``slots`` (physical rows: see :meth:`resolve`); the
         quantized view ``{"data", "scale"}`` under int8."""
         idx = self._index(slots)
-        return tree_map(lambda t: t.index_select(1, idx), self.cache)
+        if self.mesh is None:
+            return tree_map(lambda t: t.index_select(1, idx), self.cache)
+        mesh = self.mesh
+        if self._dsplit:
+            own, li = self._owned(idx)
+
+            def rows(t):
+                r = t.index_select(1, li)
+                mask = own.view((1, -1) + (1,) * (t.dim() - 2))
+                return mesh.all_reduce(r.masked_fill(~mask, 0), "data")
+        else:
+            def rows(t):
+                return t.index_select(1, idx)
+
+        def leaf(i, t):
+            r = rows(t)
+            dim = self._cut[i] if self._cut else None
+            return r if dim is None else mesh.all_gather(r, "model", dim=dim)
+        return tree_map_i(leaf, self.cache)
+
+    def full_cache(self):
+        """Every slot of the pool (the scratch slot's included), whole, on
+        every rank: what one device's pool holds. A collective on a
+        mesh."""
+        cache = self.gather(list(range(self.max_slots + 1)))
+        if self.mesh is None or not self._head_split:
+            return cache
+        return tree_map_i(
+            lambda i, t: self.mesh.all_gather(t, "model", dim=2)
+            if self._head_split[i] else t, cache)
 
     def clear_slot(self, slot: int) -> None:
         """Zero one slot in every leaf (the scratch slot after warmup)."""
-        if self.cache is not None:
-            for t in tree_leaves(self.cache):
-                t[:, slot].zero_()
+        if self.cache is None:
+            return
+        if self._dsplit:
+            if not self._lo <= slot < self._lo + self._n_loc:
+                return
+            slot -= self._lo
+        for t in tree_leaves(self.cache):
+            t[:, slot].zero_()
 
     # -- sharing -----------------------------------------------------------
     def _copy_row(self, src: int, dst: int) -> None:
@@ -219,8 +337,30 @@ class KVPool:
         the pool exists (it holds no bytes to preserve then)."""
         if self.cache is None:
             return
+        if self._dsplit:
+            self._copy_row_across(src, dst)
+            return
         for t in tree_leaves(self.cache):
             t.narrow(1, dst, 1).copy_(t.narrow(1, src, 1))
+
+    def _copy_row_across(self, src: int, dst: int) -> None:
+        """:meth:`_copy_row` on a data-sharded pool: a copy within one
+        data rank's rows stays local; across ranks the source row reaches
+        the destination's owner through an ``all_reduce`` over ``data``
+        (every other rank adds zeros), which every rank joins."""
+        lo, n = self._lo, self._n_loc
+        src_own, dst_own = src // n, dst // n
+        me = self.mesh.index("data")
+        for t in tree_leaves(self.cache):
+            if src_own == dst_own:
+                if me == src_own:
+                    t.narrow(1, dst - lo, 1).copy_(t.narrow(1, src - lo, 1))
+                continue
+            row = (t.narrow(1, src - lo, 1) if me == src_own
+                   else torch.zeros_like(t.narrow(1, 0, 1)))
+            row = self.mesh.all_reduce(row, "data")
+            if me == dst_own:
+                t.narrow(1, dst - lo, 1).copy_(row)
 
     def warm_aux(self) -> None:
         """Run the promote copy once (scratch -> scratch, content

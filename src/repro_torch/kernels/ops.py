@@ -1,9 +1,17 @@
-"""Model-layer wrappers around the kernels (``repro/kernels/ops.py`` without
-the mesh branches).
+"""Model-layer wrappers around the kernels (``repro/kernels/ops.py``).
 
 Each adapts the model's ``[T, H, dh]`` tensors to its kernel's head-major
 layout (GQA rows token-major: row = t·G + g, query head h = k·G + g) and
 back, in the caller's dtype.
+
+Under a serving mesh whose model axis is m > 1 every wrapper runs its
+kernel on this rank's shard, as the reference's ``shard_map`` does: the
+attention and head-score kernels on the local ``H/m`` query and ``K/m`` KV
+heads, the SSD scan on the local ``Hs/m`` state heads, the fused argmax on
+the local ``V/m`` columns, whose ``(index, max, sum)`` then merge across
+the model group (:func:`merge_vocab_shards`). Each wrapper enforces the
+reference's divisibility law on the global dimensions it shards
+(``launch.mesh.require_divisible``), as the engine does up front.
 """
 from __future__ import annotations
 
@@ -15,22 +23,59 @@ from repro_torch.kernels import flash_varlen as FV
 from repro_torch.kernels import logit_argmax as LA
 from repro_torch.kernels import select_pack as SP
 from repro_torch.kernels import ssm_scan as SS
+from repro_torch.launch import mesh as M
+
+_HEADS = ("n_heads", "n_kv_heads")
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def merge_vocab_shards(ids, mx, s, v_local: int):
+    """The cross-shard reduce of the vocab-parallel argmax (the reference's
+    ``_sharded_logit_argmax``): ``ids``/``mx``/``s`` ``[n, T]`` hold each
+    of n shards' local argmax, max and sum of ``exp(z - max)``, shard r
+    owning columns ``[r·v_local, (r+1)·v_local)``. Returns the global
+    index (the lowest among the shards that reach the max, as one device
+    breaks ties), the max, and ``Σ s·exp(m - m_max)``, each ``[T]``."""
+    n = ids.shape[0]
+    off = torch.arange(n, device=ids.device, dtype=torch.int64)[:, None]
+    gids = ids.long() + off * v_local
+    m_max = mx.amax(dim=0)
+    big = torch.iinfo(torch.int64).max
+    gid = torch.where(mx == m_max, gids, big).amin(dim=0)
+    tot = (s * torch.exp(mx - m_max)).sum(dim=0)
+    return gid.to(torch.int32), m_max, tot
+
+
+def gather_vocab_shards(mesh, ids, mx, s, v_local: int):
+    """:func:`merge_vocab_shards` over the model group: one ``all_gather``
+    of the three ``[T]`` vectors (as int32 bits), then the merge, the same
+    on every rank."""
+    packed = torch.stack([ids.to(torch.int32), mx.float().view(torch.int32),
+                          s.float().view(torch.int32)])
+    allp = mesh.stack_gather(packed, "model")               # [m, 3, T]
+    return merge_vocab_shards(allp[:, 0], allp[:, 1].view(torch.float32),
+                              allp[:, 2].view(torch.float32), v_local)
+
+
 def fused_logit_argmax(h, w, *, softcap: float = 0.0, w_layout: str = "dv",
                        valid=None):
     """h [T, D]; w [D, V] ("dv") or [V, D] ("vd", tied table) ->
     (ids [T] int32, conf [T] f32). Paper C1, fused. Invalid rows of a
-    token-bucketed stream decode to (0, 0.0)."""
+    token-bucketed stream decode to (0, 0.0). Under a model axis > 1, w is
+    this rank's ``V/m`` columns and the result is the global one."""
+    M.require_divisible("fused logit argmax", "vocab_size")
     T = h.shape[0]
     vld = (torch.ones((T,), dtype=torch.bool, device=h.device)
            if valid is None else valid.contiguous())
-    ids, _, s = LA.fused_logit_argmax_call(
+    ids, mx, s = LA.fused_logit_argmax_call(
         h.contiguous(), w, vld, softcap=softcap, w_layout=w_layout)
+    mesh = M.tp()
+    if mesh is not None:
+        v_local = w.shape[1] if w_layout == "dv" else w.shape[0]
+        ids, mx, s = gather_vocab_shards(mesh, ids, mx, s, v_local)
     conf = 1.0 / s.clamp_min(1e-30)
     if valid is not None:
         ids = torch.where(valid, ids, torch.zeros_like(ids))
@@ -43,6 +88,7 @@ def flash_varlen_attention(q, k, v, *, seg_ids, positions, kv_valid,
                            softcap: float = 0.0, causal: bool = False):
     """Ragged attention over a token-packed stream. q [T, H, dh];
     k/v [T, K, dh]; seg_ids/positions [T]; kv_valid [T] -> [T, H, dh]."""
+    M.require_divisible("flash varlen attention", *_HEADS)
     T, H, dh = q.shape
     K = k.shape[1]
     G = H // K
@@ -63,6 +109,7 @@ def flash_varlen_cross_attention(q, k, v, *, q_seg, q_pos, kv_seg, kv_pos,
     """Packed-Reuse cross attention. q [Tq, H, dh] packed block queries;
     k/v [K, Tkv, dh] head-major KV stream; q_seg/q_pos [Tq]; kv_seg [Tkv];
     kv_pos/kv_valid [K, Tkv] -> [Tq, H, dh]."""
+    M.require_divisible("flash varlen cross attention", *_HEADS)
     Tq, H, dh = q.shape
     K = k.shape[0]
     G = H // K
@@ -81,6 +128,7 @@ def packed_flash_attention_stats(qr, k_all, v_all, ok, *,
     padded Reuse. qr [B, K, R, dh] (rows sb·G + g); k_all/v_all
     [B, K, T, dh]; ok [B, K, Sm, T] bool (Sm = Sb, or 1) -> (o f32
     UNNORMALISED [B, K, R, dh], m [B, K, R], s [B, K, R])."""
+    M.require_divisible("packed flash attention", *_HEADS)
     return FA.packed_flash_attention_call(
         qr.contiguous(), k_all.contiguous(), v_all.contiguous(),
         ok.contiguous(), softcap=softcap)
@@ -107,6 +155,7 @@ def flash_refresh_attention(q, k, v, *, q_pos, kv_pos, kv_valid, mask_mode,
     """Padded full-sequence attention (the Refresh prefill), the
     model-layer contract of ``layers.attention``: q [B, S, H, dh]; k/v
     [B, S, K, dh]; q_pos/kv_pos [B, S]; kv_valid [B, S] -> [B, S, H, dh]."""
+    M.require_divisible("flash refresh attention", *_HEADS)
     B, S, H, dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -126,6 +175,7 @@ def head_score(q_block, k_full):
     """q_block [B, Sb, H, dh]; k_full [B, S, K, dh] -> [B, K, S] f32 raw
     (pre-maxpool) importance scores of a padded batch. The kernel reads
     k_full in place, as its [B, K, S, dh] view."""
+    M.require_divisible("head score", *_HEADS)
     B, Sb, H, dh = q_block.shape
     K = k_full.shape[2]
     G = H // K
@@ -138,6 +188,7 @@ def head_score_varlen(q_block, k_flat, seg_ids):
     """q_block [R, Sb, H, dh]; k_flat [T, K, dh]; seg_ids [T] ->
     [R, K, T] f32 raw scores (-inf off-segment). The kernel reads k_flat in
     place, as its [K, T, dh] view."""
+    M.require_divisible("head score varlen", *_HEADS)
     R, Sb, H, dh = q_block.shape
     K = k_flat.shape[1]
     G = H // K
@@ -155,6 +206,7 @@ def ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap_rows, *, chunk: int = 64):
     [T, N]; reset [T] bool (True on each request's first token); cap_rows
     [R] flat row AFTER which request r's state is captured (-1: zero).
     Returns (y [T, H, P] f32, captured [R, H, P, N] f32)."""
+    M.require_divisible("ssm segment scan", "ssm_heads")
     T = xh.shape[0]
     ct = min(chunk, T)
     while T % ct:

@@ -35,8 +35,15 @@ entry is captured as a CUDA graph in warmup and replayed (the engine's
 ``compile_counts`` counts the entries built (captures, on the card), and the
 JSON adds ``graph_replays`` (replays per entry) and ``graph_pool_bytes``
 (the captured graphs' shared memory pool; 0 without graphs). Keys whose
-feature the port does not have yet carry the reference's "off" value:
-``mesh_devices=1``.
+feature the port does not have carry the reference's "off" value.
+
+Mesh serving, as the reference's launcher: ``--mesh d,m`` (or
+``REPRO_MESH=d,m``; ``--mesh none`` forces one device) serves on a
+``(data, model)`` mesh, one rank a device (``launch.mesh.spawn``: NCCL on
+the card, one GPU a rank; gloo on the CPU), each sized and billed per
+device; rank 0's JSON carries ``mesh_shape`` and ``mesh_devices``. A mesh
+larger than the visible GPUs raises ``ValueError`` before any rank starts.
+The NCCL arrangement is unverified: no run of it has had two GPUs.
 
 The device bill (``core.budgeting.bill_device``): after warmup a profiler-
 sized serve bills what it holds on the card — the plan's weights, the
@@ -75,7 +82,7 @@ import gc
 import json
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -89,6 +96,7 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.request import State
 from repro_torch.data.workloads import (make_trace, prefix_share_factor,
                                         trace_prompts)
+from repro_torch.launch import mesh as M
 
 
 # the paper's Table 3 geometry, at which the profiler plans every run
@@ -113,9 +121,9 @@ def profile_slots(full_cfg, serve: ServeConfig, max_slots: int, hbm_gb: int,
 
 def device_bill(eng: Engine, plan, full_cfg, hbm_bytes: int):
     """The bill of a warmed engine against the plan that sized it: its
-    slot pool, graph pool and staging bytes, and for an eager engine on
-    the card the measured logit peak of its C1 mode at the plan
-    geometry."""
+    slot pool (on a mesh, the rows this device holds), graph pool and
+    staging bytes, and for an eager engine on the card the measured logit
+    peak of its C1 mode at the plan geometry."""
     peak = None
     if eng.device.type == "cuda" and not eng.graphs.capture:
         plan_serve = dataclasses.replace(eng.serve, **PLAN_GEOMETRY)
@@ -126,7 +134,7 @@ def device_bill(eng: Engine, plan, full_cfg, hbm_bytes: int):
                        eng.pool.slot_bytes(),
                        graph_pool_bytes=eng.graphs.pool_bytes(),
                        staging_bytes=eng.graphs.staging_bytes(),
-                       logit_peak=peak)
+                       logit_peak=peak, pool_rows=eng.pool.rows)
 
 
 def fit_to_budget(build, serve: ServeConfig, plan, full_cfg,
@@ -191,13 +199,23 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
               pipeline: bool = True,
               stream: bool = False,
               device: str = "cuda",
-              n_layers: Optional[int] = None) -> dict:
-    """The reference's ``run_serve`` on the port, with its defaults, and
-    without the option of a feature not ported yet (mesh); ``device`` picks
-    where the engine runs; ``n_layers`` cuts the arch's depth (what is
-    served and what the profiler plans). A profiler-sized serve is billed
-    on the device after warmup, and re-sized or refused when it does not
-    fit."""
+              n_layers: Optional[int] = None,
+              mesh_shape: Optional[Tuple[int, ...]] = None) -> dict:
+    """The reference's ``run_serve`` on the port, with its defaults;
+    ``device`` picks where the engine runs; ``n_layers`` cuts the arch's
+    depth (what is served and what the profiler plans). A profiler-sized
+    serve is billed on the device after warmup, and re-sized or refused
+    when it does not fit. ``mesh_shape`` serves on a ``(data, model)``
+    mesh: the call spawns one rank a device, each runs this function, and
+    rank 0's result comes back."""
+    if mesh_shape:
+        mesh_shape = tuple(int(d) for d in mesh_shape)
+        M.check_devices(mesh_shape, device)
+        if mesh_shape[0] * mesh_shape[-1] > 1 and M.active() is None:
+            kw = dict(locals())         # every argument of this call
+            return M.spawn(_serve_rank, mesh_shape, device, kw)[0]
+        if M.active() is not None:
+            device = M.active().device
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -211,7 +229,8 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
         max_slots=max_slots, max_refresh_per_iter=4,
         queue_cap=queue_cap, queue_policy=queue_policy,
         preempt_starvation_s=preempt_starvation_s,
-        prefix_sharing=prefix_sharing, kv_quant=kv_quant, pipeline=pipeline)
+        prefix_sharing=prefix_sharing, kv_quant=kv_quant, pipeline=pipeline,
+        mesh_shape=mesh_shape or None)
     serve = system_profiles(base)[system]
     if kernels:
         serve = dataclasses.replace(serve, use_flash_kernel=True,
@@ -352,6 +371,11 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
     )
 
 
+def _serve_rank(mesh, kw: dict) -> dict:
+    """One rank of a mesh serve: :func:`run_serve` on the rank's device."""
+    return run_serve(**kw)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llada-8b", choices=list_archs())
@@ -397,6 +421,9 @@ def main():
     ap.add_argument("--stream", action="store_true",
                     help="print a commit event per request at each "
                          "iteration's sync")
+    ap.add_argument("--mesh", default="env",
+                    help="serving mesh: 'd,m', 'none', or 'env' "
+                         "(REPRO_MESH, else none); one rank a device")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     res = run_serve(args.arch, args.system, args.workload, args.rps, args.n,
@@ -408,7 +435,8 @@ def main():
                     kernels=True if args.kernels else None,
                     prefix_sharing=args.sharing, kv_quant=args.kv_quant,
                     clock=args.clock, pipeline=not args.no_pipeline,
-                    stream=args.stream, device=args.device)
+                    stream=args.stream, device=args.device,
+                    mesh_shape=M.parse_mesh(args.mesh))
     print(json.dumps(res, indent=2))
     if args.out:
         with open(args.out, "w") as f:

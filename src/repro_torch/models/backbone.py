@@ -63,7 +63,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B, S] (and frontend [B, F, frontend_dim] for a frontend
     arch) -> [B, S, D], or [B, F + S, D] with the projected prefix rows
     first."""
-    x = LM.embed_tokens(params["embed"], tokens)
+    x = LM.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     if cfg.frontend_dim:
         x = torch.cat([_project_frontend(params, cfg, frontend, x.dtype), x],
                       dim=1)
@@ -82,7 +82,7 @@ def embed_inputs_packed(params, cfg: ModelConfig, flat_tokens: torch.Tensor,
     into a row after the stream, which is cut off, as the reference's
     ``mode="drop"`` drops them: a bucket-exact stream's real tail is never
     overwritten. No host read, so the stage can be captured."""
-    x = LM.embed_tokens(params["embed"], flat_tokens)
+    x = LM.embed_tokens(params["embed"], flat_tokens, cfg.vocab_size)
     if not cfg.frontend_dim:
         return x
     T_len, D = x.shape
@@ -184,7 +184,7 @@ def serve_reuse(params, cfg: ModelConfig, block_tokens, block_positions,
                 cache, serve: T.ServeContext) -> torch.Tensor:
     """Padded Reuse: block_tokens/block_positions [B, Sb] against the
     gathered caches (batch axis B). Returns final-normed [B, Sb, D]."""
-    xb = LM.embed_tokens(params["embed"], block_tokens)
+    xb = LM.embed_tokens(params["embed"], block_tokens, cfg.vocab_size)
     if cfg.family in ATTN_FAMILIES:
         h = T.forward_block(params["stack"], cfg, xb, block_positions,
                             cache, serve=serve, mask_mode=mask_mode(cfg))
@@ -201,8 +201,9 @@ def _ssm_refresh(stack, cfg: ModelConfig, x, seg_ids, positions, cu_seqlens,
     """The Mamba2 stack over a packed stream -> (hidden, SSMCache); the
     scan in its kernel under ``use_kernel``, else in the plain fallback."""
     R = cu_seqlens.shape[0]
-    state = torch.empty((cfg.n_layers, R, cfg.ssm_heads, cfg.ssm_head_dim,
-                         cfg.ssm_state), dtype=torch.float32, device=x.device)
+    state = torch.empty((cfg.n_layers, R, S.local_heads(stack, cfg),
+                         cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=x.device)
     conv = torch.empty((cfg.n_layers, R, cfg.ssm_conv_kernel - 1,
                         S.conv_channels(cfg)), dtype=x.dtype, device=x.device)
     for l in range(cfg.n_layers):
@@ -271,7 +272,8 @@ def serve_reuse_packed(params, cfg: ModelConfig, flat_tokens, flat_positions,
     Sb = serve.block_size
     Tq = flat_tokens.shape[0]
     R = Tq // Sb
-    xb = LM.embed_tokens(params["embed"], flat_tokens.reshape(R, Sb))
+    xb = LM.embed_tokens(params["embed"], flat_tokens.reshape(R, Sb),
+                         cfg.vocab_size)
     if cfg.family in ATTN_FAMILIES:
         h = T.forward_block_packed(params["stack"], cfg, xb,
                                    flat_positions.reshape(R, Sb), cache,

@@ -112,9 +112,10 @@ def forward_full_packed(params, cfg: ModelConfig, x, positions, seg_ids,
     mamba, shared = params["mamba"], params["shared"]
     groups, tail = _split_groups(cfg)
     R, dev = cu_seqlens.shape[0], x.device
-    K, dh, ret = cfg.n_kv_heads, cfg.resolved_head_dim, serve.retain
-    state = torch.empty((cfg.n_layers, R, cfg.ssm_heads, cfg.ssm_head_dim,
-                         cfg.ssm_state), dtype=torch.float32, device=dev)
+    K, dh, ret = T.kv_heads(shared), cfg.resolved_head_dim, serve.retain
+    state = torch.empty((cfg.n_layers, R, S.local_heads(mamba, cfg),
+                         cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=dev)
     conv = torch.empty((cfg.n_layers, R, cfg.ssm_conv_kernel - 1,
                         S.conv_channels(cfg)), dtype=x.dtype, device=dev)
     ng = len(groups)

@@ -14,6 +14,12 @@ path; only its ``use_kernel`` branch is a kernel there. Under autograd
 the reference's ``jax.checkpoint`` around it: the float32 ``[B, K, G, c,
 Sk]`` scores are never kept for backward. With nothing that needs a
 gradient, as on every serving path, the chunks run as plain calls.
+
+Tensor parallelism on a serving mesh is explicit where the reference leaves
+it to GSPMD: a rank holds its shard of each weight (``params.shard_params``)
+and the model code calls :func:`tp_sum` after each row-parallel product
+and :func:`tp_gather` where a sharded activation must be whole. Off a mesh,
+or on a model axis of one, both are the identity.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 
 DEFAULT_Q_CHUNK = 1024
 
@@ -35,6 +42,25 @@ def remat(fn, *args):
     numbers, so no RNG state is stashed."""
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model axis: the output of a row-parallel
+    product (``wo``, ``w_down``, ``out_proj``, a vocab-sharded lookup)."""
+    mesh = M.tp()
+    return x if mesh is None else mesh.all_reduce(x, "model")
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's shard of ``x`` along ``dim``, whole, in rank order."""
+    mesh = M.tp()
+    return x if mesh is None else mesh.all_gather(x, "model", dim=dim)
+
+
+def tp_index() -> int:
+    """This rank's index on the model axis (0 off a mesh)."""
+    mesh = M.tp()
+    return 0 if mesh is None else mesh.index("model")
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

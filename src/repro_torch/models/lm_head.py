@@ -16,6 +16,13 @@ The last two are the reference's plain jnp path (no Pallas kernel), here
 as torch ops, on the card as on the CPU. None of the three reads the
 device from the host, so each can be captured in a stage's CUDA graph.
 
+Vocab-parallel on a serving mesh, in all three modes: a rank holds ``V/m``
+rows of the table (and columns of an untied head), decodes its local
+``[N, V/m]`` logits to a local ``(index, max, sum)`` and merges them
+across the model group (``kernels.ops.gather_vocab_shards``); the full
+``[N, V]`` never gathers. The embedding looks up the rank's rows and sums
+over the model axis.
+
 The same decomposition bounds the training loss (:func:`diffusion_loss`):
 the masked-diffusion cross-entropy runs over token-axis chunks whose
 ``[chunk, V]`` logits are recomputed in backward, so neither pass holds
@@ -30,11 +37,24 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 
 
-def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["table"])
+def embed_tokens(params, tokens: torch.Tensor,
+                 vocab_size: int = 0) -> torch.Tensor:
+    """Rows of the table for ``tokens``. A table of fewer than
+    ``vocab_size`` rows is this rank's vocab shard: ids outside it look up
+    zeros, and the model axis sums the ranks' rows (exact: one rank holds
+    each id)."""
+    table = params["table"]
+    Vl = table.shape[0]
+    if not vocab_size or Vl == vocab_size:
+        return F.embedding(tokens.long(), table)
+    local = tokens.long() - L.tp_index() * Vl
+    mine = (local >= 0) & (local < Vl)
+    x = F.embedding(local.clamp(0, Vl - 1), table)
+    return L.tp_sum(x.masked_fill(~mine[..., None], 0))
 
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -58,11 +78,18 @@ def logits_monolithic(params, cfg: ModelConfig,
 def _decode_chunk_jnp(params, cfg: ModelConfig,
                       h_chunk) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's plain chunk decode: argmax and its softmax
-    probability."""
+    probability; over the rank's vocab shard, merged across the model
+    axis, when the head is sharded."""
     z = _logits(params, cfg, h_chunk)
-    ids = z.argmax(dim=-1).to(torch.int32)
-    conf = torch.exp(z.amax(dim=-1) - torch.logsumexp(z, dim=-1))
-    return ids, conf
+    if z.shape[-1] == cfg.vocab_size:
+        ids = z.argmax(dim=-1).to(torch.int32)
+        conf = torch.exp(z.amax(dim=-1) - torch.logsumexp(z, dim=-1))
+        return ids, conf
+    mx = z.amax(dim=-1)
+    s = torch.exp(z - mx[:, None]).sum(dim=-1)
+    ids, mx, s = ops.gather_vocab_shards(
+        M.tp(), z.argmax(dim=-1).to(torch.int32), mx, s, z.shape[-1])
+    return ids, torch.exp(mx - (mx + torch.log(s)))
 
 
 def _head(params, cfg: ModelConfig):

@@ -14,6 +14,14 @@
 * :func:`mamba_decode_block` — **Reuse**: the active block's ``Sb`` tokens
   run recurrently from the cached state (float32), without advancing the
   cache. Plain PyTorch, as it is plain jnp in the reference.
+
+On a serving mesh whose model axis divides the state heads, ``w_z`` and
+``out_proj`` hold this rank's ``d_inner/m`` (``launch.sharding.Rules``);
+``w_xbc`` and ``w_dt`` stay whole, so each rank computes the whole conv
+stream and ``dt`` and takes its state heads of ``x``, ``dt`` and ``A`` for
+the scan (B and C are read whole: one group). The gate norm's mean square
+sums over the model axis before the scale, and ``out_proj``'s partial
+output sums over it too.
 """
 from __future__ import annotations
 
@@ -36,6 +44,31 @@ def conv_channels(cfg: ModelConfig) -> int:
     return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
 
 
+def local_heads(p, cfg: ModelConfig) -> int:
+    """The state heads a (stacked or one-layer) Mamba2 weight set scans:
+    ``Hs``, or ``Hs/m`` on a rank whose model axis divides them."""
+    return p["w_z"].shape[-1] // cfg.ssm_head_dim
+
+
+def _shard(p, cfg: ModelConfig):
+    """(first state head, heads) of this rank's shard, or None when the
+    inner width is whole."""
+    hl = local_heads(p, cfg)
+    return None if hl == cfg.ssm_heads else (L.tp_index() * hl, hl)
+
+
+def _heads(p, cfg: ModelConfig, xin, dt, A):
+    """The state heads this rank scans: ``xin [..., d_inner]`` as
+    ``[..., H, P]``, ``dt [..., H]`` and ``A [H]``, cut to the rank's shard
+    when the inner width is split."""
+    xh = xin.reshape(xin.shape[:-1] + (cfg.ssm_heads, cfg.ssm_head_dim))
+    sh = _shard(p, cfg)
+    if sh is None:
+        return xh, dt, A
+    h0, hl = sh
+    return xh[..., h0:h0 + hl, :], dt[..., h0:h0 + hl], A[h0:h0 + hl]
+
+
 def _project(p, h, cfg: ModelConfig):
     z = h @ p["w_z"]
     xbc = h @ p["w_xbc"]
@@ -52,11 +85,23 @@ def _gated_out(p, x, y, z, xh, cfg: ModelConfig):
     """D skip, SiLU gate, gate norm and the output projection (residual
     included). y [..., H, P] float32 scan output; xh its input."""
     y = y.to(x.dtype)
-    y = y + p["D_skip"].to(y.dtype)[:, None] * xh
+    sh = _shard(p, cfg)
+    d_skip, g_scale = p["D_skip"], p["gate_norm"]
+    if sh is not None:
+        h0, hl = sh
+        P = cfg.ssm_head_dim
+        d_skip, g_scale = d_skip[h0:h0 + hl], g_scale[h0 * P:(h0 + hl) * P]
+    y = y + d_skip.to(y.dtype)[:, None] * xh
     y = y.flatten(-2)
-    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
-                   cfg.rms_eps)
-    return x + y @ p["out_proj"]
+    g = y * F.silu(z.float()).to(y.dtype)
+    if sh is None:
+        return x + L.rms_norm(g, g_scale, cfg.rms_eps) @ p["out_proj"]
+    # an RMSNorm over the whole d_inner: the mean square sums over ranks
+    g32 = g.float()
+    var = L.tp_sum(g32.square().sum(dim=-1, keepdim=True)) / cfg.d_inner
+    g = (g32 * torch.rsqrt(var + cfg.rms_eps)
+         * (1.0 + g_scale.float())).to(g.dtype)
+    return x + L.tp_sum(g @ p["out_proj"])
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +217,7 @@ def mamba_block(p, x, cfg: ModelConfig, conv_hist=None, init_state=None,
         conv_hist = xbc_pre.new_zeros((Bb, ck - 1, ch))
     xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"], conv_hist)
     xin, Bm, Cm = _split_xbc(xbc, cfg)
-    xh = xin.reshape(Bb, S, cfg.ssm_heads, cfg.ssm_head_dim)
-    A = -torch.exp(p["A_log"].float())
+    xh, dt, A = _heads(p, cfg, xin, dt, -torch.exp(p["A_log"].float()))
     chunk = min(cfg.ssm_chunk, S)
     y, state_out = ssd_scan(xh, dt, A, Bm, Cm, chunk, init_state,
                             return_chunk_states=capture_at is not None)
@@ -227,14 +271,14 @@ def mamba_block_packed(p, x, cfg: ModelConfig, seg_ids, positions,
     xbc = _causal_conv_packed(xbc_pre, p["conv_w"], p["conv_b"], seg_ids)
     xin, Bm, Cm = _split_xbc(xbc, cfg)
     T = x.shape[1]
-    xh = xin[0].reshape(T, cfg.ssm_heads, cfg.ssm_head_dim)
-    A = -torch.exp(p["A_log"].float())
+    xh, dt, A = _heads(p, cfg, xin[0], dt[0],
+                       -torch.exp(p["A_log"].float()))
     chunk = cfg.ssm_chunk
     cap_pos = torch.div(block_start, chunk, rounding_mode="floor") * chunk
     cap_rows = torch.where(cap_pos > 0, cu_seqlens + cap_pos - 1,
                            torch.full_like(cap_pos, -1))
     scan = ops.ssm_segment_scan if use_kernel else varlen_ssd_scan
-    y, state_at = scan(xh, dt[0], A, Bm[0], Cm[0], positions == 0, cap_rows)
+    y, state_at = scan(xh, dt, A, Bm[0], Cm[0], positions == 0, cap_rows)
     out = _gated_out(p, x, y[None], z, xh[None], cfg)
     # conv history entering the block: the ck-1 pre-conv rows before
     # block_start, zero where they precede the segment start
@@ -256,9 +300,8 @@ def mamba_decode_block(p, xb, cfg: ModelConfig, state, conv_hist):
     z, xbc, dt = _project(p, h, cfg)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_hist)
     xin, Bm, Cm = _split_xbc(xbc, cfg)
-    Bb, Sb = xb.shape[:2]
-    xh = xin.reshape(Bb, Sb, cfg.ssm_heads, cfg.ssm_head_dim)
-    A = -torch.exp(p["A_log"].float())
+    Sb = xb.shape[1]
+    xh, dt, A = _heads(p, cfg, xin, dt, -torch.exp(p["A_log"].float()))
     xs, Bs, Cs = xh.float(), Bm.float(), Cm.float()
     st = state.float()
     ys = []

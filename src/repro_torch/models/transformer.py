@@ -74,6 +74,12 @@ def _check_kernel_path(serve: ServeContext, device) -> None:
             "use_flash_kernel=True (the plain fallbacks run on the CPU only)")
 
 
+def kv_heads(p) -> int:
+    """The KV heads a (stacked or one-layer) attention weight set computes:
+    ``K``, or ``K/m`` on a rank whose model axis divides them."""
+    return p["wk"].shape[-2]
+
+
 def layer_params(stack, l: int) -> Dict[str, torch.Tensor]:
     """Layer ``l``'s slice of the stacked ``[L, ...]`` weights, for code
     that visits one layer at a time with frozen weights (the serving stages
@@ -102,20 +108,37 @@ def _qkv(p, x, cfg: ModelConfig, cos, sin):
         v = v + p["bv"]
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
+    if q.shape[-2] < cfg.n_heads and k.shape[-2] == cfg.n_kv_heads:
+        # the query heads are split and the KV heads are not (they do not
+        # divide the model axis): every head attends on every rank, as the
+        # whole KV heads' selection reads every query head of their group
+        q = L.tp_gather(q, -2)
     return q, k, v
 
 
 def _mlp(p, x, cfg: ModelConfig):
-    """Returns (y, aux_loss); dense MLPs have zero aux."""
+    """Returns (y, aux_loss); dense MLPs have zero aux. A rank holding
+    ``d_ff/m`` of the hidden (column-parallel ``w_gate``/``w_up``,
+    row-parallel ``w_down``) sums its partial output over the model
+    axis."""
     if cfg.is_moe:
         return moe_lib.moe_ffn(p, x, cfg)
     y = L.gated_mlp(x, p["w_gate"], p["w_up"], p["w_down"], cfg.activation)
+    if p["w_down"].shape[-2] < cfg.d_ff:
+        y = L.tp_sum(y)
     return y, 0.0
 
 
-def _attn_out(attn, wo):
-    """[..., H, dh] x [H, dh, D] -> [..., D]."""
-    return attn.flatten(-2) @ wo.flatten(0, 1)
+def _attn_out(attn, wo, cfg: ModelConfig):
+    """[..., H, dh] x [H, dh, D] -> [..., D]. A rank holding ``H/m`` rows
+    of ``wo`` (row-parallel) projects its heads, of all heads when every
+    head attended, and sums over the model axis."""
+    Hl = wo.shape[0]
+    if attn.shape[-2] > Hl:
+        i = L.tp_index()
+        attn = attn[..., i * Hl:(i + 1) * Hl, :]
+    y = attn.flatten(-2) @ wo.flatten(0, 1)
+    return L.tp_sum(y) if Hl < cfg.n_heads else y
 
 
 def slice_block(h: torch.Tensor, block_start: torch.Tensor,
@@ -141,7 +164,7 @@ def _layer_full(p, x, cfg: ModelConfig, positions, cos, sin,
         attn_softcap=cfg.attn_softcap,
         q_chunk=serve.q_chunk if serve else L.DEFAULT_Q_CHUNK,
         use_kernel=bool(serve and serve.use_flash_refresh))
-    x = x + _attn_out(attn, p["wo"])
+    x = x + _attn_out(attn, p["wo"], cfg)
     h2 = L.rms_norm(x, p["mlp_norm"], cfg.rms_eps)
     y, aux = _mlp(p, h2, cfg)
     x = x + y
@@ -179,7 +202,7 @@ def forward_full(stack, cfg: ModelConfig, x, positions, *,
     nl = cfg.n_layers
     out = None
     if serve is not None:
-        K, dh, ret = cfg.n_kv_heads, cfg.resolved_head_dim, serve.retain
+        K, dh, ret = kv_heads(stack), cfg.resolved_head_dim, serve.retain
         out = PackedKV(
             torch.empty((nl, B, K, ret, dh), dtype=x.dtype, device=x.device),
             torch.empty((nl, B, K, ret, dh), dtype=x.dtype, device=x.device),
@@ -265,7 +288,7 @@ def _layer_full_packed(p, x, cfg: ModelConfig, positions, seg_ids,
         attn = _attend_packed_stream(q, k, v, positions, seg_ids,
                                      token_valid, cfg, is_local, serve,
                                      mask_mode=mask_mode)
-    x = x + _attn_out(attn, p["wo"])
+    x = x + _attn_out(attn, p["wo"], cfg)
     h2 = L.rms_norm(x, p["mlp_norm"], cfg.rms_eps)
     y, aux = _mlp(p, h2, cfg)
     x = x + y
@@ -317,7 +340,7 @@ def forward_full_packed(stack, cfg: ModelConfig, x, positions, seg_ids,
     flags = L.layer_flags(cfg)
     geom = packed_refresh_geometry(cu_seqlens, seq_lens, block_start, T, serve)
     R, nl = cu_seqlens.shape[0], cfg.n_layers
-    K, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    K, dh = kv_heads(stack), cfg.resolved_head_dim
     dev = x.device
     out = PackedKV(
         torch.empty((nl, R, K, serve.retain, dh), dtype=x.dtype, device=dev),
@@ -401,7 +424,7 @@ def _reuse_attention_layer_flat(p, x, cfg: ModelConfig, cos, sin,
         kv_seg=kv_seg, kv_pos=pos_s, kv_valid=valid_s,
         window=cfg.sliding_window, is_local=is_local,
         causal=mask_mode == "causal", softcap=cfg.attn_softcap)
-    return x + _attn_out(out.reshape(R, Sb, H, dh), p["wo"])
+    return x + _attn_out(out.reshape(R, Sb, H, dh), p["wo"], cfg)
 
 
 def forward_block(stack, cfg: ModelConfig, xb, block_positions,
@@ -474,7 +497,7 @@ def reuse_attention_layer(p, x, cfg: ModelConfig, cos, sin, block_positions,
         den = s1[..., None] * a1 + s2[..., None] * a2
         out = (o1 * a1 + o2 * a2) / den.clamp_min(1e-30)   # [B,K,G,Sb,dh]
         attn = out.permute(0, 3, 1, 2, 4).reshape(B, Sb, H, dh).to(q.dtype)
-    return x + _attn_out(attn, p["wo"])
+    return x + _attn_out(attn, p["wo"], cfg)
 
 
 def _reuse_mask(valid, pos_hm, q_pos, is_local: bool, cfg: ModelConfig,

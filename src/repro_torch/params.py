@@ -20,11 +20,12 @@ The layout is the reference's (``repro.models.backbone.init_params``):
 
 Modules index like the reference's dicts (``params["stack"]["wq"]``), so
 the model code reads the same in both packages. Serving holds the leaves
-frozen; the trainer makes its tree :func:`trainable`.
+frozen; the trainer makes its tree :func:`trainable`. On a serving mesh
+each rank holds its shard of every leaf (:func:`shard_params`).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,28 +118,33 @@ def _init(t: torch.Tensor, name: str, generator) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device) -> Group:
+                device, cut: Optional[Callable] = None) -> Group:
     """Random weights by the reference's init law, drawn directly on
     ``device`` in ``cfg.dtype`` (a full-size model is never staged in host
     float32). ``generator`` must live on ``device``; with None the leaves
-    are left uninitialised, for a checkpoint's restore to fill."""
+    are left uninitialised, for a checkpoint's restore to fill. ``cut``
+    (:func:`shard_cut`) cuts each leaf to this rank's shard as soon as it
+    is drawn, so a rank never holds more than one whole leaf."""
     dtype = DTYPES[cfg.dtype]
 
-    def leaf(shape, name):
+    def leaf(shape, name, path):
         t = torch.empty(shape, dtype=dtype, device=device)
-        return t if generator is None else _init(t, name, generator)
+        t = t if generator is None else _init(t, name, generator)
+        return t if cut is None else cut(path, t)
 
-    def make(tree):
-        return Group({n: make(s) if isinstance(s, dict) else leaf(s, n)
-                      for n, s in tree.items()})
+    def make(tree, path):
+        return Group({n: make(s, f"{path}{n}/") if isinstance(s, dict)
+                      else leaf(s, n, path + n) for n, s in tree.items()})
 
-    return make(shapes(cfg))
+    return make(shapes(cfg), "")
 
 
-def from_jax(tree, cfg: ModelConfig, device, dtype=None) -> Group:
+def from_jax(tree, cfg: ModelConfig, device, dtype=None,
+             cut: Optional[Callable] = None) -> Group:
     """The reference's parameter tree, as numpy arrays, onto ``device``
     (``dtype`` defaults to ``cfg.dtype``). Names and shapes are checked at
-    every level of the tree."""
+    every level of the tree. ``cut`` cuts each leaf to this rank's shard
+    as it lands, as in :func:`init_params`."""
     dtype = dtype or DTYPES[cfg.dtype]
 
     def conv(node, want, path):
@@ -151,10 +157,51 @@ def from_jax(tree, cfg: ModelConfig, device, dtype=None) -> Group:
         a = np.asarray(node)
         if a.shape != tuple(want):
             raise ValueError(f"{path}: shape {a.shape}, expected {want}")
-        return torch.from_numpy(a.astype(np.float32)).to(device=device,
-                                                         dtype=dtype)
+        t = torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+        return t if cut is None else cut(path.replace(".", "/"), t)
 
     return conv(tree, shapes(cfg), "")
+
+
+def shard_cut(rules, mesh) -> Callable:
+    """``cut(path, t)``: this rank's shard of the whole leaf ``t`` at
+    ``path`` (``stack/wq``) under ``rules`` (``launch.sharding.Rules.
+    leaf_spec`` at serve time), a copy of its own; ``t`` itself when the
+    rules keep it whole."""
+    from repro_torch.launch.sharding import local_slice
+
+    def cut(path: str, t: torch.Tensor) -> torch.Tensor:
+        return local_slice(t.detach(), rules.leaf_spec(path, tuple(t.shape)),
+                           mesh)
+    return cut
+
+
+def shard_params(tree: Group, rules, mesh) -> Group:
+    """This rank's shard of every leaf of ``tree`` under ``rules``: the
+    same weights the one-device engine holds, cut by the reference's
+    placement law (:func:`shard_cut`). Leaves the rules keep whole stay the
+    same tensors, and a tree that is already this rank's shard comes back
+    as it is."""
+    from repro_torch.launch.sharding import local_slice
+    want, cut = shapes(rules.cfg), shard_cut(rules, mesh)
+
+    def walk(group: Group, want, path: str) -> Group:
+        out = {n: walk(m, want[n], f"{path}/{n}" if path else n)
+               for n, m in group.named_children()}
+        for n, t in group.items():
+            full, name = tuple(want[n]), f"{path}/{n}" if path else n
+            if tuple(t.shape) == full:
+                t = cut(name, t)
+            elif tuple(t.shape) != tuple(local_slice(
+                    torch.empty(full, device="meta"),
+                    rules.leaf_spec(name, full), mesh).shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} is "
+                                 f"neither {full} nor this rank's shard")
+            out[n] = t
+        return Group(out)
+
+    return walk(tree, want, "")
 
 
 def tree_order(name: str) -> Tuple[str, ...]:

@@ -174,14 +174,16 @@ def test_device_bill_adds_the_unbilled_bytes():
 
 
 class _StubEngine:
-    """What ``fit_to_budget`` reads of an engine: a slot size, a graph
+    """What ``fit_to_budget`` reads of an engine: a slot size and the
+    pool's rows (every slot and the scratch slot, as off a mesh), a graph
     pool (fed in, a function of the slots) and the staging bytes, on the
     CPU."""
 
     def __init__(self, serve, pool_of, slot):
         self.serve, self.params = serve, object()
         self.device = torch.device("cpu")
-        self.pool = type("P", (), dict(slot_bytes=lambda _: slot))()
+        self.pool = type("P", (), dict(slot_bytes=lambda _: slot,
+                                       rows=serve.max_slots + 1))()
         self.graphs = type("G", (), dict(
             capture=False, pool_bytes=lambda _: pool_of(serve.max_slots),
             staging_bytes=lambda _: 0))()

@@ -252,24 +252,28 @@ def test_unported_engine_options_raise():
     # the pipelined loop is ported: the reference's default constructs
     assert TEngine(tcfg, dataclasses.replace(base, pipeline=True),
                    device="cpu").serve.pipeline
-    # so are prefix sharing and int8 slots (ROADMAP A4); mesh serving is
-    # not, and an unknown slot storage is refused as the reference does
+    # so are prefix sharing and int8 slots (ROADMAP A4), and mesh serving
+    # (A5), whose engines run on the ranks of launch.mesh.spawn: outside
+    # them a mesh raises; an unknown slot storage is refused as the
+    # reference does
     for ok in (dict(prefix_sharing=True), dict(kv_quant="int8")):
         TEngine(tcfg, dataclasses.replace(base, **ok), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="spawn"):
         TEngine(tcfg, dataclasses.replace(base, mesh_shape=(1, 2)),
                 device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         TEngine(tcfg, dataclasses.replace(base, kv_quant="fp4"),
                 device="cpu")
-    # the profiler bills what it can serve, and raises on the rest
+    # the profiler bills what it can serve, a mesh per device
     from repro_torch.core.budgeting import plan_memory
     for ok in (dict(kv_quant="int8"), dict(prefix_sharing=True)):
         plan_memory(get_config("llada-8b"), dataclasses.replace(base, **ok),
                     24 << 30)
-    with pytest.raises(NotImplementedError):
-        plan_memory(get_config("llada-8b"),
-                    dataclasses.replace(base, mesh_shape=(1, 2)), 24 << 30)
+    one = plan_memory(get_config("llada-8b"), base, 24 << 30)
+    two = plan_memory(get_config("llada-8b"),
+                      dataclasses.replace(base, mesh_shape=(1, 2)), 24 << 30)
+    assert two.mesh_devices == 2
+    assert two.weights_bytes < one.weights_bytes
 
 
 def test_cuda_engine_requires_the_kernel_paths(monkeypatch):

@@ -27,6 +27,8 @@ def test_port_imports_without_jax():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert {'repro_torch.launch.mesh', 'repro_torch.launch.sharding',\n"
+        "        'repro_torch.launch.shard_check'} <= set(names), names\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
         "               for m in sys.modules), 'the JAX package was imported'\n"
         "print(len(names))\n")
@@ -34,7 +36,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 40
 
 
 def _imported_modules(path: Path):

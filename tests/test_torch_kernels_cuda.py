@@ -875,6 +875,166 @@ def test_launches_are_counted(cuda):
         assert (c.launches, c.plain_calls) == (1, 0), name
 
 
+# ---------------------------------------------------------------------------
+# mesh serving: each kernel on a model shard against its slice of the
+# unsharded launch (the heads, state heads or vocabulary a rank holds)
+# ---------------------------------------------------------------------------
+
+def _halves(t, dim, m=2):
+    return [c.contiguous() for c in t.chunk(m, dim=dim)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 4), (10, 2)])
+def test_flash_varlen_model_shards_match_unsharded(cuda, dtype, tol, H, K):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(1)
+    seg, pos, valid = _stream([100, 37, 64], 55, cuda)
+    T, dh = seg.shape[0], 64
+    q = torch.randn((T, H, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((T, K, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((T, K, dh), generator=g, device=cuda).to(dtype)
+
+    def call(q, k, v):
+        return ops.flash_varlen_attention(q, k, v, seg_ids=seg, positions=pos,
+                                          kv_valid=valid)
+    full = call(q, k, v)
+    for a, qs, ks, vs in zip(full.chunk(2, dim=1), _halves(q, 1),
+                             _halves(k, 1), _halves(v, 1)):
+        assert (call(qs, ks, vs).float() - a.float()).abs().max() <= tol
+
+
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+def test_flash_varlen_cross_model_shards_match_unsharded(cuda, H, K):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(2)
+    R, Sb, Cr, dh = 5, 8, 40, 128
+    Tq, Tkv = R * Sb, R * (Cr + Sb)
+    bf = torch.bfloat16
+    q = torch.randn((Tq, H, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((K, Tkv, dh), generator=g, device=cuda).to(bf)
+    ar = torch.arange(R, dtype=torch.int32, device=cuda)
+    q_seg, kv_seg = ar.repeat_interleave(Sb), ar.repeat_interleave(Cr + Sb)
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=cuda).repeat(R) + 50
+    kv_pos = torch.randint(0, 80, (K, Tkv), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_valid = torch.rand((K, Tkv), generator=g, device=cuda) < 0.7
+
+    def call(q, k, v, kp, kv):
+        return ops.flash_varlen_cross_attention(
+            q, k, v, q_seg=q_seg, q_pos=q_pos, kv_seg=kv_seg, kv_pos=kp,
+            kv_valid=kv)
+    full = call(q, k, v, kv_pos, kv_valid)
+    for a, *shard in zip(full.chunk(2, dim=1), _halves(q, 1), _halves(k, 0),
+                         _halves(v, 0), _halves(kv_pos, 0),
+                         _halves(kv_valid, 0)):
+        assert (call(*shard).float() - a.float()).abs().max() <= 1e-2
+
+
+def test_head_score_varlen_model_shards_match_unsharded(cuda):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    seg, _, _ = _stream([90, 60, 70], 36, cuda)
+    T, H, K, Sb, dh = seg.shape[0], 8, 4, 8, 128
+    bf = torch.bfloat16
+    qb = torch.randn((3, Sb, H, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((T, K, dh), generator=g, device=cuda).to(bf)
+    full = ops.head_score_varlen(qb, k, seg)
+    for a, qs, ks in zip(full.chunk(2, dim=1), qb.chunk(2, dim=2),
+                         k.chunk(2, dim=1)):
+        got = ops.head_score_varlen(qs, ks, seg)
+        assert torch.equal(torch.isinf(got), torch.isinf(a))
+        fin = torch.isfinite(a)
+        assert (got[fin] - a[fin]).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("H", [24, 112])
+def test_ssm_segment_scan_model_shards_match_unsharded(cuda, H):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(4)
+    seg, pos, _ = _stream([150, 90, 60], 20, cuda)
+    T, P, N = seg.shape[0], 64, 128
+    xh = torch.randn((T, H, P), generator=g, device=cuda)
+    dt = 0.01 + torch.rand((T, H), generator=g, device=cuda)
+    A = -torch.ones(H, device=cuda)
+    Bm = torch.randn((T, N), generator=g, device=cuda)
+    Cm = torch.randn((T, N), generator=g, device=cuda)
+    cap = torch.tensor([99, 150 + 63, -1], dtype=torch.int32, device=cuda)
+    reset = pos == 0
+    y, st = ops.ssm_segment_scan(xh, dt, A, Bm, Cm, reset, cap)
+    scale = max(1.0, y.abs().max().item(), st.abs().max().item())
+    for ya, sa, xs, ds, As in zip(y.chunk(2, dim=1), st.chunk(2, dim=1),
+                                  _halves(xh, 1), _halves(dt, 1),
+                                  _halves(A, 0)):
+        yb, sb = ops.ssm_segment_scan(xs, ds, As, Bm, Cm, reset, cap)
+        assert (yb - ya).abs().max() <= 1e-4 * scale
+        assert (sb - sa).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+def test_packed_flash_attention_model_shards_match_unsharded(cuda, H, K):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, Sb, T, dh = 4, 8, 120, 128
+    bf = torch.bfloat16
+    q = torch.randn((B, Sb, H, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, K, T, dh), generator=g, device=cuda).to(bf)
+    ok = torch.rand((B, K, 1, T), generator=g, device=cuda) < 0.6
+    ok[..., 0] = True
+    full = ops.packed_flash_attention(q, k, v, ok)
+    for a, *shard in zip(full.chunk(2, dim=2), _halves(q, 2), _halves(k, 1),
+                         _halves(v, 1), _halves(ok, 1)):
+        got = ops.packed_flash_attention(*shard)
+        assert (got.float() - a.float()).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+def test_flash_refresh_model_shards_match_unsharded(cuda, H, K):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, dh = 2, 256, 128
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, dh), generator=g, device=cuda).to(bf)
+    k = torch.randn((B, S, K, dh), generator=g, device=cuda).to(bf)
+    v = torch.randn((B, S, K, dh), generator=g, device=cuda).to(bf)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).expand(B, S)
+    valid = pos < torch.tensor([[S], [200]], device=cuda)
+
+    def call(q, k, v):
+        return ops.flash_refresh_attention(
+            q, k, v, q_pos=pos, kv_pos=pos, kv_valid=valid,
+            mask_mode="bidirectional", window=0, is_local=False, softcap=0.0)
+    full = call(q, k, v)
+    for a, qs, ks, vs in zip(full.chunk(2, dim=2), _halves(q, 2),
+                             _halves(k, 2), _halves(v, 2)):
+        assert (call(qs, ks, vs).float() - a.float()).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("layout", ["dv", "vd"])
+def test_logit_argmax_vocab_shards_merge_to_unsharded(cuda, layout):
+    """Each half of the vocabulary in the kernel, then the cross-shard
+    merge: ids and maxima equal to the unsharded launch's, sums to 1e-5
+    relative."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    T, D, V = 40, 256, 12288
+    bf = torch.bfloat16
+    h = torch.randn((T, D), generator=g, device=cuda).to(bf)
+    w = torch.empty((D, V) if layout == "dv" else (V, D), device=cuda,
+                    dtype=bf).normal_(0, 0.05, generator=g)
+    ok = torch.ones(T, dtype=torch.bool, device=cuda)
+    idx, mx, s = LA.fused_logit_argmax_call(h, w, ok, w_layout=layout)
+    parts = [LA.fused_logit_argmax_call(h, wh, ok, w_layout=layout)
+             for wh in _halves(w, 1 if layout == "dv" else 0)]
+    gid, gm, gs = ops.merge_vocab_shards(
+        *[torch.stack([p[i] for p in parts]) for i in range(3)], V // 2)
+    assert torch.equal(gid, idx) and torch.equal(gm, mx)
+    assert ((gs - s).abs() / s).max() <= 1e-5
+
+
 if __name__ == "__main__":
     # the digests of whichever package PYTHONPATH names, for REFRESH_DIGESTS
     import json

@@ -15,10 +15,16 @@ this module before they build anything.
   on what determines it: arch, overrides, serve config, requests, seed.
   Under ``--dist loadfile`` a file's cases share one worker, hence its
   cache.
+* **Shard checks.** :func:`shard_check` runs ``python -m
+  repro_torch.launch.shard_check`` on two gloo ranks of the CPU and holds
+  its record to the tool's law (the mesh files share it).
 """
 from __future__ import annotations
 
+import json
 import os
+import subprocess
+import sys
 from typing import Callable, Dict, Hashable
 
 import numpy as np
@@ -53,3 +59,26 @@ def cached(key, compute: Callable[[], object]):
     if k not in _CACHE:
         _CACHE[k] = compute()
     return _CACHE[k]
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def shard_check(arch: str, extra, tmp_path) -> dict:
+    """One ``shard_check`` run of ``arch`` on two gloo ranks of the CPU
+    (``extra``: its flags); asserts it agreed with the one-device serve on
+    a mesh of two, and returns its JSON record."""
+    out = tmp_path / "agree.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.shard_check", "--arch",
+         arch, "--device", "cpu", "--out", str(out)] + list(extra),
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    rec = json.loads(out.read_text())
+    assert rec["ok"], rec
+    assert rec["mesh_devices"] == 2, rec
+    assert rec["device"] == "cpu" and min(rec["rank_collectives"]) > 0
+    if "--sharing" in extra:
+        assert rec["shared_hits"] > 0, rec
+    return rec
