@@ -61,11 +61,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. footprint: each llada-8b system's memory plan (the offline profiler)
      at 24 GB and at the card's memory, and the logit stage's peak bytes
      measured in each C1 mode at 128 and 4000 rows beside the plan's bill;
-     graphs: the full llada-8b and zamba2-7b under dllm-serve and
-     sparse-dllm, phi3.5-moe at 24 of its 32 layers and the full
-     gemma2-27b, gemma-2b and musicgen-medium under dllm-serve, and the
-     full llada-8b at the profiles' own logit modes (monolithic under
-     fast-dllm, chunked under dllm-serve: torch ops, no kernel), on the
+     graphs: llada-8b and zamba2-7b under dllm-serve and sparse-dllm,
+     phi3.5-moe, gemma2-27b, the full gemma-2b and musicgen-medium under
+     dllm-serve, and llada-8b at the profiles' own logit modes
+     (monolithic under fast-dllm, chunked under dllm-serve: torch ops, no
+     kernel), at full width and cut in depth (``GRAPH_LAYERS``: 8 of
+     llada-8b's 32 and phi3.5-moe's 32 layers, 12 of zamba2-7b's 81,
+     gemma2-27b's 46 and musicgen-medium's 48), on the
      modeled clock, by an engine
      whose stage entries are captured CUDA graphs and by one running the
      same entries eagerly, on the same weights: ids, counters, modeled
@@ -110,13 +112,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      mesh: each of rows 1-7 on each half of the model axis at full width
      (llada-8b's 32 heads and 126,464-column head, zamba2-7b's 112 and
      mamba2-130m's 24 state heads; the argmax halves merged) against the
-     unsharded launch; ``launch.shard_check`` on two ranks co-located on
+     unsharded launch; one MoE layer a rank at full width, bfloat16
+     (phi3.5-moe and qwen3-moe, T = 128 and 1,024, two ranks co-located
+     at (1, 2) and (2, 1): ``gather`` against the one-device layer,
+     ``ep`` against the one-device ``gather`` of the same rows, each
+     rank's expert bytes the plan's, its peak, call ms and collective ms
+     logged); ``launch.shard_check`` on two ranks co-located on
      cuda:0 over gloo (eager, the kernels, float32, TF32 off): llada-8b at
      full width cut to 8 of 32 layers at meshes (1, 2) and (2, 1) and on
-     the padded path at (1, 2), and the whole mamba2-130m at (1, 2), each
+     the padded path at (1, 2), the whole mamba2-130m at (1, 2) and on the
+     pod mesh (2, 1, 1), and phi3.5-moe cut to 2 of 32 layers at (1, 2)
+     and (2, 1), each
      against the one-device serve at the same depth and dtype by the
      tool's own law (ids, counters and the mesh's size exactly, the pool
-     by ``shard_check.pool_close``), every kernel of the path launched in
+     by ``shard_check.pool_close``, each rank's parameter bytes the
+     plan's), every kernel of the path launched in
      the one-device serve and on each rank, the ranks' collective share
      logged, and beside llada-8b's (1, 2) the one-device serve against
      itself with its row-parallel sums reordered (the size of float32
@@ -1125,21 +1135,28 @@ PATH_KERNELS = {
 # 94 ~470 GB (8: ~42.3 GB), internvl2-76b's 80 ~141 GB (24: ~45.3 GB)
 LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "qwen3-moe-235b-a22b": 8,
           "internvl2-76b": 24}
+# the graphs phase's depth: graphed = eager is a property of the stage
+# entries, which every layer repeats, so its serves run a few layers of
+# each arch at full width (the serve phase keeps the depths above)
+GRAPH_LAYERS = {"llada-8b": 8, "zamba2-7b": 12, "phi3.5-moe-42b-a6.6b": 8,
+                "gemma2-27b": 12, "musicgen-medium": 12}
 
 
-def served_config(arch):
-    """The arch's config, cut to ``LAYERS[arch]`` layers where it has a
-    cut."""
+def served_config(arch, n_layers=None):
+    """The arch's config, cut to ``n_layers``, else to ``LAYERS[arch]``
+    layers where it has a cut."""
     import dataclasses
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    if arch in LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=LAYERS[arch])
+    n_layers = n_layers or LAYERS.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg
 
 
-def serve_plan(arch, system, serve_kw, hbm_gb, own_logits=False):
+def serve_plan(arch, system, serve_kw, hbm_gb, own_logits=False,
+               n_layers=None):
     """The plan run_serve sizes a kernels serve with (its own helper on the
     same ServeConfig and the same depth), and that ServeConfig with its
     slots sized; ``own_logits`` keeps the profile's logit mode (monolithic
@@ -1154,8 +1171,8 @@ def serve_plan(arch, system, serve_kw, hbm_gb, own_logits=False):
                                 use_flash_kernel=True)
     if not own_logits:
         serve = dataclasses.replace(serve, logit_mode="fused")
-    return profile_slots(served_config(arch), serve, serve_kw["max_slots"],
-                         hbm_gb)
+    return profile_slots(served_config(arch, n_layers), serve,
+                         serve_kw["max_slots"], hbm_gb)
 
 
 def serve_full(arch, system, n_req, serve_kw, card, hbm_gb,
@@ -1252,7 +1269,7 @@ def shared_requests(vocab, n_req):
 
 def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
                     feature=None, serve_over=None, fault_seed=None,
-                    shared=False):
+                    shared=False, n_layers=None):
     """The full arch under a system (its slots sized as ``run_serve`` sizes
     them, the launcher's pipelined loop, the modeled clock, the livebench
     trace ``run_serve`` draws; with ``own_logits`` the profile's own logit
@@ -1268,7 +1285,8 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
     fields after sizing (prefix sharing, int8 slots, starvation
     preemption), ``fault_seed`` serves each engine under its own
     ``FaultPlan.seeded(fault_seed, horizon=60)``, and ``shared`` serves
-    the shared-prefix prompts all at once in place of livebench's."""
+    the shared-prefix prompts all at once in place of livebench's;
+    ``n_layers`` cuts the arch's depth."""
     import dataclasses
     import numpy as np
     from repro_torch.core.engine import Engine
@@ -1277,9 +1295,11 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
     from repro_torch.kernels import build
     from repro_torch.params import init_params
 
-    plan, serve = serve_plan(arch, system, serve_kw, hbm_gb, own_logits)
+    t0 = time.perf_counter()
+    plan, serve = serve_plan(arch, system, serve_kw, hbm_gb, own_logits,
+                             n_layers)
     serve = dataclasses.replace(serve, **(serve_over or {}))
-    cfg = served_config(arch)
+    cfg = served_config(arch, n_layers)
     gc.collect()
     torch.cuda.empty_cache()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1343,7 +1363,8 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
         run_peak_bytes_eager=e["run_peak_bytes"],
         plan_activation_bytes=plan.activation_bytes,
         plan_logit_bytes=plan.logit_bytes,
-        launches={n: c for n, (c, _) in g["launches"].items() if c})))
+        launches={n: c for n, (c, _) in g["launches"].items() if c},
+        seconds=time.perf_counter() - t0)))
     assert same_ids, f"{arch} {system} {serve.logit_mode}: graphed ids " \
         f"differ from eager"
     assert e["counters"] == g["counters"], (e["counters"], g["counters"])
@@ -1854,16 +1875,207 @@ def reorder_witness(dev, cfg, seed: int = 0, n: int = 5) -> dict:
                 pool_max_err=err, pool_max_abs=mag, pool_close=close)
 
 
+MOE_T = (128, 1024)          # rows of an MoE layer call on the mesh
+MOE_TOL = 2.0 ** -5          # of the largest magnitude, bfloat16 layers
+
+
+def moe_leaves(cfg, dev, seed: int = 25):
+    """One MoE layer of ``cfg`` in bfloat16, leaf by leaf in a fixed order
+    from ``seed``: the same tensors in every process that draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for name, shape in (("router", (D, E)), ("w_gate", (E, D, F)),
+                        ("w_up", (E, D, F)), ("w_down", (E, F, D))):
+        yield name, torch.empty(shape, device=dev,
+                                dtype=torch.bfloat16).normal_(0, 0.02,
+                                                              generator=g)
+
+
+def moe_rows(cfg, T, dev):
+    g = torch.Generator(device=dev).manual_seed(T)
+    return torch.randn((T, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+
+
+def moe_expert_bill(cfg, mesh_shape) -> int:
+    """The plan's bytes of one layer's expert stacks and router a device
+    (``budgeting``'s per-leaf law over the serving ``Rules``)."""
+    from repro_torch.core.budgeting import _sharded_bytes
+    from repro_torch.launch.mesh import SimMesh
+    from repro_torch.launch.sharding import Rules
+    sim = SimMesh(mesh_shape)
+    rules = Rules(cfg, sim, train=False)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    shapes = {"router": (1, D, E), "w_gate": (1, E, D, F),
+              "w_up": (1, E, D, F), "w_down": (1, E, F, D)}
+    return sum(_sharded_bytes(sim, s, rules.leaf_spec(f"stack/{n}", s), 2)
+               for n, s in shapes.items())
+
+
+def moe_one_device(dev, archs):
+    """The one-device references of the mesh's MoE layers: for each arch
+    and T, ``moe_ffn`` (gather) on the whole layer (its output, its slot-
+    to-token map and its device ms), and ``gather`` over each data shard's
+    rows alone for data axes of 2 (what ``ep`` computes there, in float32
+    before its bfloat16 combine)."""
+    from repro_torch.models import moe as TM
+    refs = {}
+    for cfg in archs:
+        p = dict(moe_leaves(cfg, dev))
+        for T in MOE_T:
+            x = moe_rows(cfg, T, dev)
+            seen, dispatch = [], TM._dispatch_indices
+
+            def record(*a):
+                out = dispatch(*a)
+                seen.append(out[2].cpu())
+                return out
+            TM._dispatch_indices = record
+            try:
+                out, _ = TM.moe_ffn(p, x, cfg)
+            finally:
+                TM._dispatch_indices = dispatch
+            halves = torch.cat([TM.moe_ffn(p, h, cfg)[0]
+                                for h in x.chunk(2)])
+            ms = time_ms(lambda: TM.moe_ffn(p, x, cfg), iters=10)
+            refs[(cfg.name, T)] = dict(out=out.cpu(), inv=seen[0],
+                                       halves=halves.cpu(), ms=ms)
+        del p
+        torch.cuda.empty_cache()
+    return refs
+
+
+def moe_layer_rank(mesh, archs, refs):
+    """One co-located rank's MoE layers: each arch's layer drawn leaf by
+    leaf and cut to this rank's shards (``Rules``: ``w_gate`` / ``w_up``
+    by expert over ``model`` and ``d_model`` over ``data``, ``w_down`` by
+    ``F`` over ``model``), then ``gather`` and ``ep`` at each T against
+    the one-device references; the call's wall ms, its collective ms and
+    this rank's allocator peak over each strategy's calls."""
+    import dataclasses
+    from repro_torch.launch.mesh import axis_size, data_axes
+    from repro_torch.launch.sharding import Rules, local_slice
+    from repro_torch.models import moe as TM
+    dev = mesh.device
+    dp = axis_size(mesh, data_axes(mesh))
+    out = []
+    for cfg in archs:
+        rules = Rules(cfg, mesh, train=False)
+        p = {}
+        for name, w in moe_leaves(cfg, dev):
+            shape = (1,) + tuple(w.shape)
+            p[name] = local_slice(w, rules.leaf_spec(f"stack/{name}", shape)
+                                  [1:], mesh)
+            del w
+        torch.cuda.empty_cache()
+        held = dict(arch=cfg.name, held_bytes=sum(
+            t.numel() * t.element_size() for t in p.values()))
+        for impl in ("gather", "ep"):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for T in MOE_T:
+                x = moe_rows(cfg, T, dev)
+                ref = refs[(cfg.name, T)]
+                seen, dispatch = [], TM._dispatch_indices
+
+                def record(*a):
+                    r = dispatch(*a)
+                    seen.append(r[2].cpu())
+                    return r
+                torch.cuda.synchronize(dev)
+                c0, t0 = mesh.collective_s, time.perf_counter()
+                TM._dispatch_indices = record
+                try:
+                    y, _ = TM.moe_ffn(p, x, c)
+                finally:
+                    TM._dispatch_indices = dispatch
+                torch.cuda.synchronize(dev)
+                walls = [time.perf_counter() - t0]
+                colls = [mesh.collective_s - c0]
+                want = (ref["halves"] if impl == "ep" and dp == 2
+                        else ref["out"])
+                err = (y.float().cpu() - want.float()).abs().max().item()
+                mag = want.float().abs().max().item()
+                # ep regathers its stacks each call (seconds through
+                # gloo's host staging): its checked call is the timed one;
+                # gather's first call warms, three more are timed
+                if impl == "gather":
+                    walls, colls = [], []
+                    for _ in range(3):
+                        torch.cuda.synchronize(dev)
+                        c0, t0 = mesh.collective_s, time.perf_counter()
+                        TM.moe_ffn(p, x, c)
+                        torch.cuda.synchronize(dev)
+                        walls.append(time.perf_counter() - t0)
+                        colls.append(mesh.collective_s - c0)
+                out.append(dict(
+                    arch=cfg.name, impl=impl, T=T, max_abs_err=err,
+                    max_abs=mag, tol=MOE_TOL * mag,
+                    dispatch_equal=(impl == "ep" or all(
+                        torch.equal(s, ref["inv"]) for s in seen)),
+                    ms=1e3 * statistics.median(walls),
+                    collective_ms=1e3 * statistics.median(colls),
+                    one_device_ms=ref["ms"]))
+            held[f"peak_bytes_{impl}"] = torch.cuda.max_memory_allocated(dev)
+        out.append(held)
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_layers(card):
+    """The MoE layer per shard at full width, bfloat16 (phi3.5-moe: 16
+    experts top-2, D 4,096, F 6,400; qwen3-moe: 128 top-8, F 1,536), at T
+    = 128 and 1,024, on two ranks co-located on cuda:0 at (1, 2) and
+    (2, 1): ``gather`` on every rank against the one-device ``moe_ffn``
+    (the slot-to-token map exact, the output within 2^-5 of its largest
+    magnitude: bfloat16 partial sums in other orders), ``ep`` against the
+    one-device ``gather`` of the same rows (each data shard's alone when
+    the rows split), each rank's expert bytes equal to the plan's and its
+    allocator peak over each strategy logged beside them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    archs = [get_config("phi3.5-moe-42b-a6.6b"),
+             get_config("qwen3-moe-235b-a22b")]
+    refs = moe_one_device(torch.device("cuda"), archs)
+    rows = []
+    for shape in ((1, 2), (2, 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = M.spawn(moe_layer_rank, shape, "cuda", archs, refs,
+                        colocate=True)
+        for r, recs in enumerate(ranks):
+            for rec in recs:
+                rec.update(mesh=list(shape), rank=r)
+                if "held_bytes" in rec:
+                    cfg = next(c for c in archs if c.name == rec["arch"])
+                    rec["plan_bytes"] = moe_expert_bill(cfg, shape)
+                    assert rec["held_bytes"] == rec["plan_bytes"], rec
+                else:
+                    assert rec["dispatch_equal"], rec
+                    assert rec["max_abs_err"] <= rec["tol"], rec
+                log(json.dumps(dict(phase="mesh moe layer", card=card,
+                                    **rec)))
+                rows.append(rec)
+        log(f"  mesh moe layers {shape}: {time.perf_counter() - t0:.3f} s")
+    return rows
+
+
 def mesh_phase(dev, serve, card, launches, results):
     """Mesh serving on the one card: (1) the per-shard kernels; (2) the
-    shard-check tool on two ranks co-located on cuda:0 over gloo (eager,
-    the kernel paths, float32, TF32 off): llada-8b at full width cut to 8
-    of its 32 layers at meshes (1, 2) and (2, 1) and on the padded path at
-    (1, 2), and the whole mamba2-130m at (1, 2), each against the
-    one-device serve at the same depth and dtype (the tool's own law: ids,
-    counters and the mesh's size exactly, the pool by ``pool_close``),
+    MoE layers per shard (:func:`mesh_moe_layers`); (3) the shard-check
+    tool on two ranks co-located on cuda:0 over gloo (eager, the kernel
+    paths, float32, TF32 off): llada-8b at full width cut to 8 of its 32
+    layers at meshes (1, 2) and (2, 1) and on the padded path at (1, 2),
+    the whole mamba2-130m at (1, 2) and on the pod mesh (2, 1, 1), and
+    phi3.5-moe at full width cut to 2 of its 32 layers at (1, 2) and
+    (2, 1), each against the one-device serve at the same depth and dtype
+    (the tool's own law: ids, counters and the mesh's size exactly, the
+    pool by ``pool_close``, each rank's parameter bytes the plan's),
     every kernel of the path launched in the one-device serve and on each
-    rank; beside llada-8b's (1, 2) the one-device reordering witness; (3)
+    rank; beside llada-8b's (1, 2) the one-device reordering witness; (4)
     llada-8b (8 layers, bfloat16) graphed on a (1, 1) mesh against no mesh
     graphed: ids, counters and launches identical. Each part's seconds are
     logged."""
@@ -1877,23 +2089,32 @@ def mesh_phase(dev, serve, card, launches, results):
     mesh_kernels(dev, g, llada, zamba, mamba, serve, results)
     del g
     log(f"  mesh part kernels: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    mesh_moe_layers(card)
+    log(f"  mesh part moe layers: {time.perf_counter() - t0:.3f} s")
     llada8 = dataclasses.replace(llada, n_layers=8, dtype="float32")
     mamba32 = dataclasses.replace(mamba, dtype="float32")
+    phi2 = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                               n_layers=2, dtype="float32")
+    scan = ("ssm_segment_scan", "fused_logit_argmax")
     for arch, cfg, mesh, varlen, kernels in (
             ("llada-8b", llada8, (1, 2), True, DENSE_KERNELS),
             ("llada-8b", llada8, (2, 1), True, DENSE_KERNELS),
             ("llada-8b", llada8, (1, 2), False, BASELINE_KERNELS),
-            ("mamba2-130m", mamba32, (1, 2), True,
-             ("ssm_segment_scan", "fused_logit_argmax"))):
+            ("mamba2-130m", mamba32, (1, 2), True, scan),
+            ("phi3.5-moe-42b-a6.6b", phi2, (1, 2), True, DENSE_KERNELS),
+            ("phi3.5-moe-42b-a6.6b", phi2, (2, 1), True, DENSE_KERNELS),
+            ("mamba2-130m", mamba32, (2, 1, 1), True, scan)):
         t0 = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
         rec = SC.check(arch, mesh, varlen=varlen, kernels=True,
                        device="cuda", colocate=True, cfg=cfg)
         path = "" if varlen else "_padded"
-        tag = f"{arch} mesh {mesh[0]}x{mesh[1]}{path.replace('_', ' ')}"
-        with open(os.path.join(OUT_DIR, f"shard_check_{arch}_{mesh[0]}x"
-                               f"{mesh[1]}{path}.json"), "w") as f:
+        dims = "x".join(map(str, mesh))
+        tag = f"{arch} mesh {dims}{path.replace('_', ' ')}"
+        with open(os.path.join(OUT_DIR, f"shard_check_{arch}_{dims}"
+                               f"{path}.json"), "w") as f:
             json.dump(rec, f, indent=2)
         share = [c / max(s, 1e-9) for c, s in zip(rec["rank_collective_s"],
                                                    rec["rank_serve_s"])]
@@ -1907,7 +2128,10 @@ def mesh_phase(dev, serve, card, launches, results):
             rank_serve_s=rec["rank_serve_s"],
             rank_collective_s=rec["rank_collective_s"],
             rank_collectives=rec["rank_collectives"],
-            collective_share=share, card=card,
+            collective_share=share,
+            plan_weight_bytes=rec["plan_weight_bytes"],
+            rank_param_bytes=rec["rank_param_bytes"],
+            rank_peak_bytes=rec["rank_peak_bytes"], card=card,
             seconds=time.perf_counter() - t0)))
         assert rec["ok"], (tag, rec["diffs"])
         runs = [rec["one_device_launches"]] + rec["rank_launches"]
@@ -2446,7 +2670,8 @@ def main(argv) -> int:
                               # (fast-dllm) and chunked (dllm-serve)
                               ("llada-8b", "fast-dllm", True),
                               ("llada-8b", "dllm-serve", True)):
-        graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb, own_logits=own)
+        graphs_vs_eager(arch, system, 8, serve_kw, hbm_gb, own_logits=own,
+                        n_layers=GRAPH_LAYERS.get(arch))
     log(f"phase graphs: {time.perf_counter() - t0:.3f} s")
     launches = {name: {} for name in results}
     t0 = time.perf_counter()

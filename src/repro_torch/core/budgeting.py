@@ -290,8 +290,8 @@ def plan_memory(cfg: ModelConfig, serve: ServeConfig, hbm_bytes: int,
     logical residents on average, so the plan multiplies capacity before
     the cap. int8 ``serve.kv_quant`` instead shrinks ``slot_bytes``, so
     more physical slots fit outright. Under a mesh ``hbm_bytes`` is one
-    device's memory, and the pool's slot axis shards over ``data``: the
-    slots are each replica's times ``mesh_data``."""
+    device's memory, and the pool's slot axis shards over the data axes
+    (pod × data): the slots are each replica's times ``mesh_data``."""
     weights = weight_bytes_per_device(cfg, serve.mesh_shape)
     logit = logit_activation_bytes(cfg, serve, serve.max_num_batched_tokens)
     act = backbone_activation_bytes(cfg, serve) + logit

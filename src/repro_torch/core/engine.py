@@ -43,20 +43,21 @@ on both paths. A frontend arch's requests carry ``frontend_len`` projected
 rows ahead of their text: every Refresh spans ``F + text`` rows, and block
 and Reuse positions count the prefix.
 
-Mesh serving (``ServeConfig.mesh_shape = (data, model)``), as the
-reference's, for the dense, frontend and scan families: one engine a rank
+Mesh serving (``ServeConfig.mesh_shape = (data, model)`` or ``(pod,
+data, model)``), as the reference's, for every family: one engine a rank
 of ``launch.mesh.spawn``, each holding its shard of the weights
 (``launch.sharding.Rules.params``) and of the slot pool
-(``Rules.cache``: slots over ``data``, heads or retained length over
-``model``). The stages run tensor-parallel over ``model`` (local heads,
-FFN hidden, inner width and vocabulary; ``layers.tp_sum`` after each
-row-parallel product) and replicate the streams over ``data``. Every
-rank plans the same iterations: the host state is identical, and on the
-wall clock rank 0's ``now`` is broadcast once an iteration. The kernels'
-divisibility law is checked before any group is built
-(``kernel_partition_plan``); an MoE arch, int8 slots and gloo ranks asked
-to capture graphs on the card raise. A ``(1, 1)`` mesh builds no group and
-is bit-identical to no mesh.
+(``Rules.cache``: slots over the data-parallel axes together, heads or
+retained length over ``model``). The stages run tensor-parallel over
+``model`` (local heads, FFN hidden, inner width and vocabulary;
+``layers.tp_sum`` after each row-parallel product; an MoE layer on the
+expert placement, ``models.moe``) and replicate the streams over the
+data axes. Every rank plans the same iterations: the host state is
+identical, and on the wall clock rank 0's ``now`` is broadcast to every
+rank once an iteration. The kernels' divisibility law is checked before
+any group is built (``kernel_partition_plan``); int8 slots and gloo
+ranks asked to capture graphs on the card raise. A ``(1, 1)`` or ``(1, 1,
+1)`` mesh builds no group and is bit-identical to no mesh.
 
 Robustness and the memory multipliers, as in the reference:
 
@@ -267,8 +268,7 @@ class _Pending:
 def _check_mesh_config(cfg: ModelConfig, serve: ServeConfig) -> None:
     """What a mesh cannot serve raises before any group or device is
     touched: a kernel dimension the model axis does not divide
-    (``kernel_partition_plan``), int8 slots (the reference's reason), and
-    an MoE arch (expert parallelism, ROADMAP A5b)."""
+    (``kernel_partition_plan``) and int8 slots (the reference's reason)."""
     if serve.mesh_model > 1 and (serve.use_flash_kernel
                                  or serve.logit_mode == "fused"):
         from repro_torch.launch.sharding import kernel_partition_plan
@@ -278,11 +278,6 @@ def _check_mesh_config(cfg: ModelConfig, serve: ServeConfig) -> None:
             "kv_quant='int8' is not yet composed with mesh serving — "
             "the quantized pool's scale leaves need their own "
             "Rules.cache-derived placement (see docs/memory.md)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh needs expert parallelism (moe_impl='ep') "
-            f"and the serve-time fsdp_always expert stacks, which are not "
-            f"ported yet (ROADMAP A5b)")
 
 
 def _pow2s(hi: int) -> List[int]:
@@ -392,7 +387,8 @@ class Engine:
         pool_spec, self._pool_pad = None, 0
         if self.mesh is not None:
             params = shard_params(params, rules, self.mesh)
-            # the pool's slot axis shards over data: pad it to a multiple
+            # the pool's slot axis shards over the data axes (pod x data):
+            # pad it to a multiple
             self._pool_pad = (-(serve.max_slots + 1)) % serve.mesh_data
             pool_spec = rules.cache(
                 serve.max_slots + 1 + self._pool_pad, retain,

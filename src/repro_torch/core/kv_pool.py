@@ -39,15 +39,17 @@ that quantized view, and the Reuse entries dequantize at their KV load
 
 On a serving mesh (``mesh`` and the pool's ``Rules.cache`` ``spec``, as the
 reference's sharded pool): the slot axis, padded by ``pad_slots`` to a
-multiple of the data axis, shards over ``data`` (data rank i holds rows
+multiple of the data-parallel axes' size, shards over them together
+(``launch.mesh.data_axes``: ``data``, or ``('pod', 'data')`` on a 3-D
+mesh; data-parallel rank i holds rows
 ``[i·n, (i+1)·n)``, plus one sink row that absorbs the writes of rows it
 does not own), and within a slot the KV heads or SSM state heads are the
 rank's own (the stage computes them per shard), while a retained length
 the spec shards over ``model`` (KV heads that do not divide) is cut from
 the whole cache the stage computed. :meth:`write` stores only this rank's
 rows and shard; :meth:`gather` returns every requested row on every data
-rank (each owner contributes its rows, then one ``all_reduce`` over
-``data``: exact, every other rank adds zeros) and ``all_gather``s a cut
+rank (each owner contributes its rows, then one ``all_reduce`` over the
+data axes: exact, every other rank adds zeros) and ``all_gather``s a cut
 retained length over ``model``; a promote copy between rows of different
 data ranks travels the same way. The slot ledger stays on the host,
 identical on every rank.
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.share_ledger import ShareLedger
+from repro_torch.launch.mesh import axis_size, data_axes
 
 
 def tree_leaves(tree) -> list:
@@ -115,18 +118,19 @@ class KVPool:
         self._layout(mesh, spec, pad_slots)
 
     def _layout(self, mesh, spec, pad_slots: int) -> None:
-        """The mesh layout: rows this data rank owns, and per leaf the
-        dimension cut over ``model`` from the stage's whole cache (None:
-        none) and whether its head axis (2) is the rank's own."""
+        """The mesh layout: rows this data-parallel rank owns, and per leaf
+        the dimension cut over ``model`` from the stage's whole cache
+        (None: none) and whether its head axis (2) is the rank's own."""
         self.mesh = mesh
-        d = mesh.shape["data"] if mesh is not None else 1
+        self._dp = data_axes(mesh) if mesh is not None else ()
+        d = axis_size(mesh, self._dp) if mesh is not None else 1
         rows = self.max_slots + 1 + pad_slots
         if rows % d:
             raise ValueError(f"KVPool: {rows} rows do not divide the "
-                             f"{d}-way data axis")
+                             f"{d}-way data axes")
         self._dsplit = d > 1
         self._n_loc = rows // d
-        self._lo = (mesh.index("data") if d > 1 else 0) * self._n_loc
+        self._lo = (mesh.index(self._dp) if d > 1 else 0) * self._n_loc
         self._cut: List[Optional[int]] = []
         self._head_split: List[bool] = []
         if mesh is not None and mesh.shape["model"] > 1:
@@ -139,7 +143,7 @@ class KVPool:
 
     def _owned(self, idx: torch.Tensor):
         """(owned mask, local row) of global slot indices; rows another
-        data rank owns map to the sink row."""
+        data-parallel rank owns map to the sink row."""
         own = (idx >= self._lo) & (idx < self._lo + self._n_loc)
         return own, torch.where(own, idx - self._lo,
                                 torch.full_like(idx, self._n_loc))
@@ -296,7 +300,7 @@ class KVPool:
             def rows(t):
                 r = t.index_select(1, li)
                 mask = own.view((1, -1) + (1,) * (t.dim() - 2))
-                return mesh.all_reduce(r.masked_fill(~mask, 0), "data")
+                return mesh.all_reduce(r.masked_fill(~mask, 0), self._dp)
         else:
             def rows(t):
                 return t.index_select(1, idx)
@@ -345,12 +349,12 @@ class KVPool:
 
     def _copy_row_across(self, src: int, dst: int) -> None:
         """:meth:`_copy_row` on a data-sharded pool: a copy within one
-        data rank's rows stays local; across ranks the source row reaches
-        the destination's owner through an ``all_reduce`` over ``data``
-        (every other rank adds zeros), which every rank joins."""
+        data-parallel rank's rows stays local; across ranks the source row
+        reaches the destination's owner through an ``all_reduce`` over the
+        data axes (every other rank adds zeros), which every rank joins."""
         lo, n = self._lo, self._n_loc
         src_own, dst_own = src // n, dst // n
-        me = self.mesh.index("data")
+        me = self.mesh.index(self._dp)
         for t in tree_leaves(self.cache):
             if src_own == dst_own:
                 if me == src_own:
@@ -358,7 +362,7 @@ class KVPool:
                 continue
             row = (t.narrow(1, src - lo, 1) if me == src_own
                    else torch.zeros_like(t.narrow(1, 0, 1)))
-            row = self.mesh.all_reduce(row, "data")
+            row = self.mesh.all_reduce(row, self._dp)
             if me == dst_own:
                 t.narrow(1, dst - lo, 1).copy_(row)
 

@@ -1,14 +1,17 @@
-"""Serving meshes: the ``(data, model)`` device mesh of mesh serving, one
-process per mesh device (``repro.launch.mesh``).
+"""Serving meshes: the ``(data, model)`` or ``(pod, data, model)`` device
+mesh of mesh serving, one process per mesh device (``repro.launch.mesh``).
 
 The reference runs one process over a JAX device mesh and leaves the
 collectives to GSPMD. The port runs one process per mesh device under
 ``torch.distributed``: :func:`spawn` starts the ranks (a ``FileStore`` in a
 temp directory is their rendezvous, so concurrent runs never contend for a
 port), :func:`make_serving_mesh` builds each rank's :class:`ServingMesh`
-(``init_device_mesh`` and its ``data`` and ``model`` groups), and the model
-code calls the mesh's collectives where the reference's shardings imply
-them. The backends:
+(``init_device_mesh`` and a group per axis, plus one over the data-parallel
+axes together, :func:`data_axes`, when the pod axis is there), and the
+model code calls the mesh's collectives where the reference's shardings
+imply them. The pod axis is pure data parallelism, as in the reference: a
+collective over the data axes runs over ``('pod', 'data')`` at once. The
+backends:
 
 * the CPU: gloo;
 * CUDA, one GPU a rank: NCCL (unverified: no run of it has had two
@@ -18,8 +21,9 @@ them. The backends:
   collectives here run on host tensors. A CUDA tensor is staged through
   pinned host memory, explicitly, in :class:`ServingMesh`.
 
-A ``(1, 1)`` mesh builds no process group and issues no collective: every
-helper is the identity on a group of one, so it is bit-identical to no mesh.
+A ``(1, 1)`` or ``(1, 1, 1)`` mesh builds no process group and issues no
+collective: every helper is the identity on a group of one, so it is
+bit-identical to no mesh.
 A mesh larger than the visible GPUs raises (:func:`check_devices`); nothing
 here ever falls back to one device.
 
@@ -28,6 +32,7 @@ mesh shape over (``axis_size`` consults nothing else).
 """
 from __future__ import annotations
 
+import gc
 import os
 import shutil
 import tempfile
@@ -36,12 +41,16 @@ from typing import Callable, Optional
 
 import torch
 
-AXES = ("data", "model")
-
-
 def data_axes(mesh) -> tuple:
     """The axes batches shard over (pods fold into data parallelism)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def _prod(dims) -> int:
+    out = 1
+    for d in dims:
+        out *= int(d)
+    return out
 
 
 def axis_size(mesh, name) -> int:
@@ -72,7 +81,8 @@ def parse_mesh_env(var: str = "REPRO_MESH"):
 
 
 def parse_mesh(arg: str):
-    """A launcher's ``--mesh``: ``d,m``, ``none`` (no mesh) or ``env``
+    """A launcher's ``--mesh``: ``d,m`` or ``p,d,m``, ``none`` (no mesh) or
+    ``env``
     (:func:`parse_mesh_env`)."""
     if arg == "env":
         return parse_mesh_env()
@@ -101,9 +111,7 @@ def backend_for(device: torch.device, colocate: bool) -> str:
 def check_devices(mesh_shape, device, *, colocate: bool = False) -> None:
     """Raise ``ValueError`` when ``mesh_shape`` needs more GPUs than are
     visible (co-located ranks need one)."""
-    world = 1
-    for d in mesh_shape:
-        world *= int(d)
+    world = _prod(mesh_shape)
     if torch.device(device).type != "cuda":
         return
     need = 1 if colocate else world
@@ -117,20 +125,22 @@ def check_devices(mesh_shape, device, *, colocate: bool = False) -> None:
 
 
 class ServingMesh:
-    """One rank's view of the ``(data, model)`` mesh: its coordinates, the
-    per-axis groups and the collectives the model code calls. Every
-    collective is the identity on an axis of size 1."""
-
-    axis_names = AXES
+    """One rank's view of the ``(data, model)`` or ``(pod, data, model)``
+    mesh: its coordinates (row-major over the axes), the groups and the
+    collectives the model code calls. A collective names one axis or a
+    tuple of axes (:func:`data_axes`), and is the identity when their
+    combined size is 1."""
 
     def __init__(self, shape, device, rank: int = 0, groups=None,
                  backend: Optional[str] = None):
         self.dims = tuple(int(d) for d in shape)
-        self.shape = dict(zip(AXES, self.dims))
-        self.size = self.dims[0] * self.dims[1]
+        self.axis_names = _axes_for(len(self.dims))
+        self.shape = dict(zip(self.axis_names, self.dims))
+        self.size = _prod(self.dims)
         self.rank = rank
-        self.coords = {"data": rank // self.dims[1],
-                       "model": rank % self.dims[1]}
+        self.coords, r = {}, rank
+        for a, n in reversed(list(zip(self.axis_names, self.dims))):
+            self.coords[a], r = r % n, r // n
         self.device = torch.device(device)
         self.backend = backend
         self._groups = groups or {}
@@ -143,8 +153,22 @@ class ServingMesh:
         self.collective_s = 0.0
         self.collectives = 0
 
-    def index(self, axis: str) -> int:
-        return self.coords[axis]
+    def index(self, axis) -> int:
+        """This rank's index on ``axis``, or on a tuple of axes combined
+        major to minor."""
+        if isinstance(axis, str):
+            return self.coords[axis]
+        idx = 0
+        for a in axis:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def _group(self, axis):
+        """The process group of ``axis`` (a name or a tuple of names); the
+        axes of size 1 in a tuple drop out."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        axes = tuple(a for a in axes if self.shape[a] > 1)
+        return self._groups[axes[0] if len(axes) == 1 else axes]
 
     def _collective(self, x: torch.Tensor, run: Callable) -> torch.Tensor:
         """``run(t)`` on ``x`` or its host copy, timed; bool tensors travel
@@ -167,34 +191,37 @@ class ServingMesh:
         self.collectives += 1
         return out
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``x`` over ``axis``; a new tensor."""
-        if self.shape[axis] == 1:
+    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The sum of ``x`` over ``axis`` (a name or a tuple of names); a
+        new tensor."""
+        if axis_size(self, axis) == 1:
             return x
         import torch.distributed as dist
+        group = self._group(axis)
 
         def run(t):
             t = t.clone()
-            dist.all_reduce(t, group=self._groups[axis])
+            dist.all_reduce(t, group=group)
             return t
         return self._collective(x, run)
 
-    def all_gather(self, x: torch.Tensor, axis: str,
+    def all_gather(self, x: torch.Tensor, axis,
                    dim: int = 0) -> torch.Tensor:
-        """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
-        the axis's rank order."""
-        n = self.shape[axis]
+        """Every rank's ``x`` along ``axis`` (a name or a tuple of names),
+        concatenated on ``dim`` in the order of :meth:`index`."""
+        n = axis_size(self, axis)
         if n == 1:
             return x
         import torch.distributed as dist
+        group = self._group(axis)
 
         def run(t):
             parts = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(parts, t, group=self._groups[axis])
+            dist.all_gather(parts, t, group=group)
             return torch.cat(parts, dim=dim)
         return self._collective(x, run)
 
-    def stack_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def stack_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Every rank's ``x`` along ``axis``, stacked on a new leading
         dim."""
         return self.all_gather(x[None], axis, dim=0)
@@ -273,25 +300,26 @@ def make_serving_mesh(mesh_shape, device, *, colocate: bool = False):
     """This process's :class:`ServingMesh` for ``mesh_shape`` (None: no
     mesh). A one-device mesh needs no process group. A larger one must run
     on ranks :func:`spawn` started (one process a device, the world the
-    mesh's size): it takes their groups from ``init_device_mesh``. Raises
-    when the GPUs, the world or the backend do not match the mesh."""
+    mesh's size): it takes a group per axis from ``init_device_mesh`` and,
+    on a ``(pod, data, model)`` mesh whose pod and data axes both split,
+    one over the two together (``new_group``, every rank creating every
+    such group in the same order). Raises when the GPUs, the world or the backend do not match
+    the mesh."""
     if not mesh_shape:
         return None
     shape = tuple(int(d) for d in mesh_shape)
-    if len(shape) != 2:
-        _axes_for(len(shape))
-        raise ValueError(f"a serving mesh is (data, model); got {shape} "
-                         f"(the pod axis is not served)")
+    axes = _axes_for(len(shape))
     dev = torch.device(device)
-    world = shape[0] * shape[1]
+    world = _prod(shape)
     if world == 1:
         return ServingMesh(shape, dev)
     check_devices(shape, dev, colocate=colocate)
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_world_size() != world:
         raise RuntimeError(
-            f"a {shape[0]}x{shape[1]} mesh runs one process per device: "
-            f"start its {world} ranks through repro_torch.launch.mesh.spawn")
+            f"a {'x'.join(map(str, shape))} mesh runs one process per "
+            f"device: start its {world} ranks through "
+            f"repro_torch.launch.mesh.spawn")
     backend = dist.get_backend()
     want = backend_for(dev, colocate)
     if backend != want:
@@ -300,9 +328,17 @@ def make_serving_mesh(mesh_shape, device, *, colocate: bool = False):
                          f"{want}, not {backend}")
     from torch.distributed.device_mesh import init_device_mesh
     dmesh = init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
-                             mesh_dim_names=AXES)
-    groups = {a: dmesh.get_group(a) for a in AXES}
-    return ServingMesh(shape, dev, dist.get_rank(), groups, backend)
+                             mesh_dim_names=axes)
+    groups = {a: dmesh.get_group(a) for a in axes}
+    rank = dist.get_rank()
+    if len(shape) == 3 and min(shape[:2]) > 1:
+        # the data-parallel axes together: the ranks of one model index
+        m = shape[-1]
+        for j in range(m):
+            g = dist.new_group(list(range(j, world, m)))
+            if rank % m == j:
+                groups[("pod", "data")] = g
+    return ServingMesh(shape, dev, rank, groups, backend)
 
 
 def serving_mesh(mesh_shape, device) -> Optional[ServingMesh]:
@@ -312,7 +348,7 @@ def serving_mesh(mesh_shape, device) -> Optional[ServingMesh]:
     if not mesh_shape:
         return None
     shape = tuple(int(d) for d in mesh_shape)
-    if shape[0] * shape[-1] == 1 and len(shape) == 2:
+    if _prod(shape) == 1:
         return ServingMesh(shape, device)
     mesh = _ACTIVE
     if mesh is None or mesh.dims != shape:
@@ -328,7 +364,7 @@ def _rank_main(rank: int, fn: Callable, shape: tuple, device: str,
                colocate: bool, tmp: str, threads: int, args: tuple) -> None:
     import torch.distributed as dist
     torch.set_num_threads(threads)
-    world = shape[0] * shape[1]
+    world = _prod(shape)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", 0 if colocate else rank)
@@ -342,25 +378,31 @@ def _rank_main(rank: int, fn: Callable, shape: tuple, device: str,
         out = fn(mesh, *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
+        # every reference to the groups and the store goes before they are
+        # destroyed, so that their threads end here and not in the
+        # interpreter's teardown, where gloo has aborted a finished rank
         activate(None)
+        mesh = out = None
+        gc.collect()
         dist.destroy_process_group()
+        del store
+        gc.collect()
 
 
 def spawn(fn: Callable, mesh_shape, device="cpu", *args,
           colocate: bool = False) -> list:
     """Run ``fn(mesh, *args)`` on one process per device of ``mesh_shape``
     (``torch.multiprocessing``, spawned) and return each rank's result, in
-    rank order (rank = data index · model size + model index). ``fn`` must
+    rank order (row-major over the mesh's axes: rank = data index · model
+    size + model index on ``(data, model)``). ``fn`` must
     be importable by name; results travel through ``torch.save``. Each rank
     caps torch's threads at its share of this process's. A rank that
     raises ends the others, and its error propagates here."""
     import torch.multiprocessing as mp
     shape = tuple(int(d) for d in mesh_shape)
-    if len(shape) != 2:
-        _axes_for(len(shape))
-        raise ValueError(f"a serving mesh is (data, model); got {shape}")
+    _axes_for(len(shape))
     check_devices(shape, device, colocate=colocate)
-    world = shape[0] * shape[1]
+    world = _prod(shape)
     tmp = tempfile.mkdtemp(prefix="repro_mesh_")
     try:
         threads = max(1, torch.get_num_threads() // world)

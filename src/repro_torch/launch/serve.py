@@ -37,9 +37,9 @@ JSON adds ``graph_replays`` (replays per entry) and ``graph_pool_bytes``
 (the captured graphs' shared memory pool; 0 without graphs). Keys whose
 feature the port does not have carry the reference's "off" value.
 
-Mesh serving, as the reference's launcher: ``--mesh d,m`` (or
-``REPRO_MESH=d,m``; ``--mesh none`` forces one device) serves on a
-``(data, model)`` mesh, one rank a device (``launch.mesh.spawn``: NCCL on
+Mesh serving, as the reference's launcher: ``--mesh d,m`` or ``--mesh
+p,d,m`` (or ``REPRO_MESH``; ``--mesh none`` forces one device) serves on a
+``(data, model)`` or ``(pod, data, model)`` mesh, one rank a device (``launch.mesh.spawn``: NCCL on
 the card, one GPU a rank; gloo on the CPU), each sized and billed per
 device; rank 0's JSON carries ``mesh_shape`` and ``mesh_devices``. A mesh
 larger than the visible GPUs raises ``ValueError`` before any rank starts.
@@ -80,6 +80,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import time
 from typing import Optional, Tuple
@@ -205,13 +206,13 @@ def run_serve(arch: str, system: str, workload: str, rps: float, n: int,
     ``device`` picks where the engine runs; ``n_layers`` cuts the arch's
     depth (what is served and what the profiler plans). A profiler-sized
     serve is billed on the device after warmup, and re-sized or refused
-    when it does not fit. ``mesh_shape`` serves on a ``(data, model)``
-    mesh: the call spawns one rank a device, each runs this function, and
-    rank 0's result comes back."""
+    when it does not fit. ``mesh_shape`` serves on a ``(data, model)`` or
+    ``(pod, data, model)`` mesh: the call spawns one rank a device, each
+    runs this function, and rank 0's result comes back."""
     if mesh_shape:
         mesh_shape = tuple(int(d) for d in mesh_shape)
         M.check_devices(mesh_shape, device)
-        if mesh_shape[0] * mesh_shape[-1] > 1 and M.active() is None:
+        if math.prod(mesh_shape) > 1 and M.active() is None:
             kw = dict(locals())         # every argument of this call
             return M.spawn(_serve_rank, mesh_shape, device, kw)[0]
         if M.active() is not None:
@@ -422,7 +423,7 @@ def main():
                     help="print a commit event per request at each "
                          "iteration's sync")
     ap.add_argument("--mesh", default="env",
-                    help="serving mesh: 'd,m', 'none', or 'env' "
+                    help="serving mesh: 'd,m', 'p,d,m', 'none', or 'env' "
                          "(REPRO_MESH, else none); one rank a device")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()

@@ -5,18 +5,24 @@ The same trace (all arrivals at 0, so planning depends only on budget and
 slot state, never on the clock) is served twice:
 
 1. the one-device engine (no mesh), in this process;
-2. the same engine on a ``(data, model)`` mesh, one rank a device
+2. the same engine on a ``(data, model)`` or ``(pod, data, model)`` mesh,
+   one rank a device
    (``launch.mesh.spawn``): weights cut by ``Rules.params``, the slot pool
-   by ``Rules.cache``, the logit stage vocab-parallel.
+   by ``Rules.cache``, the logit stage vocab-parallel, an MoE layer on
+   the reference's expert placement.
 
 They must agree on the committed token ids (exact), the ``EngineStats``
 token counters of :data:`COUNTERS` (exact), the slot pool over the real
 and scratch slots (:func:`pool_close`: the model axis's sums reorder float
-additions) and ``mesh_devices`` (the mesh's size: it never collapses).
+additions) and ``mesh_devices`` (the mesh's size: it never collapses);
+and each rank must hold the parameter bytes the memory plan bills a
+device (``budgeting.weight_bytes_per_device``).
 
 On the CPU (gloo ranks):
   PYTHONPATH=src python -m repro_torch.launch.shard_check --arch llada-8b \\
       --device cpu --mesh 1,2 [--kernels] [--padded] [--sharing --n 6]
+  PYTHONPATH=src python -m repro_torch.launch.shard_check \
+      --arch phi3.5-moe-42b-a6.6b --device cpu --mesh 2,1,1
 On one card, the ranks co-located over gloo (eager, no graphs):
   PYTHONPATH=src python -m repro_torch.launch.shard_check --arch llada-8b \\
       --device cuda --colocate --kernels
@@ -31,9 +37,12 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.core.baselines import system_profiles
+from repro_torch.core.budgeting import weight_bytes_per_device
 from repro_torch.core.engine import Engine
 from repro_torch.core.kv_pool import tree_leaves
 from repro_torch.launch import mesh as M
@@ -48,13 +57,18 @@ SHARING = ("shared_hits", "shared_cow_promotes", "phys_slots_peak")
 
 
 def serve_config(varlen: bool = True, kernels: bool = False,
-                 sharing: bool = False) -> ServeConfig:
-    """The reference tool's serve config."""
+                 sharing: bool = False, system: str = None) -> ServeConfig:
+    """The reference tool's serve config; ``system`` (a baseline or
+    dllm-serve) takes its profile over the padded base in place of
+    ``varlen``'s choice."""
     serve = ServeConfig(
         max_num_batched_tokens=512, max_num_logits=64, block_size=8,
         steps_per_block=8, max_seq_len=128, max_slots=8,
         max_refresh_per_iter=2, logit_mode="chunked",
         varlen_pack=varlen, token_bucket=64, prefix_sharing=sharing)
+    if system is not None:
+        serve = system_profiles(dataclasses.replace(
+            serve, varlen_pack=False))[system]
     if kernels:
         serve = dataclasses.replace(serve, use_flash_kernel=True,
                                     logit_mode="fused")
@@ -126,7 +140,11 @@ def _mesh_rank(mesh, cfg, serve, prompts, seed, warmup, clock,
     if mesh.rank:
         rec.pop("pool")
     rec.update(serve_s=serve_s, collective_s=mesh.collective_s,
-               collectives=mesh.collectives)
+               collectives=mesh.collectives,
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in eng.params.parameters()),
+               peak_bytes=(torch.cuda.max_memory_allocated(mesh.device)
+                           if mesh.device.type == "cuda" else None))
     return rec
 
 
@@ -188,15 +206,17 @@ def pool_error(ref: dict, got: dict, n_slots: int) -> tuple:
 def check(arch: str, mesh_shape, n: int = 5, seed: int = 0,
           varlen: bool = True, warmup: bool = False, kernels: bool = False,
           sharing: bool = False, device="cuda", colocate: bool = False,
-          cfg: ModelConfig = None, clock=None, params=None) -> dict:
+          cfg: ModelConfig = None, clock=None, params=None,
+          system: str = None) -> dict:
     """Serve the trace on one device, then on ``mesh_shape``, and compare.
     ``cfg`` replaces the reduced config of ``arch`` (the card's checks run
     a full-width one); ``params`` (a numpy parameter tree) replaces the
-    weights drawn from ``seed``; ``clock`` the engines' clock. Returns the
+    weights drawn from ``seed``; ``clock`` the engines' clock; ``system``
+    serves a system's profile (:func:`serve_config`). Returns the
     reference tool's record, with each run's seconds and the mesh ranks'
     collective seconds."""
     cfg = cfg if cfg is not None else reduced(ARCHS[arch])
-    serve = serve_config(varlen, kernels, sharing)
+    serve = serve_config(varlen, kernels, sharing, system)
     prompts = trace_prompts(cfg, n, seed, duplicate=sharing)
     # the one-device anchor first, in this process, its launches counted
     from repro_torch.kernels import build
@@ -224,8 +244,14 @@ def check(arch: str, mesh_shape, n: int = 5, seed: int = 0,
                 diffs.append(f"rank {r} token ids diverge on rid={rid}")
         if rec["stats"] != got["stats"]:
             diffs.append(f"rank {r} counters differ from rank 0's")
+    plan_bytes = weight_bytes_per_device(cfg, mesh_shape)
+    for r, rec in enumerate(ranks):
+        if rec["param_bytes"] != plan_bytes:
+            diffs.append(f"rank {r} holds {rec['param_bytes']} parameter "
+                         f"bytes, the plan bills {plan_bytes} a device")
     return dict(
-        arch=arch, varlen=varlen, mesh=list(mesh_shape),
+        arch=arch, varlen=serve.varlen_pack, system=system,
+        mesh=list(mesh_shape),
         mesh_devices=got["mesh_devices"], n=n, kernels=kernels,
         kernels_active=bool(kernels), sharing=sharing,
         shared_hits=got["stats"]["shared_hits"],
@@ -235,6 +261,9 @@ def check(arch: str, mesh_shape, n: int = 5, seed: int = 0,
         rank_serve_s=[r["serve_s"] for r in ranks],
         rank_collective_s=[r["collective_s"] for r in ranks],
         rank_collectives=[r["collectives"] for r in ranks],
+        plan_weight_bytes=plan_bytes,
+        rank_param_bytes=[r["param_bytes"] for r in ranks],
+        rank_peak_bytes=[r["peak_bytes"] for r in ranks],
         one_device_launches=ref["launches"],
         rank_launches=[r["launches"] for r in ranks],
         tokens=[t.tolist() for t in got["tokens"]], stats=got["stats"],
@@ -246,7 +275,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llada-8b")
     ap.add_argument("--mesh", default=None,
-                    help="'d,m' (default: REPRO_MESH, else 1,2)")
+                    help="'d,m' or 'p,d,m' (default: REPRO_MESH, else "
+                         "1,2)")
     ap.add_argument("--n", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--padded", action="store_true",

@@ -1,19 +1,28 @@
 """Sharding rules: the parameter and serving-cache partition specs of any
-arch on a ``(data, model)`` mesh, as ``repro.launch.sharding``.
+arch on a ``(data, model)`` or ``(pod, data, model)`` mesh, as
+``repro.launch.sharding``.
 
 Strategy (the reference's):
 
 * **TP** over ``model``: attention heads, the FFN hidden, the SSM inner
-  width (when the state heads divide), and the vocabulary (embedding table
-  and output head).
-* **FSDP** over ``data`` in training only; serving replicates the weights
-  over ``data``.
+  width (when the state heads divide), the vocabulary (embedding table
+  and output head), and the MoE experts.
+* **FSDP** over ``data`` in training; serving replicates the weights over
+  ``data``, except the MoE expert stacks (``fsdp_always``). The pod axis
+  is pure data parallelism: no weight shards over it.
+* **The MoE placement, as the reference computes it**: ``w_gate`` /
+  ``w_up`` ``[nl, E, D, F]`` split ``E`` over ``model`` and ``D`` over
+  ``data``; ``w_down`` ``[nl, E, F, D]`` fails the reference's
+  ``shape[-3] == F`` test (``shape[-3]`` is ``E``) and so takes the dense
+  rule, ``F`` over ``model`` with every expert on every rank; the router
+  is whole. ``models.moe`` computes on this placement.
 * **Divisibility**: a dimension is sharded only when the axis divides it
   exactly; otherwise it stays whole on every rank (gemma-2b's one KV head
   on a 2-way model axis).
 
-Serving caches: the slot pool shards its slot axis over ``data``
-(``slot_data_parallel``) and, within a slot, the KV heads over ``model``
+Serving caches: the slot pool shards its slot axis over the data axes
+(``slot_data_parallel``: ``data``, or ``('pod', 'data')``) and, within a
+slot, the KV heads over ``model``
 when they divide, else the retained length (the idle-TP fallback); SSM
 states shard over their heads, conv tails stay whole. The streams a stage
 computes use the same within-slot layout with the slot axis whole
@@ -167,9 +176,9 @@ class Rules:
                   data_parallel: bool = True,
                   slot_data_parallel: bool = False):
         """PackedKV specs: ``[L, B, K, R, dh]`` (pos/valid ``[L, B, K,
-        R]``). ``data_parallel=False`` keeps ``data`` out of batch and
-        retained length (the engine's streams); ``slot_data_parallel``
-        then shards the slot axis over ``data`` (the engine's pool)."""
+        R]``). ``data_parallel=False`` keeps the data axes out of batch
+        and retained length (the engine's streams); ``slot_data_parallel``
+        then shards the slot axis over them (the engine's pool)."""
         from repro_torch.models.sparse_select import PackedKV
         cfg = self.cfg
         dpn = axis_size(self.mesh, self.dp)

@@ -1,10 +1,10 @@
 """Mesh serving on the CPU, held to the one-device serve (the sharding
 oracle of ``tests/test_mesh_serving.py``, on the port).
 
-* In process: a ``(1, 1)`` mesh is bit-identical to no mesh (ids,
-  counters, the pool byte for byte), with the plain paths and with the
-  kernel flags (their CPU plain versions); every refusal of a mesh is
-  raised before it could serve anything else.
+* In process: a ``(1, 1)`` or ``(1, 1, 1)`` mesh is bit-identical to no
+  mesh (ids, counters, the pool byte for byte), with the plain paths and
+  with the kernel flags (their CPU plain versions); every refusal of a
+  mesh is raised before it could serve anything else.
 * On two gloo ranks (``python -m repro_torch.launch.shard_check``, the
   reference suite's parametrisation, split with
   ``test_torch_mesh_check.py`` so that ``--dist loadfile`` runs the two
@@ -35,16 +35,18 @@ def test_1x1_mesh_bit_identical_to_no_mesh(kernels):
     serve = SC.serve_config(kernels=kernels)
     prompts = SC.trace_prompts(cfg, 4, 0)
     recs = []
-    for mesh in (None, (1, 1)):
+    for mesh in (None, (1, 1), (1, 1, 1)):
         s = dataclasses.replace(serve, mesh_shape=mesh)
         eng, reqs, stats = SC.serve_trace(cfg, s, prompts, 0, False, "cpu")
         recs.append(SC._record(eng, reqs, stats, pool=True))
-    a, b = recs
-    assert b["mesh_devices"] == 1
-    assert all(np.array_equal(x, y) for x, y in zip(a["tokens"],
-                                                    b["tokens"]))
-    assert a["stats"] == b["stats"]
-    assert all(np.array_equal(x, y) for x, y in zip(a["pool"], b["pool"]))
+    a = recs[0]
+    for b in recs[1:]:
+        assert b["mesh_devices"] == 1
+        assert all(np.array_equal(x, y) for x, y in zip(a["tokens"],
+                                                        b["tokens"]))
+        assert a["stats"] == b["stats"]
+        assert all(np.array_equal(x, y) for x, y in zip(a["pool"],
+                                                        b["pool"]))
 
 
 def test_mesh_engine_rejects_indivisible_kernel_dims():
@@ -65,15 +67,12 @@ def test_mesh_engine_rejects_indivisible_kernel_dims():
 
 
 def test_mesh_refusals(monkeypatch):
-    """Each refusal fails loudly, never serving on one device: an MoE arch
-    (A5b), int8 slots, a mesh larger than the visible GPUs (the launcher,
-    before any rank starts), gloo ranks asked to capture graphs on the
-    card, and a rank that raises (its error reaches the spawner)."""
+    """Each refusal fails loudly, never serving on one device: int8 slots,
+    a mesh larger than the visible GPUs (the launcher, before any rank
+    starts), gloo ranks asked to capture graphs on the card, a rank that
+    raises (its error reaches the spawner), and the expert-parallel MoE
+    without a mesh (the reference's ``assert mesh is not None``)."""
     base = SC.serve_config()
-    moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
-    with pytest.raises(NotImplementedError, match="A5b"):
-        Engine(moe, dataclasses.replace(base, mesh_shape=(1, 2)),
-               device="cpu")
     llada = reduced(get_config("llada-8b"))
     with pytest.raises(NotImplementedError, match="int8"):
         Engine(llada, dataclasses.replace(base, mesh_shape=(1, 2),
@@ -94,10 +93,14 @@ def test_mesh_refusals(monkeypatch):
     finally:
         M.activate(None)
     monkeypatch.undo()
-    serve = dataclasses.replace(base, mesh_shape=(1, 2))
-    with pytest.raises(ProcessRaisedException, match="A5b"):
-        M.spawn(SC._mesh_rank, (1, 2), "cpu", moe, serve,
-                SC.trace_prompts(moe, 1, 0), 0, False, None, None)
+    serve = dataclasses.replace(base, mesh_shape=(1, 2), kv_quant="int8")
+    with pytest.raises(ProcessRaisedException, match="int8"):
+        M.spawn(SC._mesh_rank, (1, 2), "cpu", llada, serve,
+                SC.trace_prompts(llada, 1, 0), 0, False, None, None)
+    ep = dataclasses.replace(reduced(get_config("phi3.5-moe-42b-a6.6b")),
+                             moe_impl="ep")
+    with pytest.raises(ValueError, match="serving mesh"):
+        Engine(ep, base, device="cpu").warmup()
 
 
 @pytest.mark.parametrize("arch,extra", [

@@ -159,9 +159,9 @@ def test_init_params_shapes_match_reference():
 
 
 def test_unported_paths_raise():
-    """The MoE layers' expert-parallel strategy (a device mesh) is not
-    ported: both Refresh paths refuse it and name its ROADMAP item (the
-    ``gather`` strategy serves, see ``test_torch_moe.py``); an unknown
+    """The MoE layers' expert-parallel strategy needs a serving mesh: both
+    Refresh paths refuse it without one, as the reference's asserts one
+    (it serves on a mesh, see ``test_torch_moe_mesh.py``); an unknown
     logit mode is refused."""
     _, tcfg = _cfgs(4)
     moe = dataclasses.replace(tcfg, family="moe", n_experts=4,
@@ -172,11 +172,11 @@ def test_unported_paths_raise():
     pos = torch.arange(8, dtype=torch.int32)[None]
     seg = torch.zeros(1, 8, dtype=torch.int32)
     one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="serving mesh"):
         TT.forward_full_packed(tp["stack"], moe, x, pos, seg,
                                torch.ones(1, 8, dtype=torch.bool), one,
                                one + 8, one, ctx)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="serving mesh"):
         TT.forward_full(tp["stack"], moe, x, pos)
     with pytest.raises(ValueError):
         TLM.decode_tokens_packed({}, tcfg, x[0], torch.ones(8, dtype=bool),

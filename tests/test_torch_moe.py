@@ -144,12 +144,6 @@ def test_moe_ffn_matches_reference(case, tie):
     assert drops == (tie or tcfg.capacity_factor < 1.0)
 
 
-def test_moe_ep_raises():
-    _, tcfg = _cfgs(PHI, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TM.moe_ffn({}, torch.zeros(2, 3, tcfg.d_model), tcfg)
-
-
 @pytest.mark.parametrize("arch", [PHI, QWEN])
 def test_params_and_weight_bytes_match_reference(arch):
     """At full size, shapes only: the stack gains the router and the

@@ -18,6 +18,9 @@ this module before they build anything.
 * **Shard checks.** :func:`shard_check` runs ``python -m
   repro_torch.launch.shard_check`` on two gloo ranks of the CPU and holds
   its record to the tool's law (the mesh files share it).
+* **MoE ranks.** :func:`moe_rank` runs one MoE layer on a rank of
+  ``launch.mesh.spawn`` (a function of its own module, so a spawned rank
+  imports it without the test file's JAX imports).
 """
 from __future__ import annotations
 
@@ -82,3 +85,35 @@ def shard_check(arch: str, extra, tmp_path) -> dict:
     if "--sharing" in extra:
         assert rec["shared_hits"] > 0, rec
     return rec
+
+
+def moe_rank(mesh, cfg, stack: dict, x: np.ndarray, layer: int = 0) -> dict:
+    """One rank's MoE layer on ``mesh``: ``stack`` (the ``[nl, ...]`` expert
+    stacks as numpy arrays) cut to the rank's shards as the engine cuts
+    them (``params.shard_cut``), then ``moe_ffn`` on ``x`` at ``layer``.
+    Returns the output, the aux loss, each dispatch the call made (slot,
+    keep, token of each slot), the bytes of the rank's stacks and its
+    collectives."""
+    from repro_torch.launch.sharding import Rules
+    from repro_torch.models import moe as TM
+    from repro_torch.params import shard_cut
+    cut = shard_cut(Rules(cfg, mesh, train=False), mesh)
+    held = {k: cut(f"stack/{k}", torch.tensor(v))
+            for k, v in stack.items()}
+    seen, dispatch = [], TM._dispatch_indices
+
+    def record(*args):
+        out = dispatch(*args)
+        seen.append([t.numpy().copy() for t in out])
+        return out
+    TM._dispatch_indices = record
+    try:
+        out, aux = TM.moe_ffn({k: v[layer] for k, v in held.items()},
+                              torch.from_numpy(x), cfg)
+    finally:
+        TM._dispatch_indices = dispatch
+    return dict(out=out.numpy(), aux=float(aux), dispatch=seen,
+                shapes={k: tuple(v.shape) for k, v in held.items()},
+                bytes=sum(v.numel() * v.element_size()
+                          for v in held.values()),
+                collectives=mesh.collectives)
