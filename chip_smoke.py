@@ -84,7 +84,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      int8 at 24 GB and at the card's memory), and two serves at
      run_serve's default 24 GB with the slot cap raised to 64, bf16 and
      int8 slots, whose device bills (the engine's slot pool, the graph
-     pool and the staging beside the plan's weights and reservation),
+     pool and the staging beside the engine's weights and the plan's
+     reservation),
      re-sizes and allocator peaks are logged; each peak must stay under
      24 GiB;
      serve: run_serve of the full llada-8b, zamba2-7b, mamba2-130m,
@@ -146,7 +147,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      eight kernels' counters at 0 over each run; step time, tokens a
      second, the peak beside 16 bytes a parameter and the share of 989
      TFLOP/s are logged;
-  7. the kernels line, the card line, and the result line.
+  7. tooling: the lint over src/repro_torch finds nothing; the retrace
+     sentinel (analysis.retrace.check_engine) passes the graphs phase's
+     graphed llada-8b dllm-serve (no build after warmup); the meta dry
+     run's records of llada-8b decode_32k and qwen2-72b prefill_32k at
+     16x16 and qwen3-moe decode_32k at 2x16x16; rank 0's qwen2-72b serve
+     shard at 16x16, drawn on the card leaf by leaf, asks the allocator
+     for exactly the dry run's parameter bytes (requested bytes; its
+     blocks each rounded up to 512 B, or a cached block whole); a
+     llada-8b padded Reuse at full width (4 layers, B = 4, 1,024 retained
+     rows, the plain calls) peaks on the card within 10% of the meta
+     tracker's temp bytes, both for those calls and for ``serve_reuse``,
+     the figure the dry run records;
+  8. the kernels line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
@@ -155,7 +168,9 @@ script exits non-zero before printing any result.
 
 runs phases 1-3 alone and prints the kernels line without launch counts and
 without the result line: copied into another checkout, it times that
-tree's kernels by this script's method.
+tree's kernels by this script's method. That checkout needs
+``repro_torch.roofline``, which holds the card's peaks that the bounds
+read.
 """
 from __future__ import annotations
 
@@ -181,8 +196,12 @@ os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
 
 import torch  # noqa: E402
 
-PEAK_BYTES_S = 3.35e12            # H100 SXM HBM3
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the card's datasheet peaks live in one place, the port's roofline
+from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS,  # noqa: E402
+                                           PEAK_FLOPS_F32)
+
+PEAK_BYTES_S = HBM_BW
+PEAK_OPS_S = {torch.bfloat16: PEAK_FLOPS, torch.float32: PEAK_FLOPS_F32}
 SLEEP_CYCLES = 40_000_000         # ~20 ms of device backlog at H100 clocks
 
 
@@ -1138,6 +1157,9 @@ LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "qwen3-moe-235b-a22b": 8,
 # the graphs phase's depth: graphed = eager is a property of the stage
 # entries, which every layer repeats, so its serves run a few layers of
 # each arch at full width (the serve phase keeps the depths above)
+# the retrace sentinel's report of each graphs-phase serve at its profile's
+# kernels, (arch, system) -> RetraceReport; the tooling phase reads it
+RETRACE = {}
 GRAPH_LAYERS = {"llada-8b": 8, "zamba2-7b": 12, "phi3.5-moe-42b-a6.6b": 8,
                 "gemma2-27b": 12, "musicgen-medium": 12}
 
@@ -1289,6 +1311,7 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
     ``n_layers`` cuts the arch's depth."""
     import dataclasses
     import numpy as np
+    from repro_torch.analysis.retrace import check_engine
     from repro_torch.core.engine import Engine
     from repro_torch.core.faults import FaultPlan
     from repro_torch.data.workloads import make_trace, trace_prompts
@@ -1331,6 +1354,9 @@ def graphs_vs_eager(arch, system, n_req, serve_kw, hbm_gb, own_logits=False,
         build.reset_counters()
         st = eng.run()
         torch.cuda.synchronize()
+        if graphs and feature is None and not own_logits:
+            # the retrace sentinel's audit of this graphed serve
+            RETRACE[(arch, system)] = check_engine(eng)
         out[graphs] = dict(
             tokens=[r.tokens.copy() for r in reqs], vtime=eng.vtime,
             counters={k: getattr(st, k) for k in GRAPH_COUNTERS},
@@ -2719,6 +2745,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     train_phase(dev, card)
     log(f"phase train: {time.perf_counter() - t0:.3f} s")
+    # 7. the tooling: the lint, the retrace sentinel, the meta dry run and
+    # its bytes held against the card's allocator
+    t0 = time.perf_counter()
+    tooling_phase(dev, card)
+    log(f"phase tooling: {time.perf_counter() - t0:.3f} s")
     launches["head_score"] = {}
     for name, r in results.items():
         r["launches"] = sum(launches[name].values())
@@ -2736,6 +2767,192 @@ def main(argv) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def plain_reuse(params, cfg, btok, bpos, cache, ctx):
+    """``backbone.serve_reuse``'s plain path, call for call: the embedding,
+    each layer's ``reuse_attention_layer`` (kernel off) and MLP, the final
+    norm. ``serve_reuse`` itself refuses the plain path on the card
+    (``_check_kernel_path``); on meta tensors it runs the same calls, but
+    holds the embedding and the stack's output a little longer."""
+    from repro_torch.models import backbone as BB
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm_head as LM
+    from repro_torch.models import transformer as T
+    xb = LM.embed_tokens(params["embed"], btok, cfg.vocab_size)
+    cos, sin = L.rope_tables(bpos, cfg.resolved_head_dim, cfg.rope_theta)
+    flags = L.layer_flags(cfg)
+    for i in range(cfg.n_layers):
+        p = T.layer_params(params["stack"], i)
+        xb = T.reuse_attention_layer(
+            p, xb, cfg, cos, sin, bpos, flags[i], cache.k[i], cache.v[i],
+            cache.pos[i], cache.valid[i], BB.mask_mode(cfg),
+            use_kernel=False, concat=ctx.reuse_concat)
+        y, _ = T._mlp(p, L.rms_norm(xb, p["mlp_norm"], cfg.rms_eps), cfg)
+        xb = xb + y
+    return BB._final(params, cfg, xb)
+
+
+def tooling_phase(dev, card):
+    """The port's tooling, checked on the card: the lint over
+    ``src/repro_torch`` finds nothing; the retrace sentinel passes the
+    graphed llada-8b dllm-serve of the graphs phase; three dry-run cells
+    on the meta device (llada-8b decode_32k and qwen2-72b prefill_32k at
+    16x16, qwen3-moe decode_32k at 2x16x16) give their records; rank 0's
+    qwen2-72b serve shard at 16x16, drawn on the card, asks the
+    allocator for exactly the dry run's parameter bytes (its blocks: each
+    leaf rounded up to 512 B, a cached block with at most 1 MiB over
+    handed out whole); and a llada-8b padded Reuse at full width
+    (4 layers, B = 4, 1,024 retained rows, kernels off: serve_reuse's
+    plain calls, :func:`plain_reuse`) peaks on the card within 10% of
+    the meta tracker's temp bytes for the same calls, and within 10% of
+    its temp bytes for ``serve_reuse`` itself, the figure the dry run
+    records."""
+    import dataclasses
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import Rules
+    from repro_torch.models import backbone as BB
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sparse_select import PackedKV
+    from repro_torch.params import init_params, shard_cut
+
+    t0 = time.perf_counter()
+    lint = run_lint()
+    log(json.dumps(dict(phase="tooling", check="lint",
+                        files=lint.files_scanned,
+                        findings=[str(f) for f in lint.findings],
+                        suppressed=len(lint.suppressed),
+                        seconds=time.perf_counter() - t0)))
+    assert lint.ok, lint.findings
+
+    retrace = RETRACE[("llada-8b", "dllm-serve")]
+    log(json.dumps(dict(phase="tooling", check="retrace",
+                        arch="llada-8b", system="dllm-serve",
+                        **retrace.to_dict())))
+    assert retrace.ok, retrace.violations
+
+    recs = {}
+    for arch, shape, multi_pod in (("llada-8b", "decode_32k", False),
+                                   ("qwen2-72b", "prefill_32k", False),
+                                   ("qwen3-moe-235b-a22b", "decode_32k",
+                                    True)):
+        rec = D.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+        recs[arch] = rec
+        log(json.dumps(dict(phase="tooling", check="dryrun", record=rec)))
+        assert rec["ok"] and rec["counted_flops_per_device"] > 0
+
+    # the bytes check: rank 0's qwen2-72b serve shard, each leaf drawn
+    # whole on the card and cut as it lands (params.init_params)
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-72b")
+    mesh = M.MetaMesh((16, 16))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    requested = "requested_bytes.all.current"
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()[requested]
+    torch.cuda.reset_peak_memory_stats()
+    shard = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                        cut=shard_cut(Rules(cfg, mesh, train=False), mesh))
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - base
+    grew_req = torch.cuda.memory_stats()[requested] - base_req
+    sizes = [t.numel() * t.element_size() for t in shard.parameters()]
+    rounded = sum(-(-n // 512) * 512 for n in sizes)
+    want = recs["qwen2-72b"]["arg_breakdown"]["params"]
+    log(json.dumps(dict(phase="tooling", check="bytes", arch="qwen2-72b",
+                        mesh="16x16", dryrun_param_bytes=want,
+                        allocator_requested_growth_bytes=grew_req,
+                        allocator_growth_bytes=grew,
+                        leaves_rounded_to_512=rounded, leaves=len(sizes),
+                        draw_peak_bytes=torch.cuda.max_memory_allocated()
+                        - base, nvidia_smi=card,
+                        seconds=time.perf_counter() - t0)))
+    # the bytes the leaves asked the allocator for are the dry run's; the
+    # blocks it handed out are each rounded to 512 B, and a cached block
+    # whose remainder would be at most 1 MiB (its small-block size) is
+    # handed out whole, not split
+    assert sum(sizes) == want == grew_req, (want, grew_req)
+    assert rounded <= grew <= rounded + len(sizes) * (1 << 20), \
+        (grew, rounded)
+    del shard
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the temp check: one llada-8b padded Reuse at full width, 4 layers
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llada-8b"), n_layers=4)
+    B, R, Sb = 4, 1024, 32
+    K, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    ctx = T.ServeContext(block_size=Sb, retain=R)
+
+    def inputs(device, gen):
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device=device) \
+                .to(torch.bfloat16)
+        kshape = (cfg.n_layers, B, K, R, dh)
+        cache = PackedKV(
+            rnd(kshape), rnd(kshape),
+            torch.arange(R, dtype=torch.int32, device=device)
+            .expand(kshape[:-1]).contiguous(),
+            torch.ones(kshape[:-1], dtype=torch.bool, device=device))
+        btok = torch.randint(0, cfg.vocab_size - 1, (B, Sb), generator=gen,
+                             device=device, dtype=torch.int32)
+        bpos = (R + torch.arange(Sb, dtype=torch.int32, device=device)) \
+            .expand(B, Sb).contiguous()
+        return btok, bpos, cache
+
+    meta = torch.device("meta")
+    mparams = init_params(cfg, None, meta)
+    mb = [torch.empty((B, Sb), dtype=torch.int32, device=meta)
+          for _ in range(2)]
+    kshape = (cfg.n_layers, B, K, R, dh)
+    mcache = PackedKV(*(torch.empty(s, dtype=d, device=meta) for s, d in (
+        (kshape, torch.bfloat16), (kshape, torch.bfloat16),
+        (kshape[:-1], torch.int32), (kshape[:-1], torch.bool))))
+    temps = {}
+    for name, fn in (("serve_reuse", BB.serve_reuse),
+                     ("plain_reuse", plain_reuse)):
+        mem = D.MetaMemory()
+        mem.hold([*mparams.parameters(), *mb, *mcache])
+        with mem:
+            out = fn(mparams, cfg, mb[0], mb[1], mcache, ctx)
+        del out
+        temps[name] = mem.peak
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    btok, bpos, cache = inputs(dev, gen)
+    plain_reuse(params, cfg, btok, bpos, cache, ctx)   # workspaces, once
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h = plain_reuse(params, cfg, btok, bpos, cache, ctx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    gap = peak / temps["plain_reuse"] - 1.0
+    gap_serve = peak / temps["serve_reuse"] - 1.0
+    log(json.dumps(dict(phase="tooling", check="temp", arch="llada-8b",
+                        n_layers=cfg.n_layers, batch=B, retain=R,
+                        block=Sb, meta_temp_bytes=temps["plain_reuse"],
+                        meta_temp_bytes_serve_reuse=temps["serve_reuse"],
+                        cuda_peak_above_inputs_bytes=peak,
+                        relative_gap=gap,
+                        relative_gap_serve_reuse=gap_serve, finite=bool(
+                            torch.isfinite(h.float()).all()),
+                        nvidia_smi=card,
+                        seconds=time.perf_counter() - t0)))
+    assert torch.isfinite(h.float()).all()
+    # both within 10%: the copy's calls, and serve_reuse's own, which is
+    # what the dry run records
+    assert abs(gap) <= 0.10, (peak, temps)
+    assert abs(gap_serve) <= 0.10, (peak, temps)
+    del params, cache, h
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ do not fit one 80 GB card.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, ServeConfig, reduced
+from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
+                                      ServeConfig, ShapeConfig, TrainConfig,
+                                      reduced)
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma2_27b
 from repro_torch.configs.gemma_2b import CONFIG as _gemma_2b
 from repro_torch.configs.internvl2_76b import CONFIG as _internvl2_76b
@@ -36,6 +38,13 @@ ARCHS = {
 }
 
 
+# the reference's assigned ten, in its order (every arch but the paper's
+# own llada-8b): the dry run's grid
+ASSIGNED = ("gemma-2b", "gemma2-27b", "qwen2.5-14b", "qwen2-72b",
+            "mamba2-130m", "musicgen-medium", "qwen3-moe-235b-a22b",
+            "phi3.5-moe-42b-a6.6b", "zamba2-7b", "internvl2-76b")
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; the port serves: "
@@ -47,5 +56,6 @@ def list_archs():
     return sorted(ARCHS)
 
 
-__all__ = ["ModelConfig", "ServeConfig", "ARCHS", "get_config", "list_archs",
-           "reduced"]
+__all__ = ["ModelConfig", "ServeConfig", "ShapeConfig", "TrainConfig",
+           "SHAPES", "SHAPES_BY_NAME", "ARCHS", "ASSIGNED", "get_config",
+           "list_archs", "reduced"]

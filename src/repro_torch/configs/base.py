@@ -188,6 +188,29 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode | long_decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# The assigned input-shape set (identical for all 10 LM-family archs): what
+# the dry run and the roofline model cover.
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "long_decode", 524_288, 1),
+)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training-substrate knobs for train_step."""
     microbatches: int = 16               # grad-accumulation steps

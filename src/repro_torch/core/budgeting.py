@@ -25,9 +25,9 @@ the physical slots by the trace's measured ``share_factor``.
 card (the reference reads it from an XLA compile).
 
 :class:`DeviceBill` is the port's own, beside the plan: what a warmed serve
-holds on the card (the engine's slot pool at the serving geometry, the
-captured graphs' pool, the stage entries' device staging, the measured
-logit peak of an eager serve) with the plan's weights and activation
+holds on the card (its weights, the engine's slot pool at the serving
+geometry, the captured graphs' pool, the stage entries' device staging,
+the measured logit peak of an eager serve) with the plan's activation
 reservation, held against the budget the plan was given.
 ``launch.serve.run_serve`` re-sizes or refuses a serve that exceeds it.
 """
@@ -311,15 +311,16 @@ def plan_memory(cfg: ModelConfig, serve: ServeConfig, hbm_bytes: int,
 @dataclass(frozen=True)
 class DeviceBill:
     """The bytes a warmed serve holds on the card, against the budget its
-    plan was given less the guard band: the plan's weights; the engine's
+    plan was given less the guard band: the weights the engine holds; the
+    engine's
     own slot pool (its slots and the scratch slot, each ``slot_bytes`` at
     the serving geometry: what the engine allocated); the larger of the
     plan's activation reservation (at the profiler's geometry, its logit
     term measured for an eager serve on the card) and the captured graph
     pool, which holds a captured serve's activations; and the stage
     entries' device staging. ``plan_kv_pool_bytes`` is the plan's pool for
-    the same slots at the profiler's geometry, beside the bill, not in
-    it."""
+    the same slots at the profiler's geometry and ``plan_weights_bytes``
+    the plan's weights, both beside the bill, not in it."""
     budget_bytes: int           # hbm_bytes less GUARD_BAND
     weights_bytes: int
     kv_pool_bytes: int          # slot_bytes x (slots + the scratch slot)
@@ -329,6 +330,7 @@ class DeviceBill:
     slot_bytes: int             # one slot of the engine's pool
     slots: int
     plan_kv_pool_bytes: int     # the plan's slot bytes x slots
+    plan_weights_bytes: int     # the plan's weights, beside the bill
 
     @property
     def total_bytes(self) -> int:
@@ -359,18 +361,22 @@ class DeviceBill:
                     staging_bytes=self.staging_bytes,
                     slot_bytes=self.slot_bytes, slots=self.slots,
                     plan_kv_pool_bytes=self.plan_kv_pool_bytes,
+                    plan_weights_bytes=self.plan_weights_bytes,
                     total_bytes=self.total_bytes,
                     excess_bytes=self.excess_bytes, fits=self.fits)
 
 
 def bill_device(plan: MemoryPlan, hbm_bytes: int, slots: int,
-                slot_bytes: int, graph_pool_bytes: int = 0,
-                staging_bytes: int = 0,
+                slot_bytes: int, weights_bytes: int,
+                graph_pool_bytes: int = 0, staging_bytes: int = 0,
                 logit_peak: "int | None" = None,
                 pool_rows: "int | None" = None) -> DeviceBill:
     """The bill of a serve of ``slots`` slots of ``slot_bytes`` each (the
     engine's pool, ``KVPool.slot_bytes``) planned by ``plan`` on
-    ``hbm_bytes``: the plan's weights and activation reservation, with
+    ``hbm_bytes``: the weights the engine holds (``weights_bytes``, its
+    parameters' bytes: a reduced or cut serve holds less than the full
+    config the plan sized slots for) and the
+    plan's activation reservation, with
     ``logit_peak`` (a measured logit-stage peak, ``measure_logit_peak``)
     in place of the plan's ``logit_bytes`` when given, plus the pool, the
     captured graphs' pool and the staging bytes. On a mesh the bill is one
@@ -382,13 +388,14 @@ def bill_device(plan: MemoryPlan, hbm_bytes: int, slots: int,
         act += int(logit_peak) - plan.logit_bytes
     return DeviceBill(
         budget_bytes=hbm_bytes - int(hbm_bytes * GUARD_BAND),
-        weights_bytes=plan.weights_bytes,
+        weights_bytes=int(weights_bytes),
         kv_pool_bytes=int(slot_bytes) * (slots + 1 if pool_rows is None
                                          else pool_rows),
         activation_bytes=act,
         graph_pool_bytes=int(graph_pool_bytes),
         staging_bytes=int(staging_bytes), slot_bytes=int(slot_bytes),
-        slots=slots, plan_kv_pool_bytes=plan.slot_bytes * slots)
+        slots=slots, plan_kv_pool_bytes=plan.slot_bytes * slots,
+        plan_weights_bytes=plan.weights_bytes)
 
 
 def measure_logit_peak(cfg: ModelConfig, serve: ServeConfig, n_tokens: int,
@@ -417,13 +424,14 @@ def measure_logit_peak(cfg: ModelConfig, serve: ServeConfig, n_tokens: int,
     h = torch.randn((n_tokens, D), generator=gen, device=dev).to(dtype)
     out = {}
     for mode in ("monolithic", "chunked", "fused"):
-        torch.cuda.synchronize(dev)
+        # an offline measurement: the stream drained around each mode
+        torch.cuda.synchronize(dev)  # lint: allow(host-sync)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         ids, conf = LM.decode_tokens(params, cfg, h,
                                      max_num_logits=serve.max_num_logits,
                                      mode=mode)
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # lint: allow(host-sync)
         out[mode] = torch.cuda.max_memory_allocated(dev) - base
         del ids, conf
     return out

@@ -610,7 +610,8 @@ class Engine:
         self.pool.warm_aux()
         self.pool.clear_slot(self.pool.scratch_slot)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # warmup's end, before any serve: every capture finished
+            torch.cuda.synchronize(self.device)  # lint: allow(host-sync)
         self.stats.compile_counts = dict(self.graphs.compile_counts)
         self.stats.compiles_warmup = self.stats.compiles_total
         return time.perf_counter() - t0

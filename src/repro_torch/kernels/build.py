@@ -11,7 +11,8 @@ Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. Each kernel wrapper owns a :class:`Counter`: ``launches`` counts
 kernel launches, ``plain_calls`` the calls its plain PyTorch version served
-(CPU tensors only).
+(CPU tensors only), ``meta_calls`` the shape-only calls on meta tensors
+(``flash_refresh``'s, for the dry run's ``--flash-refresh``).
 """
 from __future__ import annotations
 
@@ -63,12 +64,14 @@ H100_SMS = 132        # the SM count kernels size their grids by off the card
 
 
 class Counter:
-    """Launch and plain-version call counts of one kernel wrapper."""
+    """Launch and plain-version call counts of one kernel wrapper, and the
+    shape-only calls a wrapper with a meta branch served (the dry run's)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.plain_calls = 0
+        self.meta_calls = 0
 
 
 COUNTERS: Dict[str, Counter] = {}
@@ -85,6 +88,7 @@ def reset_counters() -> None:
     for c in COUNTERS.values():
         c.launches = 0
         c.plain_calls = 0
+        c.meta_calls = 0
 
 
 _lib = None

@@ -13,7 +13,8 @@ optional softcap; masked logits are ``-1e30`` and the output is divided by
 ``max(Σp, 1e-30)``, in float32.
 
 The wrapper runs its plain PyTorch version only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. On meta tensors (the dry run) it
+returns the kernel's output shape and computes nothing.
 """
 from __future__ import annotations
 
@@ -55,7 +56,6 @@ def flash_refresh_call(q, k, v, q_pos, kv_pos, kv_valid, is_local=False, *,
                                        is_local, softcap=softcap,
                                        causal=causal, window=window)
     name = REFRESH.name
-    build.require_cuda(name, q, k, v, q_pos, kv_pos, kv_valid)
     B, K, RG, dh = q.shape
     S, Sq = k.shape[2], q_pos.shape[1]
     if not (q.dtype == k.dtype == v.dtype):
@@ -72,6 +72,13 @@ def flash_refresh_call(q, k, v, q_pos, kv_pos, kv_valid, is_local=False, *,
         raise TypeError(f"{name}: positions must be int32")
     if kv_valid.dtype != torch.bool:
         raise TypeError(f"{name}: kv_valid must be bool")
+    if q.device.type == "meta":
+        # the dry run's shape pass (launch.dryrun --flash-refresh): the
+        # kernel's output for what the kernel accepts, computing nothing
+        # and launching nothing
+        REFRESH.meta_calls += 1
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
+    build.require_cuda(name, q, k, v, q_pos, kv_pos, kv_valid)
     o = torch.empty((B, K, RG, dh), dtype=torch.float32, device=q.device)
     code = build.library().repro_flash_refresh(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -28,10 +28,14 @@ A mesh larger than the visible GPUs raises (:func:`check_devices`); nothing
 here ever falls back to one device.
 
 :class:`SimMesh` is the device-free stand-in the memory planner bills any
-mesh shape over (``axis_size`` consults nothing else).
+mesh shape over (``axis_size`` consults nothing else); :class:`MetaMesh`
+is rank 0 of any mesh on the meta device, whose collectives only shape
+and log their results: the dry run and the grid audit run the model code
+under it (:func:`using`).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import shutil
@@ -100,6 +104,58 @@ class SimMesh:
         self.axis_names = tuple(axes) if axes else _axes_for(len(shape))
         assert len(self.axis_names) == len(shape), (shape, self.axis_names)
         self.shape = dict(zip(self.axis_names, shape))
+
+
+class MetaMesh:
+    """Shape-only stand-in for a :class:`ServingMesh`, for the dry run and
+    the grid audit: rank 0 of a mesh of any shape, in one process, on the
+    meta device. It has what ``params.shard_cut`` and
+    ``sharding.local_slice`` read (``axis_names``, ``shape``, ``coords``)
+    and the collectives the model code calls, which return tensors of the
+    right shapes and log each result's bytes by kind (``log``: the raw
+    result bytes, the reference's convention for its HLO collectives).
+    ``all_reduce`` and ``broadcast`` return a copy and ``all_gather`` a
+    concatenation of ``x``, so autograd sees the same graph it would on a
+    real mesh. Make it the active mesh with :func:`using`."""
+
+    def __init__(self, shape):
+        dims = tuple(int(d) for d in shape)
+        self.axis_names = _axes_for(len(dims))
+        self.shape = dict(zip(self.axis_names, dims))
+        self.size = _prod(dims)
+        self.coords = {a: 0 for a in self.axis_names}
+        # the global kernel dimensions, for require_divisible (the caller's)
+        self.kernel_dims: dict = {}
+        self.log: dict = {}
+
+    def index(self, axis) -> int:
+        return 0
+
+    def record(self, kind: str, out: torch.Tensor) -> torch.Tensor:
+        """Log ``out``'s bytes under ``kind`` and return it."""
+        self.log[kind] = (self.log.get(kind, 0)
+                          + out.numel() * out.element_size())
+        return out
+
+    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
+        if axis_size(self, axis) == 1:
+            return x
+        return self.record("all-reduce", x.clone())
+
+    def all_gather(self, x: torch.Tensor, axis,
+                   dim: int = 0) -> torch.Tensor:
+        n = axis_size(self, axis)
+        if n == 1:
+            return x
+        return self.record("all-gather", torch.cat([x] * n, dim=dim))
+
+    def stack_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
+        return self.all_gather(x[None], axis, dim=0)
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return self.record("broadcast", x.clone())
 
 
 def backend_for(device: torch.device, colocate: bool) -> str:
@@ -266,6 +322,18 @@ def activate(mesh: Optional[ServingMesh]) -> None:
 
 def active() -> Optional[ServingMesh]:
     return _ACTIVE
+
+
+@contextlib.contextmanager
+def using(mesh):
+    """``mesh`` (a :class:`MetaMesh`) as the active mesh for the block;
+    the previous one is restored on exit."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, mesh
+    try:
+        yield mesh
+    finally:
+        _ACTIVE = prev
 
 
 def tp() -> Optional[ServingMesh]:

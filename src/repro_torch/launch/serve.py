@@ -46,7 +46,8 @@ larger than the visible GPUs raises ``ValueError`` before any rank starts.
 The NCCL arrangement is unverified: no run of it has had two GPUs.
 
 The device bill (``core.budgeting.bill_device``): after warmup a profiler-
-sized serve bills what it holds on the card — the plan's weights, the
+sized serve bills what it holds on the card — the engine's weights (a
+reduced serve holds far less than the full config the plan sized), the
 engine's slot pool at the serving geometry (the plan sizes slots at the
 paper's larger geometry, ``PLAN_GEOMETRY``), the graph pool (billed
 against the plan's activation reservation, the larger of the two), the
@@ -98,6 +99,7 @@ from repro_torch.core.request import State
 from repro_torch.data.workloads import (make_trace, prefix_share_factor,
                                         trace_prompts)
 from repro_torch.launch import mesh as M
+from repro_torch.params import param_bytes
 
 
 # the paper's Table 3 geometry, at which the profiler plans every run
@@ -121,10 +123,12 @@ def profile_slots(full_cfg, serve: ServeConfig, max_slots: int, hbm_gb: int,
 
 
 def device_bill(eng: Engine, plan, full_cfg, hbm_bytes: int):
-    """The bill of a warmed engine against the plan that sized it: its
-    slot pool (on a mesh, the rows this device holds), graph pool and
-    staging bytes, and for an eager engine on the card the measured logit
-    peak of its C1 mode at the plan geometry."""
+    """The bill of a warmed engine against the plan that sized it: the
+    weights it holds (on a mesh, this rank's shard; a reduced serve's are
+    not the planned full config's), its slot pool (on a mesh, the rows
+    this device holds), graph pool and staging bytes, and for an eager
+    engine on the card the measured logit peak of its C1 mode at the plan
+    geometry."""
     peak = None
     if eng.device.type == "cuda" and not eng.graphs.capture:
         plan_serve = dataclasses.replace(eng.serve, **PLAN_GEOMETRY)
@@ -135,7 +139,8 @@ def device_bill(eng: Engine, plan, full_cfg, hbm_bytes: int):
                        eng.pool.slot_bytes(),
                        graph_pool_bytes=eng.graphs.pool_bytes(),
                        staging_bytes=eng.graphs.staging_bytes(),
-                       logit_peak=peak, pool_rows=eng.pool.rows)
+                       logit_peak=peak, pool_rows=eng.pool.rows,
+                       weights_bytes=param_bytes(eng.params))
 
 
 def fit_to_budget(build, serve: ServeConfig, plan, full_cfg,

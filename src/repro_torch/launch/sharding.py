@@ -161,6 +161,22 @@ class Rules:
             return self.leaf_spec(path, tuple(node))
         return walk(shapes, "")
 
+    def opt_state(self, shapes) -> dict:
+        """ZeRO-1: the Adam moments follow the parameter specs (FSDP
+        already shards them over data in train mode); the step counter is
+        replicated."""
+        ps = self.params(shapes)
+        return {"m": ps, "v": ps, "step": P()}
+
+    # -- batches ----------------------------------------------------------
+    def tokens(self, batch: int) -> tuple:
+        if batch % axis_size(self.mesh, self.dp) == 0:
+            return P(self.dp, None)
+        return P(None, None)
+
+    def frontend(self) -> tuple:
+        return P(self.dp, None, None)
+
     # -- serving cache ------------------------------------------------------
     def _divisible_axes(self, n: int, axes: tuple) -> tuple:
         """Greedy prefix of ``axes`` whose combined size divides ``n``."""

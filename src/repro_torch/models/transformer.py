@@ -247,7 +247,14 @@ def _attend_packed_stream(q, k, v, positions, seg_ids, token_valid,
     # window start: the first token of the chunk's first segment, clamped
     # so the fixed-size window stays in bounds
     starts = torch.arange(0, T_len, c, device=q.device)
-    w0 = (starts - pos[starts]).clamp(0, T_len - win).tolist()
+    if q.device.type == "meta":
+        # the dry run's shapes: the window's size is fixed, its start is not
+        # needed
+        w0 = [0] * starts.shape[0]
+    else:
+        # the plain path, CPU only (the card runs flash_varlen): a host read
+        w0 = (starts - pos[starts]).clamp(0, T_len - win)
+        w0 = w0.tolist()  # lint: allow(host-sync)
     outs = []
     for i, w in enumerate(w0):
         qc = q[0, i * c: (i + 1) * c].reshape(c, K, G, dh)

@@ -204,6 +204,11 @@ def shard_params(tree: Group, rules, mesh) -> Group:
     return walk(tree, want, "")
 
 
+def param_bytes(tree: Group) -> int:
+    """The bytes of every leaf of a parameter tree, as held."""
+    return sum(t.numel() * t.element_size() for t in tree.parameters())
+
+
 def tree_order(name: str) -> Tuple[str, ...]:
     """Sort key of a dotted leaf name: the order ``jax.tree.flatten`` gives
     the reference's nested dicts (keys sorted at every level)."""

@@ -38,10 +38,10 @@ def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     # a copy even of a CPU tensor: the trainer's next step updates the
     # parameters and moments in place while the writer thread saves them
     t = t.detach().to("cpu", copy=True)
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy(), "bfloat16"
-    a = t.numpy()
-    return a, str(a.dtype)
+    bf16 = t.dtype == torch.bfloat16
+    # a checkpoint is a deliberate full host transfer (the copy above)
+    a = (t.view(torch.int16) if bf16 else t).numpy()  # lint: allow(host-sync)
+    return a, "bfloat16" if bf16 else str(a.dtype)
 
 
 def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:

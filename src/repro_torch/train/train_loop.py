@@ -36,6 +36,17 @@ from repro_torch.train.optimizer import (adamw_update, compress_grads,
                                          init_opt_state)
 
 
+def microbatch_grads(params, leaves, cfg: ModelConfig, tc: TrainConfig,
+                     tokens, generator, frontend=None):
+    """One microbatch's loss and its gradients with respect to ``leaves``
+    (every one, zeros where unused), compressed by
+    ``tc.grad_compression``."""
+    loss, _ = loss_lib.loss_fn(params, cfg, tc, tokens, generator, frontend)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss, compress_grads(grads, tc.grad_compression)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     total_steps: int = 10_000) -> Callable:
     """Returns step(params, opt, tokens [G, S], generator, frontend=None)
@@ -60,10 +71,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         fes = frontend.chunk(M) if frontend is not None else [None] * M
         for tok, fe in zip(tokens.chunk(M), fes):
-            loss, _ = loss_lib.loss_fn(params, cfg, tc, tok, generator, fe)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            grads = compress_grads(grads, tc.grad_compression)
+            loss, grads = microbatch_grads(params, leaves, cfg, tc, tok,
+                                           generator, fe)
             with torch.no_grad():
                 for a, g in zip(acc, grads):
                     a.add_(g.to(a.dtype) / M)
@@ -143,7 +152,8 @@ class Trainer:
                 self.params, self.opt, tokens, self.rng)
             # the step's one host read: its metrics
             keys = sorted(m)
-            m = dict(zip(keys, torch.stack([m[k] for k in keys]).tolist()))
+            vals = torch.stack([m[k] for k in keys])
+            m = dict(zip(keys, vals.tolist()))  # lint: allow(host-sync)
             dt = time.perf_counter() - t0
             durations.append(dt)
             med = float(np.median(durations))

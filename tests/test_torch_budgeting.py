@@ -37,6 +37,7 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.kv_pool import tree_leaves
 from repro_torch.launch.serve import fit_to_budget
 from repro_torch.launch.serve import run_serve as trun_serve
+from repro_torch.params import Group
 
 SYSTEMS = ("fast-dllm", "dllm-cache", "sparse-dllm", "dllm-serve")
 # the launcher's plan geometry over its own defaults
@@ -145,7 +146,8 @@ def test_device_bill_adds_the_unbilled_bytes():
     budget = hbm - int(hbm * TB.GUARD_BAND)
     # a slot at S = 256 against the plan's 2,048
     slot, n = plan.slot_bytes // 8, plan.max_slots
-    bill = TB.bill_device(plan, hbm, n, slot)
+    w = plan.weights_bytes
+    bill = TB.bill_device(plan, hbm, n, slot, w)
     assert bill.budget_bytes == budget and bill.fits
     assert bill.kv_pool_bytes == (n + 1) * slot
     assert bill.plan_kv_pool_bytes == n * plan.slot_bytes
@@ -154,33 +156,36 @@ def test_device_bill_adds_the_unbilled_bytes():
     slack = budget - bill.total_bytes
     assert slack > 0
     act = plan.activation_bytes
-    assert TB.bill_device(plan, hbm, n, slot, graph_pool_bytes=act) \
+    assert TB.bill_device(plan, hbm, n, slot, w, graph_pool_bytes=act) \
         .total_bytes == bill.total_bytes
-    over = TB.bill_device(plan, hbm, n, slot,
+    over = TB.bill_device(plan, hbm, n, slot, w,
                           graph_pool_bytes=act + slack + 1)
     assert not over.fits and over.excess_bytes == 1 and over.slots_over == 1
-    big = TB.bill_device(plan, hbm, n, slot,
+    big = TB.bill_device(plan, hbm, n, slot, w,
                          graph_pool_bytes=act + slack + 3 * slot,
                          staging_bytes=5)
     assert big.excess_bytes == 3 * slot + 5
     assert big.slots_over == 4
-    assert TB.bill_device(plan, hbm, big.slots - big.slots_over, slot,
+    assert TB.bill_device(plan, hbm, big.slots - big.slots_over, slot, w,
                           graph_pool_bytes=big.graph_pool_bytes,
                           staging_bytes=5).fits
-    peak = TB.bill_device(plan, hbm, n, slot,
+    peak = TB.bill_device(plan, hbm, n, slot, w,
                           logit_peak=plan.logit_bytes + 7)
     assert peak.activation_bytes == act + 7
     assert peak.as_dict()["excess_bytes"] == max(0, 7 - slack)
 
 
 class _StubEngine:
-    """What ``fit_to_budget`` reads of an engine: a slot size and the
-    pool's rows (every slot and the scratch slot, as off a mesh), a graph
-    pool (fed in, a function of the slots) and the staging bytes, on the
-    CPU."""
+    """What ``fit_to_budget`` reads of an engine: its weights (one meta
+    leaf of the plan's weight bytes: the full config served), a slot size
+    and the pool's rows (every slot and the scratch slot, as off a mesh),
+    a graph pool (fed in, a function of the slots) and the staging bytes,
+    on the CPU."""
 
-    def __init__(self, serve, pool_of, slot):
-        self.serve, self.params = serve, object()
+    def __init__(self, serve, pool_of, slot, weights):
+        self.serve = serve
+        self.params = Group({"w": torch.empty(weights, dtype=torch.uint8,
+                                              device="meta")})
         self.device = torch.device("cpu")
         self.pool = type("P", (), dict(slot_bytes=lambda _: slot,
                                        rows=serve.max_slots + 1))()
@@ -197,15 +202,15 @@ def test_fit_to_budget_resizes_once_then_refuses():
     hbm = 24 << 30
     serve, plan = _llada_plan(hbm)
     serve = dataclasses.replace(serve, max_slots=plan.max_slots)
-    slot = plan.slot_bytes // 8
-    bill = TB.bill_device(plan, hbm, plan.max_slots, slot)
+    slot, w = plan.slot_bytes // 8, plan.weights_bytes
+    bill = TB.bill_device(plan, hbm, plan.max_slots, slot, w)
     slack = bill.budget_bytes - bill.total_bytes
     pool = plan.activation_bytes + slack + 2 * slot + 1
     built = []
 
     def build(sv, params):
         built.append((sv.max_slots, params))
-        return _StubEngine(sv, lambda n: pool, slot), 0.5
+        return _StubEngine(sv, lambda n: pool, slot, plan.weights_bytes), 0.5
 
     eng, bill, resized_from, warmups = fit_to_budget(
         build, serve, plan, get_config("llada-8b"), hbm)
@@ -213,11 +218,13 @@ def test_fit_to_budget_resizes_once_then_refuses():
     assert eng.serve.max_slots == plan.max_slots - 3 and bill.fits
     assert built[1][1] is not None          # the same weights, not redrawn
     fits = fit_to_budget(
-        lambda sv, p: (_StubEngine(sv, lambda n: 0, slot), 0.1),
+        lambda sv, p: (_StubEngine(sv, lambda n: 0, slot,
+                                   plan.weights_bytes), 0.1),
         serve, plan, get_config("llada-8b"), hbm)
     assert fits[2] is None and fits[1].fits and fits[0].serve is serve
     with pytest.raises(ValueError, match="graph pool") as e:
         fit_to_budget(lambda sv, p: (_StubEngine(
-            sv, lambda n: pool * (n + 1), slot), 0.1), serve, plan,
+            sv, lambda n: pool * (n + 1), slot, plan.weights_bytes), 0.1),
+            serve, plan,
             get_config("llada-8b"), hbm)
     assert "weights" in str(e.value) and "staging" in str(e.value)

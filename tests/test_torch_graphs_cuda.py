@@ -35,7 +35,7 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.graphs import Field, StageGraphs
 from repro_torch.data.workloads import PrefixSpec, make_trace, trace_prompts
 from repro_torch.kernels import build
-from repro_torch.params import init_params
+from repro_torch.params import init_params, param_bytes
 
 COUNTERS = (
     "iterations", "refresh_steps", "reuse_steps", "committed_tokens",
@@ -233,8 +233,8 @@ def test_graphs_equal_eager_int8_slots(cuda, sharing):
 
 def test_device_bill_resizes_an_overrunning_serve(cuda):
     """A plan with no weights or activations, on a budget one byte short
-    of the engine's slot pool (six slots and the scratch slot), its graph
-    pool and its staging: the bill finds the overrun after warmup and
+    of the engine's weights, its slot pool (six slots and the scratch
+    slot), its graph pool and its staging: the bill finds the overrun after warmup and
     re-sizes the serve to five slots, built and captured again on the
     same weights; that serve fits, serves, and builds nothing after
     warmup."""
@@ -261,7 +261,7 @@ def test_device_bill_resizes_an_overrunning_serve(cuda):
     plan = MemoryPlan(weights_bytes=0, activation_bytes=0, logit_bytes=0,
                       slot_bytes=slot, kv_pool_bytes=n * slot, max_slots=n,
                       phys_slots=n)
-    target = (n + 1) * slot + pool + staging - 1
+    target = param_bytes(params) + (n + 1) * slot + pool + staging - 1
     hbm = int(target / (1 - GUARD_BAND))
     while hbm - int(hbm * GUARD_BAND) > target:
         hbm -= 1
