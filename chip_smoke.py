@@ -113,7 +113,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      mesh: each of rows 1-7 on each half of the model axis at full width
      (llada-8b's 32 heads and 126,464-column head, zamba2-7b's 112 and
      mamba2-130m's 24 state heads; the argmax halves merged) against the
-     unsharded launch; one MoE layer a rank at full width, bfloat16
+     unsharded launch; row 7 on each half of the query rows (llada-8b's
+     and gemma-2b's prefill, B 2, S 2048: the flash Refresh's fallback
+     where the heads do not divide the model axis) and row 6 on each half
+     of the retained length (llada-8b B 16, K 32, T 248 and gemma-2b K 1,
+     dh 256), merged by ``(o, m, s)``, against the unsharded launch; a
+     batch-1 ``serve_reuse`` at (2, 1) on two ranks co-located on cuda:0
+     (llada-8b at full width cut to 8 layers, bfloat16, the kernels, each
+     rank holding half of 16,384 retained rows) against the one-device
+     call, each rank's allocator peak and collective ms logged beside the
+     one-device peak; one MoE layer a rank at full width, bfloat16
      (phi3.5-moe and qwen3-moe, T = 128 and 1,024, two ranks co-located
      at (1, 2) and (2, 1): ``gather`` against the one-device layer,
      ``ep`` against the one-device ``gather`` of the same rows, each
@@ -1666,7 +1675,9 @@ def mesh_kernels(dev, g, llada, zamba, mamba, serve, results):
     unsharded launch. Rows 1-3, 6 and 7 in bfloat16 (1e-2; exact where a
     head's arithmetic does not depend on the head count), row 5 in float32
     (1e-4 of the largest output), row 4's ids and maxima exact after the
-    merge and its sums to 1e-5 relative."""
+    merge and its sums to 1e-5 relative. Then row 7 on each half of the
+    query rows (:func:`mesh_query_rows`) and row 6 on each half of the
+    retained length (:func:`mesh_retained_halves`)."""
     from repro_torch.kernels import logit_argmax as LA
     from repro_torch.kernels import ops
     bf, m = torch.bfloat16, 2
@@ -1773,7 +1784,10 @@ def mesh_kernels(dev, g, llada, zamba, mamba, serve, results):
         "flash_refresh", "llada-8b H=32/2", fr(q7, k7, v7),
         [fr(*a) for a in rshards], 1e-2, 2,
         (lambda: fr(q7, k7, v7), [lambda a=a: fr(*a) for a in rshards]))
-    del q6, k6, v6, q7, k7, v7
+    del q6, k6, v6
+    out.update(mesh_query_rows(dev, g, llada, q7, k7, v7, p7, ok7))
+    del q7, k7, v7
+    out.update(mesh_retained_halves(dev, g, llada))
     # row 5: the SSD scan over each half of the state heads, float32
     lens = [256, 250, 240, 230]
     seg5, pos5, _ = stream(lens, T - sum(lens), dev)
@@ -1839,6 +1853,251 @@ def mesh_kernels(dev, g, llada, zamba, mamba, serve, results):
     for name, row in out.items():
         results[name.split(" ")[0]].setdefault("mesh_shards", {})[
             name.split(" ", 1)[1] if " " in name else "llada-8b"] = row
+
+
+def mesh_query_rows(dev, g, llada, q7, k7, v7, p7, ok7) -> dict:
+    """Row 7 on each half of the query rows, the flash Refresh's fallback
+    where the heads do not divide the model axis (``ops.
+    flash_refresh_attention``'s row branch): each half of the 2,048 rows
+    against the whole K/V of two sequences (the second padded from 1,900),
+    concatenated and held to the unsharded launch, at llada-8b's 32 heads
+    and gemma-2b's 8 over one KV head at dh 256, bfloat16 (1e-2; each
+    row's arithmetic is its own)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    gemma = get_config("gemma-2b")
+    B, S = p7.shape
+    n = S // 2
+    q = torch.randn((B, S, gemma.n_heads, gemma.resolved_head_dim),
+                    generator=g, device=dev).to(torch.bfloat16)
+    kv = [torch.randn((B, S, gemma.n_kv_heads, gemma.resolved_head_dim),
+                      generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(2)]
+    out = {}
+    for tag, (qq, kk, vv) in (
+            (f"llada-8b H=32 S={S} rows/2", (q7, k7, v7)),
+            (f"gemma-2b H=8 K=1 dh=256 S={S} rows/2", (q, *kv))):
+        def rows(lo, m, qq=qq, kk=kk, vv=vv):
+            return ops.flash_refresh_attention(
+                qq[:, lo:lo + m], kk, vv, q_pos=p7[:, lo:lo + m], kv_pos=p7,
+                kv_valid=ok7, mask_mode="bidirectional", window=0,
+                is_local=False, softcap=0.0)
+        halves = [lambda r=r: rows(r * n, n) for r in range(2)]
+        out[f"flash_refresh {tag}"] = shard_cmp(
+            "flash_refresh", tag, rows(0, S), [h() for h in halves], 1e-2, 1,
+            (lambda: rows(0, S), halves))
+    return out
+
+
+def mesh_retained_halves(dev, g, llada, T: int = 248) -> dict:
+    """Row 6 on each half of the retained length, the Reuse on a cut
+    retained length (``transformer._merge_stats``): each half's
+    unnormalised ``(o, m, s)`` launched alone and merged across the
+    halves by ``M = max m``, ``Σ o·exp(m − M) / Σ s·exp(m − M)``, held to
+    the unsharded launch normalised the same way, at llada-8b's 16
+    requests of 32 KV heads (8 block rows) and gemma-2b's one KV head at
+    dh 256 (64 rows), ``T`` retained keys, bfloat16 (1e-2: each half
+    rounds its probabilities to bfloat16 against its own max). One KV
+    head's second half has no valid key (``m = -1e30`` merges as 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    gemma = get_config("gemma-2b")
+    B, Sb, n = 16, 8, T // 2
+    out = {}
+    for cfg in (llada, gemma):
+        K, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        rows = Sb * (cfg.n_heads // K)
+        q = torch.randn((B, K, rows, dh), generator=g,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, K, T, dh), generator=g,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        ok = torch.rand((B, K, 1, T), generator=g, device=dev) < 0.6
+        ok[..., 0] = True
+        ok[:, 0, :, n:] = False
+
+        def stats(lo, m):
+            return ops.packed_flash_attention_stats(
+                q, k[:, :, lo:lo + m], v[:, :, lo:lo + m],
+                ok[..., lo:lo + m])
+
+        def merged(parts):
+            mx = torch.stack([p[1] for p in parts]).amax(dim=0)
+            a = [torch.exp(p[1] - mx) for p in parts]
+            o = sum(p[0] * w[..., None] for p, w in zip(parts, a))
+            s = sum(p[2] * w for p, w in zip(parts, a))
+            return o / s.clamp_min(1e-30)[..., None]
+        whole = stats(0, T)
+        halves = [lambda r=r: stats(r * n, n) for r in range(2)]
+        tag = (f"{cfg.name} B={B} K={K} rows={rows} dh={dh} T={T} "
+               f"retained/2")
+        out[f"packed_flash_attention {tag}"] = shard_cmp(
+            "packed_flash_attention", tag, merged([whole]),
+            [merged([h() for h in halves])], 1e-2, 0,
+            (lambda: stats(0, T), halves))
+    return out
+
+
+REUSE_LAYERS = 8          # of llada-8b's 32: the co-located Reuse's depth
+REUSE_RETAIN = 16384      # decode_32k's retained length at r = 0.5
+REUSE_TOL = 2.0 ** -5     # of the largest magnitude, bfloat16 layers
+
+
+def layer0_attention(run):
+    """``run()``, and layer 0's attention output from it: the first
+    ``transformer._attn_out`` result, the sublayer's whole contribution to
+    the residual stream (the embedding it is added to is the same on every
+    rank, and dwarfs it at random weights)."""
+    from repro_torch.models import transformer as T
+    seen, attn_out = [], T._attn_out
+
+    def record(*a, **kw):
+        y = attn_out(*a, **kw)
+        if not seen:
+            seen.append(y.float().cpu())
+        return y
+    T._attn_out = record
+    try:
+        run()
+    finally:
+        T._attn_out = attn_out
+    return seen[0]
+
+
+def reuse_inputs(cfg, dev, R: int, Sb: int):
+    """llada-8b's weights and a batch-1 Reuse's inputs, drawn from one
+    seed on the card: the same on every co-located rank. The cache holds
+    ``R`` retained rows a KV head at positions ``0..R-1``, a tenth of them
+    invalid; the block's ``Sb`` tokens sit after it."""
+    from repro_torch.models.sparse_select import PackedKV
+    from repro_torch.params import init_params
+    gen = torch.Generator(device=dev).manual_seed(27)
+    params = init_params(cfg, gen, dev)
+    kshape = (cfg.n_layers, 1, cfg.n_kv_heads, R, cfg.resolved_head_dim)
+    cache = PackedKV(
+        *(torch.randn(kshape, generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(2)),
+        torch.arange(R, dtype=torch.int32, device=dev).expand(
+            kshape[:-1]).contiguous(),
+        torch.rand(kshape[:-1], generator=gen, device=dev) < 0.9)
+    btok = torch.randint(0, cfg.vocab_size - 1, (1, Sb), generator=gen,
+                         device=dev, dtype=torch.int32)
+    bpos = (R + torch.arange(Sb, dtype=torch.int32, device=dev))[None]
+    return params, cache, btok, bpos
+
+
+def reuse_call(mesh, cfg, R: int, Sb: int) -> dict:
+    """``backbone.serve_reuse`` (the kernel path: row 6 on the cache half)
+    of one llada-8b block at batch 1, on this process's rank of ``mesh``
+    (None: one device): the cache cut to the rank's shard by ``Rules``
+    (batch 1 cuts the retained length over the data axes) and merged
+    across it. Its output, layer 0's attention output, the second call's
+    wall ms and collective ms, the allocator's peak above the inputs over
+    that call, and the launches of both calls; on a rank, also layer 0's
+    attention output of an unmerged control (``kv_split=()``: the rank's
+    shard attended alone), launched after the counts are read."""
+    import dataclasses
+    from repro_torch.kernels import build
+    from repro_torch.launch.sharding import (Rules, local_slice,
+                                             retained_axes)
+    from repro_torch.models import backbone as BB
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sparse_select import PackedKV
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    params, cache, btok, bpos = reuse_inputs(cfg, dev, R, Sb)
+    split = ()
+    if mesh is not None:
+        spec = Rules(cfg, mesh, train=False).cache(1, R)
+        cache = PackedKV(*(local_slice(t, sp, mesh)
+                           for t, sp in zip(cache, spec)))
+        split = retained_axes(spec)
+    ctx = T.ServeContext(block_size=Sb, retain=R, use_flash_kernel=True,
+                         kv_split=split)
+    build.reset_counters()
+    attn0 = layer0_attention(                                  # warm
+        lambda: BB.serve_reuse(params, cfg, btok, bpos, cache, ctx))
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = mesh.collective_s if mesh is not None else 0.0
+    t0 = time.perf_counter()
+    h = BB.serve_reuse(params, cfg, btok, bpos, cache, ctx)
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = kernel_counts()
+    unmerged = layer0_attention(lambda: BB.serve_reuse(
+        params, cfg, btok, bpos, cache,
+        dataclasses.replace(ctx, kv_split=()))) if split else None
+    return dict(
+        h=h.float().cpu(), attn0=attn0, attn0_unmerged=unmerged, ms=ms,
+        collective_ms=(1e3 * (mesh.collective_s - c0)
+                       if mesh is not None else 0.0),
+        peak_above_inputs_bytes=torch.cuda.max_memory_allocated(dev) - base,
+        cache_bytes=sum(t.numel() * t.element_size() for t in cache),
+        retained=cache.k.shape[3], kv_split=list(split), launches=launches)
+
+
+def mesh_reuse(card, launches):
+    """A batch-1 ``serve_reuse`` at (2, 1) on two ranks co-located on
+    cuda:0 over gloo: llada-8b at full width cut to ``REUSE_LAYERS``
+    layers, bfloat16, the kernels on, each rank holding half of the
+    ``REUSE_RETAIN`` retained rows (the reference's sequence-parallel
+    decode) and merging its cache half's ``(o, m, s)`` across the data
+    axis, held to the one-device call (within ``REUSE_TOL`` of the largest
+    magnitude: each rank's row 6 rounds its probabilities against its own
+    max). The residual stream carries the embedding, so the merge is also
+    held where it is the whole signal: layer 0's attention output within
+    ``REUSE_TOL`` of its own largest magnitude, and an unmerged control
+    (each rank's shard alone) must miss that tolerance, or the check
+    could not see a missing merge. Row 6 launched on every rank and in
+    the one-device call, no plain version; each rank's allocator peak and
+    collective ms beside the one-device call's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    cfg = dataclasses.replace(get_config("llada-8b"), n_layers=REUSE_LAYERS)
+    R, Sb = REUSE_RETAIN, 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = reuse_call(None, cfg, R, Sb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = M.spawn(reuse_call, (2, 1), "cuda", cfg, R, Sb, colocate=True)
+    mag = one["h"].abs().max().item()
+    errs = [(r["h"] - one["h"]).abs().max().item() for r in ranks]
+    a_mag = one["attn0"].abs().max().item()
+    a_errs = [(r["attn0"] - one["attn0"]).abs().max().item() for r in ranks]
+    c_errs = [(r["attn0_unmerged"] - one["attn0"]).abs().max().item()
+              for r in ranks]
+    rec = dict(phase="mesh reuse", arch="llada-8b", n_layers=cfg.n_layers,
+               dtype=cfg.dtype, mesh=[2, 1], batch=1, retain=R, block=Sb,
+               max_abs_err=errs, max_abs=mag, tol=REUSE_TOL * mag,
+               attn0_max_abs_err=a_errs, attn0_max_abs=a_mag,
+               attn0_tol=REUSE_TOL * a_mag,
+               attn0_unmerged_max_abs_err=c_errs,
+               one_device_ms=one["ms"], rank_ms=[r["ms"] for r in ranks],
+               rank_collective_ms=[r["collective_ms"] for r in ranks],
+               one_device_peak_above_inputs_bytes=one[
+                   "peak_above_inputs_bytes"],
+               rank_peak_above_inputs_bytes=[
+                   r["peak_above_inputs_bytes"] for r in ranks],
+               one_device_cache_bytes=one["cache_bytes"],
+               rank_cache_bytes=[r["cache_bytes"] for r in ranks],
+               rank_retained=[r["retained"] for r in ranks],
+               rank_kv_split=[r["kv_split"] for r in ranks],
+               finite=bool(torch.isfinite(one["h"]).all()),
+               launches=[one["launches"]["packed_flash_attention"]]
+               + [r["launches"]["packed_flash_attention"] for r in ranks],
+               nvidia_smi=card)
+    log(json.dumps(rec))
+    assert rec["finite"] and max(errs) <= rec["tol"], rec
+    assert max(a_errs) <= rec["attn0_tol"] < min(c_errs), rec
+    assert rec["rank_retained"] == [R // 2] * 2, rec
+    for run in [one] + ranks:
+        assert run["launches"]["packed_flash_attention"][0] > 0, run
+        assert all(c[1] == 0 for c in run["launches"].values()), run
+    launches["packed_flash_attention"]["llada-8b mesh 2x1 reuse"] = sum(
+        run["launches"]["packed_flash_attention"][0]
+        for run in [one] + ranks)
 
 
 def reorder_witness(dev, cfg, seed: int = 0, n: int = 5) -> dict:
@@ -2090,8 +2349,10 @@ def mesh_moe_layers(card):
 
 
 def mesh_phase(dev, serve, card, launches, results):
-    """Mesh serving on the one card: (1) the per-shard kernels; (2) the
-    MoE layers per shard (:func:`mesh_moe_layers`); (3) the shard-check
+    """Mesh serving on the one card: (1) the per-shard kernels, and a
+    batch-1 Reuse at (2, 1) on each rank's half of the retained length
+    (:func:`mesh_reuse`); (2) the MoE layers per shard
+    (:func:`mesh_moe_layers`); (3) the shard-check
     tool on two ranks co-located on cuda:0 over gloo (eager, the kernel
     paths, float32, TF32 off): llada-8b at full width cut to 8 of its 32
     layers at meshes (1, 2) and (2, 1) and on the padded path at (1, 2),
@@ -2115,6 +2376,9 @@ def mesh_phase(dev, serve, card, launches, results):
     mesh_kernels(dev, g, llada, zamba, mamba, serve, results)
     del g
     log(f"  mesh part kernels: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    mesh_reuse(card, launches)
+    log(f"  mesh part batch-1 reuse: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     mesh_moe_layers(card)
     log(f"  mesh part moe layers: {time.perf_counter() - t0:.3f} s")

@@ -116,6 +116,7 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as OPS
 from repro_torch.kernels.flash_varlen import PAD_SEG
 from repro_torch.launch import mesh as M
+from repro_torch.launch.sharding import retained_axes
 from repro_torch.models import backbone as BB
 from repro_torch.models import layers as L
 from repro_torch.models import lm_head as LM
@@ -404,7 +405,10 @@ class Engine:
             kernel_size=serve.kernel_size, selection=serve.selection,
             q_chunk=min(L.DEFAULT_Q_CHUNK, serve.max_seq_len),
             use_flash_kernel=serve.use_flash_kernel,
-            max_seq_len=serve.max_seq_len)
+            max_seq_len=serve.max_seq_len,
+            # a Reuse stage attends the rank's cut of the pool's retained
+            # length and merges across the axes that cut it
+            kv_split=retained_axes(pool_spec) if pool_spec else ())
         self._use_packed = serve.varlen_pack and can_pack_tokens(cfg)
         # the prefix rows of a frontend arch's request (0 for text-only
         # archs): every Refresh spans F + text rows, and block and Reuse

@@ -49,10 +49,11 @@ the spec shards over ``model`` (KV heads that do not divide) is cut from
 the whole cache the stage computed. :meth:`write` stores only this rank's
 rows and shard; :meth:`gather` returns every requested row on every data
 rank (each owner contributes its rows, then one ``all_reduce`` over the
-data axes: exact, every other rank adds zeros) and ``all_gather``s a cut
-retained length over ``model``; a promote copy between rows of different
-data ranks travels the same way. The slot ledger stays on the host,
-identical on every rank.
+data axes: exact, every other rank adds zeros), each leaf still the
+rank's shard: a Reuse attends its cut of the retained length and merges
+across the model axis (``ServeContext.kv_split``); a promote copy between
+rows of different data ranks travels the same way. The slot ledger stays
+on the host, identical on every rank.
 """
 from __future__ import annotations
 
@@ -289,7 +290,8 @@ class KVPool:
 
     def gather(self, slots):
         """The rows of ``slots`` (physical rows: see :meth:`resolve`); the
-        quantized view ``{"data", "scale"}`` under int8."""
+        quantized view ``{"data", "scale"}`` under int8; on a mesh, this
+        rank's shard of each."""
         idx = self._index(slots)
         if self.mesh is None:
             return tree_map(lambda t: t.index_select(1, idx), self.cache)
@@ -305,22 +307,22 @@ class KVPool:
             def rows(t):
                 return t.index_select(1, idx)
 
-        def leaf(i, t):
-            r = rows(t)
-            dim = self._cut[i] if self._cut else None
-            return r if dim is None else mesh.all_gather(r, "model", dim=dim)
-        return tree_map_i(leaf, self.cache)
+        return tree_map(rows, self.cache)
 
     def full_cache(self):
         """Every slot of the pool (the scratch slot's included), whole, on
         every rank: what one device's pool holds. A collective on a
         mesh."""
         cache = self.gather(list(range(self.max_slots + 1)))
-        if self.mesh is None or not self._head_split:
+        if self.mesh is None or not self._cut:
             return cache
-        return tree_map_i(
-            lambda i, t: self.mesh.all_gather(t, "model", dim=2)
-            if self._head_split[i] else t, cache)
+
+        def whole(i, t):
+            for dim in (self._cut[i], 2 if self._head_split[i] else None):
+                if dim is not None:
+                    t = self.mesh.all_gather(t, "model", dim=dim)
+            return t
+        return tree_map_i(whole, cache)
 
     def clear_slot(self, slot: int) -> None:
         """Zero one slot in every leaf (the scratch slot after warmup)."""

@@ -11,7 +11,9 @@ heads, the SSD scan on the local ``Hs/m`` state heads, the fused argmax on
 the local ``V/m`` columns, whose ``(index, max, sum)`` then merge across
 the model group (:func:`merge_vocab_shards`). Each wrapper enforces the
 reference's divisibility law on the global dimensions it shards
-(``launch.mesh.require_divisible``), as the engine does up front.
+(``launch.mesh.require_divisible``), as the engine does up front, except
+:func:`flash_refresh_attention`, which takes the reference's fallbacks
+where the heads do not divide (its docstring).
 """
 from __future__ import annotations
 
@@ -154,20 +156,48 @@ def flash_refresh_attention(q, k, v, *, q_pos, kv_pos, kv_valid, mask_mode,
                             window, is_local, softcap):
     """Padded full-sequence attention (the Refresh prefill), the
     model-layer contract of ``layers.attention``: q [B, S, H, dh]; k/v
-    [B, S, K, dh]; q_pos/kv_pos [B, S]; kv_valid [B, S] -> [B, S, H, dh]."""
-    M.require_divisible("flash refresh attention", *_HEADS)
-    B, S, H, dh = q.shape
+    [B, S, K, dh]; q_pos/kv_pos [B, S]; kv_valid [B, S] -> [B, S, H, dh].
+
+    Under a model axis m > 1 the reference's placement, which never
+    refuses: where m divides the global ``n_heads``, q holds this rank's
+    ``H/m`` heads and k/v the KV heads they read (its own ``K/m``, or the
+    model layer's slice of the whole ``K``:
+    ``transformer.query_kv_range``); else, where m divides S, the rank
+    attends query rows ``[i·S/m, (i+1)·S/m)`` against the whole K/V (each
+    row's output is complete, so no sum) and the rows are gathered over
+    the model axis; else every rank makes the whole call."""
+    mesh = M.tp()
+    S = q.shape[1]
+    if mesh is not None:
+        m = mesh.shape["model"]
+        H = M.global_dim(mesh, "flash refresh attention", "n_heads")
+        if H % m and S % m == 0:
+            n = S // m
+            i = mesh.index("model") * n
+            out = _flash_refresh_rows(
+                q.narrow(1, i, n), k, v, q_pos.narrow(1, i, n), kv_pos,
+                kv_valid, mask_mode, window, is_local, softcap)
+            return mesh.all_gather(out, "model", dim=1)
+    return _flash_refresh_rows(q, k, v, q_pos, kv_pos, kv_valid, mask_mode,
+                               window, is_local, softcap)
+
+
+def _flash_refresh_rows(q, k, v, q_pos, kv_pos, kv_valid, mask_mode, window,
+                        is_local, softcap):
+    """Row 7 on query rows q [B, Sq, H, dh] (q_pos [B, Sq]) against k/v
+    [B, S, K, dh] -> [B, Sq, H, dh]."""
+    B, Sq, H, dh = q.shape
     K = k.shape[2]
     G = H // K
-    qr = q.reshape(B, S, K, G, dh).permute(0, 2, 1, 3, 4).reshape(
-        B, K, S * G, dh)
+    qr = q.reshape(B, Sq, K, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, K, Sq * G, dh)
     out = FR.flash_refresh_call(
         qr.contiguous(), k.permute(0, 2, 1, 3).contiguous(),
         v.permute(0, 2, 1, 3).contiguous(), _i32(q_pos), _i32(kv_pos),
         kv_valid.contiguous(), bool(is_local), softcap=softcap,
         causal=mask_mode == "causal", window=window)
-    out = out.reshape(B, K, S, G, dh).permute(0, 2, 1, 3, 4).reshape(
-        B, S, H, dh)
+    out = out.reshape(B, K, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Sq, H, dh)
     return out.to(q.dtype)
 
 

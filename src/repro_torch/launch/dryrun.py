@@ -24,9 +24,11 @@ For each cell:
    FSDP weights gathered over ``data`` first and the gradients
    reduce-scattered back, then AdamW on the shards; ``prefill_32k``
    ``serve_refresh`` and the C1 ``decode_tokens``; ``decode_32k`` /
-   ``long_500k`` ``serve_reuse`` and ``decode_tokens``, the cache's
-   retained length gathered whole first where its spec cuts it (what the
-   engine's pool does before a stage);
+   ``long_500k`` ``serve_reuse`` and ``decode_tokens`` on rank 0's shard
+   of the cache: where its spec cuts the retained length (over the data
+   axes at batch 1, the reference's sequence-parallel decode; over
+   ``model`` where the KV heads do not divide it), the Reuse merges its
+   shard's attention across those axes (``ServeContext.kv_split``);
 3. four figures: ``arg_bytes_per_device`` (the meta arguments' bytes,
    split in ``arg_breakdown``), ``temp_bytes_per_device`` (the peak of
    the storages the step creates and holds at once, outputs included:
@@ -38,8 +40,10 @@ For each cell:
 
 The plain paths run, as the reference's dry run runs jnp. With
 ``--flash-refresh`` the Refresh attention goes through the
-``flash_refresh`` wrapper, whose meta branch returns the kernel's output
-shape; a hand-written kernel's FLOPs are invisible to the flop counter.
+``flash_refresh`` wrapper on the reference's placement (the rank's query
+heads, or its share of the query rows where the heads do not divide the
+model axis), whose meta branch returns the kernel's output shape; a
+hand-written kernel's FLOPs are invisible to the flop counter.
 
 A cell either gives a record or raises the port's documented divisibility
 error (``mesh.require_divisible`` / ``sharding.kernel_partition_plan``:
@@ -72,7 +76,8 @@ from repro_torch.configs import ASSIGNED, SHAPES_BY_NAME, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.kernels.flash_refresh import REFRESH
 from repro_torch.launch import mesh as M
-from repro_torch.launch.sharding import Rules, local_slice, spec_axes
+from repro_torch.launch.sharding import (Rules, local_slice, retained_axes,
+                                        spec_axes)
 from repro_torch.models import backbone as BB
 from repro_torch.models import lm_head as LM
 from repro_torch.models import transformer as T
@@ -226,19 +231,6 @@ def cache_tensors(cfg: ModelConfig, mesh, rules: Rules, batch: int,
         return HybridCache(ssm_state=state, conv=conv,
                            kv=kv(group_shape(cfg)[0], spec.kv)), spec
     return kv(cfg.n_layers, spec), spec
-
-
-def _whole_retained(cache, spec, mesh):
-    """The cache with each leaf's retained axis (dim 3 of the KV leaves)
-    gathered whole where its spec cuts it: what the engine's pool hands a
-    stage. Batch and head cuts stay (the model code computes on them)."""
-    if isinstance(cache, PackedKV):
-        return PackedKV(*(mesh.all_gather(t, spec_axes(sp[3]), dim=3)
-                          if spec_axes(sp[3]) else t
-                          for t, sp in zip(cache, spec)))
-    if isinstance(cache, HybridCache):
-        return cache._replace(kv=_whole_retained(cache.kv, spec.kv, mesh))
-    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -421,12 +413,15 @@ def decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, selection: str,
     params = init_params(cfg, None, META, cut=shard_cut(rules, mesh))
     B, S = shape.global_batch, shape.seq_len
     Sb = 1   # decode shapes: one new token over a seq_len KV cache
-    ctx = dataclasses.replace(
-        serve_ctx(cfg, shape, block=BLOCK, retention=retention,
-                  selection=selection), block_size=Sb)
     retain = max(BLOCK, int(S * retention))
     retain = -(-retain // BLOCK) * BLOCK
     cache, cspec = cache_tensors(cfg, mesh, rules, B, retain)
+    # the Reuse attends rank 0's shard of the retained length and merges
+    # across the axes that cut it
+    ctx = dataclasses.replace(
+        serve_ctx(cfg, shape, block=BLOCK, retention=retention,
+                  selection=selection), block_size=Sb,
+        kv_split=retained_axes(cspec))
     dpn = M.axis_size(mesh, rules.dp)
     bspec = (rules.dp if B % dpn == 0 and B >= dpn else None, None)
     btok = _input((B, Sb), torch.int32, bspec, mesh)
@@ -436,8 +431,7 @@ def decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, selection: str,
     def step():
         with mem:
             def run():
-                whole = _whole_retained(cache, cspec, mesh)
-                h = BB.serve_reuse(params, cfg, btok, bpos, whole, ctx)
+                h = BB.serve_reuse(params, cfg, btok, bpos, cache, ctx)
                 return LM.decode_tokens(params["embed"], cfg,
                                         h.reshape(-1, cfg.d_model),
                                         max_num_logits=MAX_NUM_LOGITS,

@@ -114,7 +114,8 @@ class MetaMesh:
     and the collectives the model code calls, which return tensors of the
     right shapes and log each result's bytes by kind (``log``: the raw
     result bytes, the reference's convention for its HLO collectives).
-    ``all_reduce`` and ``broadcast`` return a copy and ``all_gather`` a
+    ``all_reduce`` (a sum or a max: one kind, ``all-reduce``, as in the
+    reference's HLO) and ``broadcast`` return a copy and ``all_gather`` a
     concatenation of ``x``, so autograd sees the same graph it would on a
     real mesh. Make it the active mesh with :func:`using`."""
 
@@ -137,7 +138,9 @@ class MetaMesh:
                           + out.numel() * out.element_size())
         return out
 
-    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axis,
+                   op: str = "sum") -> torch.Tensor:
+        _reduce_op(op)
         if axis_size(self, axis) == 1:
             return x
         return self.record("all-reduce", x.clone())
@@ -156,6 +159,14 @@ class MetaMesh:
         if self.size == 1:
             return x
         return self.record("broadcast", x.clone())
+
+
+def _reduce_op(op: str):
+    """``torch.distributed.ReduceOp`` of an ``all_reduce``'s ``op``."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce: op must be 'sum' or 'max', got {op!r}")
+    import torch.distributed as dist
+    return dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
 
 
 def backend_for(device: torch.device, colocate: bool) -> str:
@@ -247,9 +258,11 @@ class ServingMesh:
         self.collectives += 1
         return out
 
-    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
-        """The sum of ``x`` over ``axis`` (a name or a tuple of names); a
-        new tensor."""
+    def all_reduce(self, x: torch.Tensor, axis,
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="sum"``) or the maximum (``op="max"``) of ``x``
+        over ``axis`` (a name or a tuple of names); a new tensor."""
+        reduce_op = _reduce_op(op)
         if axis_size(self, axis) == 1:
             return x
         import torch.distributed as dist
@@ -257,7 +270,7 @@ class ServingMesh:
 
         def run(t):
             t = t.clone()
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=reduce_op, group=group)
             return t
         return self._collective(x, run)
 
@@ -343,6 +356,16 @@ def tp() -> Optional[ServingMesh]:
     return m if m is not None and m.shape["model"] > 1 else None
 
 
+def global_dim(mesh, kernel: str, dim: str) -> int:
+    """The global size of a kernel dimension the mesh records
+    (``kernel_dims``, set by the engine and the dry run)."""
+    n = mesh.kernel_dims.get(dim)
+    if n is None:
+        raise ValueError(f"{kernel}: the serving mesh records no global "
+                         f"size of {dim}")
+    return n
+
+
 def require_divisible(kernel: str, *dims: str) -> None:
     """The kernel wrappers' divisibility law under a model axis > 1 (as
     ``repro.kernels.ops._require_divisible``): each named global dimension
@@ -352,11 +375,7 @@ def require_divisible(kernel: str, *dims: str) -> None:
     if mesh is None:
         return
     m = mesh.shape["model"]
-    sizes = {d: mesh.kernel_dims.get(d) for d in dims}
-    missing = [d for d, n in sizes.items() if n is None]
-    if missing:
-        raise ValueError(f"{kernel}: the serving mesh records no global "
-                         f"size of {', '.join(missing)}")
+    sizes = {d: global_dim(mesh, kernel, d) for d in dims}
     bad = [f"{d}={n}" for d, n in sizes.items() if n % m]
     if bad:
         raise ValueError(

@@ -269,6 +269,15 @@ def spec_axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def retained_axes(cache_spec) -> tuple:
+    """The mesh axes that cut the retained length (dim 3 of the KV leaves)
+    of a :meth:`Rules.cache` spec: what a Reuse on that cache merges over
+    (``ServeContext.kv_split``); () for an SSM cache, or where the length
+    stays whole."""
+    kv = getattr(cache_spec, "kv", cache_spec)
+    return spec_axes(kv.k[3]) if hasattr(kv, "k") else ()
+
+
 def shard_index(mesh, axes: tuple) -> tuple:
     """(shard count, this rank's shard) of a dimension sharded over
     ``axes``: the axes combine major to minor, as listed."""

@@ -183,7 +183,7 @@ def forward_block(params, cfg: ModelConfig, xb, block_positions,
         return T.reuse_attention_layer(
             params["shared"], h, cfg, cos, sin, block_positions, False, ck,
             cv, cpos, cval, "causal", use_kernel=serve.use_flash_kernel,
-            concat=serve.reuse_concat)
+            concat=serve.reuse_concat, kv_split=serve.kv_split)
 
     return _block_scan(params, cfg, xb, cache, attn)
 
@@ -210,9 +210,11 @@ def forward_block_packed(params, cfg: ModelConfig, xb, block_positions,
         if serve.use_flash_kernel:  # lint: allow(silent-fallback)
             return T._reuse_attention_layer_flat(
                 shared, h, cfg, cos, sin, block_positions, False, ck, cv,
-                cpos, cval, q_seg, kv_seg, mask_mode="causal")
+                cpos, cval, q_seg, kv_seg, mask_mode="causal",
+                kv_split=serve.kv_split)
         return T.reuse_attention_layer(
             shared, h, cfg, cos, sin, block_positions, False, ck, cv, cpos,
-            cval, "causal", concat=serve.reuse_concat)
+            cval, "causal", concat=serve.reuse_concat,
+            kv_split=serve.kv_split)
 
     return _block_scan(params, cfg, xb, cache, attn)

@@ -43,10 +43,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.sparse_select import (PackedKV, select_and_pack,
-                                              select_and_pack_varlen)
+                                              select_and_pack_varlen,
+                                              take_heads)
 
 
 @dataclass(frozen=True)
@@ -61,6 +63,10 @@ class ServeContext:
     reuse_concat: bool = False      # paper-naive single [cache;block] pass
     use_flash_refresh: bool = False  # flash_refresh kernel, padded Refresh
     max_seq_len: int = 0            # per-request L cap (packed Refresh)
+    # the mesh axes that cut a Reuse cache's retained length (``Rules``'
+    # ``packed_kv``: the data axes at batch 1, ``model`` where the KV heads
+    # do not divide it); () where it is whole
+    kv_split: tuple = ()
 
 
 def _check_kernel_path(serve: ServeContext, device) -> None:
@@ -108,12 +114,32 @@ def _qkv(p, x, cfg: ModelConfig, cos, sin):
         v = v + p["bv"]
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    if q.shape[-2] < cfg.n_heads and k.shape[-2] == cfg.n_kv_heads:
-        # the query heads are split and the KV heads are not (they do not
-        # divide the model axis): every head attends on every rank, as the
-        # whole KV heads' selection reads every query head of their group
-        q = L.tp_gather(q, -2)
     return q, k, v
+
+
+def query_kv_range(n_q: int, n_kv: int, cfg: ModelConfig):
+    """The KV heads this rank's ``n_q`` query heads read, where the model
+    axis splits the query heads and not the ``n_kv`` KV heads: the global
+    KV-head index of each local KV slot, the reference's slice of
+    ``max(1, n_q // G)`` heads from ``index · n_q // G``
+    (``repro.kernels.ops.flash_refresh_attention``) where the rank's heads
+    fill whole groups or lie in one, else one slot a query head (its
+    heads straddle the groups unevenly: ``G = 1`` on the rank). None
+    where the query and KV heads pair up already: both whole, or both the
+    rank's shards."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if n_q == H or n_kv < K:
+        return None
+    G = H // K
+    h0 = L.tp_index() * n_q
+    if n_q % G == 0 or G % n_q == 0:
+        return tuple(range(h0 // G, h0 // G + max(1, n_q // G)))
+    return tuple((h0 + j) // G for j in range(n_q))
+
+
+def _heads(kr, *ts, dim: int):
+    """Each of ``ts`` on the KV heads ``kr`` (on ``dim``)."""
+    return tuple(take_heads(t, kr, dim) for t in ts)
 
 
 def _mlp(p, x, cfg: ModelConfig):
@@ -130,15 +156,11 @@ def _mlp(p, x, cfg: ModelConfig):
 
 
 def _attn_out(attn, wo, cfg: ModelConfig):
-    """[..., H, dh] x [H, dh, D] -> [..., D]. A rank holding ``H/m`` rows
-    of ``wo`` (row-parallel) projects its heads, of all heads when every
-    head attended, and sums over the model axis."""
-    Hl = wo.shape[0]
-    if attn.shape[-2] > Hl:
-        i = L.tp_index()
-        attn = attn[..., i * Hl:(i + 1) * Hl, :]
+    """[..., Hl, dh] x [Hl, dh, D] -> [..., D]. A rank holding ``H/m`` rows
+    of ``wo`` (row-parallel) projects its own heads and sums over the model
+    axis."""
     y = attn.flatten(-2) @ wo.flatten(0, 1)
-    return L.tp_sum(y) if Hl < cfg.n_heads else y
+    return L.tp_sum(y) if wo.shape[0] < cfg.n_heads else y
 
 
 def slice_block(h: torch.Tensor, block_start: torch.Tensor,
@@ -158,8 +180,10 @@ def _layer_full(p, x, cfg: ModelConfig, positions, cos, sin,
     """One padded Refresh layer. x [B, S, D] -> (x, PackedKV | None, aux)."""
     h = L.rms_norm(x, p["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(p, h, cfg, cos, sin)
+    kr = query_kv_range(q.shape[-2], k.shape[-2], cfg)
+    ka, va = _heads(kr, k, v, dim=-2)
     attn = L.attention(
-        q, k, v, q_pos=positions, kv_pos=positions, kv_valid=token_valid,
+        q, ka, va, q_pos=positions, kv_pos=positions, kv_valid=token_valid,
         mask_mode=mask_mode, window=cfg.sliding_window, is_local=is_local,
         attn_softcap=cfg.attn_softcap,
         q_chunk=serve.q_chunk if serve else L.DEFAULT_Q_CHUNK,
@@ -179,7 +203,7 @@ def _layer_full(p, x, cfg: ModelConfig, positions, cos, sin,
         packed = select_and_pack(
             qb, k, v, retain=serve.retain, kernel_size=serve.kernel_size,
             mode=serve.selection, exclude=in_block | ~token_valid,
-            token_valid=token_valid)
+            token_valid=token_valid, kv_range=kr)
     return x, packed, aux
 
 
@@ -284,15 +308,17 @@ def _layer_full_packed(p, x, cfg: ModelConfig, positions, seg_ids,
     """One packed Refresh layer. x [1, T, D] -> (x, PackedKV, aux)."""
     h = L.rms_norm(x, p["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(p, h, cfg, cos, sin)
+    kr = query_kv_range(q.shape[-2], k.shape[-2], cfg)
+    ka, va = _heads(kr, k, v, dim=-2)
     use_kernel = serve.use_flash_refresh or serve.use_flash_kernel
     if use_kernel:
         attn = ops.flash_varlen_attention(
-            q[0], k[0], v[0], seg_ids=seg_ids[0], positions=positions[0],
+            q[0], ka[0], va[0], seg_ids=seg_ids[0], positions=positions[0],
             kv_valid=token_valid[0], window=cfg.sliding_window,
             is_local=is_local, causal=mask_mode == "causal",
             softcap=cfg.attn_softcap)[None]
     else:
-        attn = _attend_packed_stream(q, k, v, positions, seg_ids,
+        attn = _attend_packed_stream(q, ka, va, positions, seg_ids,
                                      token_valid, cfg, is_local, serve,
                                      mask_mode=mask_mode)
     x = x + _attn_out(attn, p["wo"], cfg)
@@ -304,7 +330,7 @@ def _layer_full_packed(p, x, cfg: ModelConfig, positions, seg_ids,
         qb, k[0], v[0], seg_ids[0], cu_seqlens, gather_rows, valid_sel,
         retain=serve.retain, kernel_size=serve.kernel_size,
         mode=serve.selection, exclude=in_block | ~valid_sel,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, kv_range=kr)
     return x, packed, aux
 
 
@@ -385,12 +411,13 @@ def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
         if serve.use_flash_kernel:
             xb = _reuse_attention_layer_flat(
                 p, xb, cfg, cos, sin, block_positions, flags[l], cache.k[l],
-                cache.v[l], cache.pos[l], cache.valid[l], q_seg, kv_seg)
+                cache.v[l], cache.pos[l], cache.valid[l], q_seg, kv_seg,
+                kv_split=serve.kv_split)
         else:
             xb = reuse_attention_layer(
                 p, xb, cfg, cos, sin, block_positions, flags[l], cache.k[l],
                 cache.v[l], cache.pos[l], cache.valid[l], "bidirectional",
-                concat=serve.reuse_concat)
+                concat=serve.reuse_concat, kv_split=serve.kv_split)
         h2 = L.rms_norm(xb, p["mlp_norm"], cfg.rms_eps)
         y, _ = _mlp(p, h2, cfg)
         xb = xb + y
@@ -400,12 +427,15 @@ def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
 def _reuse_attention_layer_flat(p, x, cfg: ModelConfig, cos, sin,
                                 block_positions, is_local: bool, ck, cv,
                                 cpos, cvalid, q_seg, kv_seg,
-                                mask_mode: str = "bidirectional"):
+                                mask_mode: str = "bidirectional",
+                                kv_split: tuple = ()):
     """One packed-Reuse attention sublayer as a single flat varlen dispatch.
 
     x [R, Sb, D]; ck/cv [R, K, Cr, dh] gathered slot caches. The KV stream
     interleaves each request's retained cache with its live block KV, so
-    requests stay contiguous (segment-ascending)."""
+    requests stay contiguous (segment-ascending). One pass over the whole
+    retained length: a cut one is refused (:func:`_whole_retained`)."""
+    _whole_retained(kv_split, "the flat varlen Reuse kernel")
     R, Sb, _ = x.shape
     K, Cr, dh = ck.shape[1], ck.shape[2], ck.shape[3]
     h = L.rms_norm(x, p["attn_norm"], cfg.rms_eps)
@@ -448,7 +478,8 @@ def forward_block(stack, cfg: ModelConfig, xb, block_positions,
         xb = reuse_attention_layer(
             p, xb, cfg, cos, sin, block_positions, flags[l], cache.k[l],
             cache.v[l], cache.pos[l], cache.valid[l], mask_mode,
-            use_kernel=serve.use_flash_kernel, concat=serve.reuse_concat)
+            use_kernel=serve.use_flash_kernel, concat=serve.reuse_concat,
+            kv_split=serve.kv_split)
         h2 = L.rms_norm(xb, p["mlp_norm"], cfg.rms_eps)
         y, _ = _mlp(p, h2, cfg)
         xb = xb + y
@@ -458,7 +489,7 @@ def forward_block(stack, cfg: ModelConfig, xb, block_positions,
 def reuse_attention_layer(p, x, cfg: ModelConfig, cos, sin, block_positions,
                           is_local: bool, ck, cv, cpos, cvalid,
                           mask_mode: str, use_kernel: bool = False,
-                          concat: bool = False):
+                          concat: bool = False, kv_split: tuple = ()):
     """One Reuse attention sublayer over [packed cache ; live block KV].
 
     Default (``concat=False``): split attention, one pass over the packed
@@ -466,14 +497,33 @@ def reuse_attention_layer(p, x, cfg: ModelConfig, cos, sin, block_positions,
     one over the live block's KV (plain PyTorch), merged exactly with their
     (m, s) statistics. ``concat=True`` is the paper-naive single pass over
     the concatenation. x [B, Sb, D]; ck/cv [B, K, Cr, dh]; cpos/cvalid
-    [B, K, Cr]."""
+    [B, K, Cr].
+
+    On a mesh whose ``kv_split`` axes cut the retained length, ``Cr`` is
+    this rank's shard: its cache half's ``(o, m, s)`` merge across those
+    axes (:func:`_merge_stats`) before the live half, which every rank
+    computes alike, merges locally. Where this rank's query heads are a
+    split of the whole KV heads' (``query_kv_range``), a cache cut over
+    ``model`` serves every query head, so the block's queries are gathered
+    (``Sb`` rows) and the result cut back to the rank's heads; a cache the
+    model axis leaves whole is read on the rank's KV-head slice."""
     h = L.rms_norm(x, p["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(p, h, cfg, cos, sin)
+    Hl = q.shape[2]
+    kr = query_kv_range(Hl, k.shape[-2], cfg)
+    own = None
+    if kr is not None and "model" in kv_split:
+        own = L.tp_index() * Hl
+        q = L.tp_gather(q, -2)
+    else:
+        k, v = _heads(kr, k, v, dim=-2)
+        ck, cv, cpos, cvalid = _heads(kr, ck, cv, cpos, cvalid, dim=1)
     kb = k.transpose(1, 2)                              # [B, K, Sb, dh]
     vb = v.transpose(1, 2)
     bpos_hm = block_positions[:, None].expand(kb.shape[:3]).to(cpos.dtype)
     live = torch.ones(kb.shape[:3], dtype=torch.bool, device=x.device)
     if concat:
+        _whole_retained(kv_split, "the concatenated Reuse pass")
         attn = _attend_packed(
             q, torch.cat([ck, kb], dim=2), torch.cat([cv, vb], dim=2),
             torch.cat([cpos, bpos_hm], dim=2),
@@ -497,6 +547,7 @@ def reuse_attention_layer(p, x, cfg: ModelConfig, cos, sin, block_positions,
             s1 = s1.reshape(B, K, Sb, G).transpose(2, 3)
         else:
             o1, m1, s1 = _attend_stats(q, ck, cv, ok_c, cfg)
+        o1, m1, s1 = _merge_stats(o1, m1, s1, kv_split)
         o2, m2, s2 = _attend_stats(q, kb, vb, ok_b, cfg)
         m = torch.maximum(m1, m2)
         a1 = torch.exp(m1 - m)[..., None]
@@ -504,7 +555,36 @@ def reuse_attention_layer(p, x, cfg: ModelConfig, cos, sin, block_positions,
         den = s1[..., None] * a1 + s2[..., None] * a2
         out = (o1 * a1 + o2 * a2) / den.clamp_min(1e-30)   # [B,K,G,Sb,dh]
         attn = out.permute(0, 3, 1, 2, 4).reshape(B, Sb, H, dh).to(q.dtype)
+    if own is not None:
+        attn = attn[:, :, own: own + Hl]
     return x + _attn_out(attn, p["wo"], cfg)
+
+
+def _whole_retained(kv_split: tuple, what: str) -> None:
+    """A Reuse pass over ``[cache ; block]`` at once has no cross-rank
+    merge of the cache's statistics: on a retained length that ``kv_split``
+    cuts it would attend this rank's shard alone, so it is refused with
+    the documented divisibility wording."""
+    if kv_split:
+        raise ValueError(
+            f"{what} cannot partition over the {'+'.join(kv_split)} "
+            "axes that cut the retained length (use the split Reuse: "
+            "reuse_concat=False, and the padded or plain packed path)")
+
+
+def _merge_stats(o, m, s, kv_split: tuple):
+    """The unnormalised flash statistics of the whole retained length from
+    each rank's over its shard: ``M = max m``, then ``Σ o·exp(m − M)`` and
+    ``Σ s·exp(m − M)`` over the ``kv_split`` axes (row 2's split merge,
+    across ranks). A shard with no valid key has ``m = -1e30`` and adds
+    nothing. Unchanged where nothing cuts the retained length."""
+    if not kv_split:
+        return o, m, s
+    mesh = M.active()
+    mx = mesh.all_reduce(m, kv_split, op="max")
+    a = torch.exp(m - mx)
+    return (mesh.all_reduce(o * a[..., None], kv_split),
+            mx, mesh.all_reduce(s * a, kv_split))
 
 
 def _reuse_mask(valid, pos_hm, q_pos, is_local: bool, cfg: ModelConfig,

@@ -13,6 +13,9 @@ Rules`` specs over its ``SimMesh`` on ``jax.eval_shape`` leaf shapes.
   of the analytic per-device FLOPs (the record's
   ``counted_to_analytic``).
 * ``coll_breakdown`` is empty on a ``(1, 1)`` mesh and not on ``(1, 2)``.
+* On the production mesh, ``long_500k`` attends each rank's shard of the
+  retained length (ROADMAP Queue C 1), and the ``flash_refresh`` wrapper
+  takes the reference's head and query-row branches (Queue C 4).
 * The temp tracker is exact on two chained matmuls with a freed
   intermediate; ``flash_refresh``'s meta branch gives the plain version's
   shape and launches nothing.
@@ -164,12 +167,15 @@ def test_arg_bytes_equal_reference_placement(arch, shape, mesh):
     assert M.active() is None
 
 
-# ROADMAP Queue C 1 (no sequence-parallel Reuse), pinned on the production
-# mesh: batch 1 is replicated over the 16 data ranks and each rank gathers
-# the retained length whole, so the counted FLOPs lie far above the 0.25-4
-# band of the cells above and the temp bytes are the whole cache's
-# (qwen2-72b's over the card's 80 GB). A repair moves these figures: it
-# brings the ratio into the band and updates this test to it.
+# ROADMAP Queue C 1 on the production mesh, repaired: batch 1 cuts the
+# retained length over the 16 data ranks (and over the model axis where
+# K = 8 does not divide it), and the Reuse merges each rank's shard across
+# them. qwen2-72b held 86,989,968,200 temp bytes a device (the whole cache
+# gathered) and counted 206.17x the analytic FLOPs before; now at most a
+# 16th of those bytes and a tenth of that ratio. What stays above the 0.25-4
+# band is batch 1's replication over the data ranks, which the reference's
+# placement has too (``Rules.tokens``) and ``roofline.flops`` credits as
+# parallel: mamba2-130m has no attention, and its figures are all that.
 LONG_FAULT = [("mamba2-130m", 2_378_016), ("qwen2-72b", 86_989_968_200)]
 
 
@@ -177,8 +183,16 @@ LONG_FAULT = [("mamba2-130m", 2_378_016), ("qwen2-72b", 86_989_968_200)]
 def test_long_500k_on_the_production_mesh_pins_queue_c1(arch, temp):
     rec = D.run_cell(arch, "long_500k", mesh_shape=(16, 16), verbose=False)
     assert rec["ok"]
-    assert rec["counted_to_analytic"] > 4.0, rec["counted_to_analytic"]
-    assert rec["temp_bytes_per_device"] == temp
+    if arch == "mamba2-130m":
+        # no cache to cut: the replicated weight matmuls alone
+        assert rec["counted_to_analytic"] > 4.0, rec["counted_to_analytic"]
+        assert rec["temp_bytes_per_device"] == temp
+    else:
+        assert rec["temp_bytes_per_device"] <= temp // 16, \
+            rec["temp_bytes_per_device"]
+        assert rec["counted_to_analytic"] <= 206.17421160560548 / 10, \
+            rec["counted_to_analytic"]
+        assert rec["coll_breakdown"]["all-reduce"] > 0
     assert M.active() is None
 
 
@@ -201,15 +215,100 @@ def test_collectives_only_on_a_split_mesh():
 
 
 def test_refusals_and_the_missing_policy():
-    # gemma-2b's one KV head cannot split over the 16-way model axis for
-    # the flash_refresh kernel: the documented divisibility error
+    # mamba2-130m's vocabulary (50,280) cannot split over the 16-way model
+    # axis for the fused argmax kernel: the documented divisibility error
+    # (gemma-2b's flash Refresh, refused here once, now takes the
+    # reference's query-row fallback: the tests below)
     with pytest.raises(ValueError, match="cannot partition over the") as e:
-        D.run_cell("gemma-2b", "prefill_32k", flash_refresh=True,
+        D.run_cell("mamba2-130m", "decode_32k", logit_mode="fused",
                    verbose=False)
     assert D.is_refusal(e.value)
     assert M.active() is None
     with pytest.raises(ValueError, match="XLA sharding policy"):
         D.run_cell("gemma-2b", "decode_32k", opt_loss=True, verbose=False)
+
+
+def test_straddling_heads_compute_on_a_5_way_model_axis():
+    """qwen2.5-14b's 40 query heads on a 5-way model axis put 8 on a rank,
+    which straddle its groups of 5 over 8 KV heads: each rank reads one
+    KV slot a query head (``transformer.query_kv_range``) and the cell
+    runs, where the parent gathered every query head on every rank."""
+    rec = D.run_cell("qwen2.5-14b", "decode_32k", mesh_shape=(1, 5),
+                     verbose=False)
+    assert rec["ok"] and 0.25 <= rec["counted_to_analytic"] <= 4.0, rec
+    assert M.active() is None
+
+
+def _refresh_on_meta(H, K, dh, S=64):
+    """``ops.flash_refresh_attention`` on rank 0 of ``MetaMesh((16, 16))``
+    with H query and K KV heads, H not dividing the model axis (q and k/v
+    whole on every rank): the output, the row-7 q shapes and the
+    collective log."""
+    from repro_torch.kernels import ops
+    mesh = M.MetaMesh((16, 16))
+    mesh.kernel_dims = dict(n_heads=H, n_kv_heads=K)
+    q = torch.empty((1, S, H, dh), device="meta")
+    kv = torch.empty((1, S, K, dh), device="meta")
+    pos = torch.empty((1, S), dtype=torch.int32, device="meta")
+    ok = torch.empty((1, S), dtype=torch.bool, device="meta")
+    seen, call = [], FR.flash_refresh_call
+
+    def record(q, *a, **kw):
+        seen.append(tuple(q.shape))
+        return call(q, *a, **kw)
+    calls = FR.REFRESH.meta_calls
+    ops.FR.flash_refresh_call = record
+    try:
+        with M.using(mesh):
+            out = ops.flash_refresh_attention(
+                q, kv, kv, q_pos=pos, kv_pos=pos, kv_valid=ok,
+                mask_mode="bidirectional", window=0, is_local=False,
+                softcap=0.0)
+    finally:
+        ops.FR.flash_refresh_call = call
+    assert FR.REFRESH.meta_calls == calls + 1
+    return out, seen, mesh.log
+
+
+def test_flash_refresh_head_split_on_the_production_mesh():
+    """qwen2-72b's heads (64 over 8 KV heads, G = 8) on a 16-way model
+    axis, through the model's call (one layer's padded Refresh with
+    ``use_flash_refresh``, batch 16 and S 256 on rank 0 of
+    ``MetaMesh((16, 16))``): rank 0's 4 query heads against the one KV
+    head they read (the reference's head branch; the model layer slices
+    the KV head, the wrapper takes what it is given)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    cfg = dataclasses.replace(get_config("qwen2-72b"), n_layers=1)
+    mesh = M.MetaMesh((16, 16))
+    mesh.kernel_dims = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                            ssm_heads=0, vocab_size=cfg.vocab_size)
+    seen, call = [], FR.flash_refresh_call
+
+    def record(q, *a, **kw):
+        seen.append(tuple(q.shape))
+        return call(q, *a, **kw)
+    FR.flash_refresh_call = record
+    try:
+        with M.using(mesh):
+            step, _ = D.prefill_step(
+                cfg, ShapeConfig("t", "prefill", 256, 16), mesh, "head",
+                D.RETENTION, "chunked", True, D._Counts(), D.MetaMemory())
+            step()
+    finally:
+        FR.flash_refresh_call = call
+    assert seen == [(1, 1, 256 * 4, 128)]
+    assert M.active() is None
+
+
+def test_flash_refresh_query_rows_on_the_production_mesh():
+    """gemma-2b's heads (8 over 1) do not divide 16: rank 0 attends 4 of
+    the 64 query rows against the whole K/V, and the rows are gathered
+    over the model axis (the reference's sequence branch)."""
+    out, seen, log = _refresh_on_meta(8, 1, 256)
+    assert tuple(out.shape) == (1, 64, 8, 256)
+    assert seen == [(1, 1, 4 * 8, 256)]
+    assert log == {"all-gather": 64 * 8 * 256 * 4}
 
 
 def test_meta_memory_on_chained_matmuls():
