@@ -1,0 +1,1 @@
+"""The serving benchmark of the PyTorch and CUDA port (see ``run.py``)."""
