@@ -84,6 +84,19 @@ i's one device->host copy is waited for, then i+1 is filled and
 dispatched. ``pipeline=False`` syncs every iteration; both give the same
 ids, counters and modeled clock.
 
+Each ``iter_log`` row times its iteration on both clocks. On the host:
+``plan_s``, ``fill_s``, ``sync_s`` (the wait for the copy) and ``land_s``
+(the ids committed and ``stream_cb`` fired), each beside its start in
+Unix nanoseconds (``plan_ns`` ...), the clock ``torch.profiler`` stamps
+its events on. On the card: CUDA timing events around each stage entry's
+call and behind the decode outputs' copy give ``refresh_dev_s``,
+``reuse_dev_s``, ``logit_dev_s``, ``iter_dev_s`` (the first stage's start
+to the copy's end) and ``gap_dev_s`` (the previous iteration's copy to
+this one's first stage), read at the sync, which already waits for them;
+off the card they are None. The engine opens no profiler range: a range
+is mirrored on the device's timeline and would count as device work in a
+trace.
+
 ``clock="modeled"`` advances a virtual device clock by the reference's cost
 model (:class:`DeviceModel`) — a parity device, so the port's ``vtime``
 matches the reference's exactly. It is no measurement of the card.
@@ -249,6 +262,7 @@ class _Prepared:
     layout: object            # PackedIterationLayout | None
     lifecycle: bool           # the plan shed/rejected/preempted something
     plan_s: float
+    plan_ns: int              # the plan's start, Unix ns
 
     @property
     def has_exec(self) -> bool:
@@ -264,6 +278,62 @@ class _Pending:
     n_rows: int
     entries: List[_CommitEntry]
     log_row: dict
+    # the iteration's stage spans (stage, start, end) and the event behind
+    # its decode outputs' copy; None off the card
+    spans: Optional[list] = None
+    mark: Optional[torch.cuda.Event] = None
+
+
+# iter_log keys of each stage's device time, by the stage name _dispatch
+# takes
+_STAGE_DEV = {"refresh": "refresh_dev_s", "reuse": "reuse_dev_s",
+              "decode": "logit_dev_s"}
+
+
+class _StageClock:
+    """CUDA timing events of the iterations in flight, from a free list
+    (the pipelined loop holds one iteration's events and the previous
+    iteration's last; no event is created once the list has grown to
+    that). Every event is recorded on the serving stream outside any
+    captured region."""
+
+    def __init__(self):
+        self._free: List[torch.cuda.Event] = []
+        self.spans: list = []      # (stage, start, end) of the dispatch
+        self.prev: Optional[torch.cuda.Event] = None  # last iteration's end
+
+    def take(self) -> torch.cuda.Event:
+        return (self._free.pop() if self._free
+                else torch.cuda.Event(enable_timing=True))
+
+    def record(self) -> torch.cuda.Event:
+        ev = self.take()
+        ev.record()
+        return ev
+
+    def release(self, *events) -> None:
+        self._free.extend(e for e in events if e is not None)
+
+    def reset(self) -> None:
+        """A new run: no previous iteration, no partial dispatch."""
+        self.release(self.prev, *(e for _, s, t in self.spans
+                                  for e in (s, t)))
+        self.prev, self.spans = None, []
+
+    def read(self, spans: list, mark: torch.cuda.Event) -> dict:
+        """Seconds of device time by stage, the iteration's span and the
+        gap behind the previous one, from events its sync has seen
+        complete; the iteration's end becomes the previous one's."""
+        dev = dict.fromkeys(_STAGE_DEV.values(), 0.0)
+        for stage, s, t in spans:
+            dev[_STAGE_DEV[stage]] += s.elapsed_time(t) / 1e3
+        first = spans[0][1]
+        dev["iter_dev_s"] = first.elapsed_time(mark) / 1e3
+        dev["gap_dev_s"] = (None if self.prev is None
+                            else self.prev.elapsed_time(first) / 1e3)
+        self.release(self.prev, *(e for _, s, t in spans for e in (s, t)))
+        self.prev = mark
+        return dev
 
 
 def _check_mesh_config(cfg: ModelConfig, serve: ServeConfig) -> None:
@@ -446,6 +516,10 @@ class Engine:
         self._fault_blocked = False  # the last plan was held by faults
         self._stream_cb = stream_cb
         self.graphs = StageGraphs(self.device, graphs)
+        # device time by stage (None off the card), and the laps since the
+        # last dispatch that dispatched nothing
+        self._clock = _StageClock() if self.device.type == "cuda" else None
+        self._idle_laps = 0
         self._hdtype = params["embed"]["table"].dtype
         self._ar = np.arange(serve.max_seq_len + self._fe_len, dtype=np.int32)
         self.stats = EngineStats()
@@ -692,6 +766,9 @@ class Engine:
         start = time.perf_counter()
         pending: Optional[_Pending] = None
         it = 0
+        self._idle_laps = 0
+        if self._clock is not None:
+            self._clock.reset()
         while self.scheduler.has_work and it < max_iters:
             if self.clock == "modeled":
                 now = self.vtime
@@ -716,6 +793,7 @@ class Engine:
                     self._sync_iteration(nxt)
                 progressed = True
             else:
+                self._idle_laps += 1
                 progressed = prep.lifecycle
             if not progressed:
                 # time can unblock a future arrival or a future deadline
@@ -798,7 +876,7 @@ class Engine:
     def _begin_iteration(self, now: float) -> _Prepared:
         """Plan one iteration: the fault schedule's tick, scheduler plan and
         packed layout (host work only)."""
-        t0 = time.perf_counter()
+        t0, t0_ns = time.perf_counter(), time.time_ns()
         self._iter += 1
         if self.faults is not None:
             self.faults.begin_iteration(self._iter)
@@ -830,14 +908,14 @@ class Engine:
                 layout = plan.packed_layout(self.serve.refresh_slots)
         plan_s = time.perf_counter() - t0
         self.stats.host_plan_s += plan_s
-        return _Prepared(now, plan, layout, lifecycle, plan_s)
+        return _Prepared(now, plan, layout, lifecycle, plan_s, t0_ns)
 
     def _dispatch_iteration(self, prep: _Prepared) -> _Pending:
         """Fill the stage streams, run every stage's entry, queue the
         decode outputs' copy to the host, charge the modeled clock and
         advance the control plane. Each stage's block hidden rows are copied
         into the logit entry's static input right after its replay."""
-        t0 = time.perf_counter()
+        t0, t0_ns = time.perf_counter(), time.time_ns()
         now, plan, layout = prep.now, prep.plan, prep.layout
         Sb = self.serve.block_size
         packed = self.serve.varlen_pack
@@ -905,14 +983,17 @@ class Engine:
 
         # ---- budgeted logit stage (C1) over every active block ----
         n_exec = 0
-        result = None
+        result = mark = None
         if decoded:
             if b != N:
                 h[N:].zero_()
             x = dec.host()
             if packed:
                 x["valid"][:N] = True
-            result = dec.to_host(self._dispatch("decode", dec))
+            out = self._dispatch("decode", dec)
+            if self._clock is not None:
+                mark = self._clock.take()
+            result = dec.to_host(out, mark=mark)
             # C1: serial sub-batches serialize on the device; monolithic
             # runs one big call (launch amortized, memory unbounded)
             if self.serve.logit_mode == "monolithic":
@@ -941,9 +1022,18 @@ class Engine:
             refresh_tokens_real=iter_real, refresh_tokens_exec=iter_exec,
             reuse_tokens_real=r_real, reuse_tokens_exec=r_exec,
             logit_tokens_real=n_real, logit_tokens_exec=n_exec,
-            plan_s=prep.plan_s, fill_s=fill_s, sync_s=0.0)
+            plan_s=prep.plan_s, fill_s=fill_s, sync_s=0.0,
+            deferred=len(plan.deferred), idle_laps=self._idle_laps,
+            plan_ns=prep.plan_ns, fill_ns=t0_ns, sync_ns=None,
+            land_s=None, land_ns=None, refresh_dev_s=None, reuse_dev_s=None,
+            logit_dev_s=None, iter_dev_s=None, gap_dev_s=None)
+        self._idle_laps = 0
         self.stats.iter_log.append(log_row)
-        return _Pending(result, b if decoded else 0, entries, log_row)
+        spans = None
+        if self._clock is not None:
+            spans, self._clock.spans = self._clock.spans, []
+        return _Pending(result, b if decoded else 0, entries, log_row,
+                        spans, mark)
 
     def _advance_control(self, decoded: List[Request],
                          t_commit: float) -> List[_CommitEntry]:
@@ -974,11 +1064,15 @@ class Engine:
         (dropped if a rollback bumped the epoch), and stream events fire."""
         if pending.result is None:
             return
-        t0 = time.perf_counter()
+        row = pending.log_row
+        t0, row["sync_ns"] = time.perf_counter(), time.time_ns()
         host = pending.result.wait()
-        sync_s = time.perf_counter() - t0
+        t1, row["land_ns"] = time.perf_counter(), time.time_ns()
+        row["sync_s"] = sync_s = t1 - t0
         self.stats.sync_wait_s += sync_s
-        pending.log_row["sync_s"] = sync_s
+        if pending.mark is not None:
+            # the wait above completed every event of the iteration
+            row.update(self._clock.read(pending.spans, pending.mark))
         n = pending.n_rows
         ids, conf = host[:n], host[n:].view(np.float32)
         Sb = self.serve.block_size
@@ -998,6 +1092,7 @@ class Engine:
                     n_committed=e.n_act, finished=e.finished,
                     tokens=np.array(newblk)))
         pending.result.release()
+        row["land_s"] = time.perf_counter() - t1
 
     def _dispatch(self, stage: str, call: Callable):
         """Run one stage entry under the fault plan: an injected dispatch
@@ -1005,9 +1100,12 @@ class Engine:
         retried stage runs once), then retried with exponential backoff,
         charged to the modeled clock or slept on the wall clock (at most
         0.05 s), up to ``fault_retries`` attempts; past them the
-        :class:`FaultError` propagates. Without a plan, a plain call."""
+        :class:`FaultError` propagates. Without a plan, a plain call. On the
+        card, timing events are recorded on the stream right before and
+        right after the call that runs (the entry's upload, then its
+        replay)."""
         if self.faults is None:
-            return call()
+            return self._timed(stage, call)
         attempt = 0
         while True:
             attempt += 1
@@ -1016,7 +1114,7 @@ class Engine:
                     raise FaultError(
                         f"injected {stage} dispatch fault "
                         f"(iter {self._iter}, attempt {attempt})")
-                return call()
+                return self._timed(stage, call)
             except FaultError:
                 if attempt >= self.serve.fault_retries:
                     raise
@@ -1026,6 +1124,14 @@ class Engine:
                     self.vtime += backoff
                 else:
                     time.sleep(min(backoff, 0.05))
+
+    def _timed(self, stage: str, call: Callable):
+        if self._clock is None:
+            return call()
+        start = self._clock.record()
+        out = call()
+        self._clock.spans.append((stage, start, self._clock.record()))
+        return out
 
     def _refresh(self, e, x, chunk: List[Request]):
         """Dispatch a filled Refresh entry. With sharing, its requests'

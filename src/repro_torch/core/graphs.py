@@ -232,9 +232,12 @@ class StageEntry:
             self._compile_counts.get(self.name, 0) + 1
 
     # -- outputs -------------------------------------------------------------
-    def to_host(self, t: torch.Tensor) -> "HostResult":
+    def to_host(self, t: torch.Tensor,
+                mark: Optional[torch.cuda.Event] = None) -> "HostResult":
         """Queue one device->host copy of ``t`` into pinned memory (no wait;
-        the result's :meth:`HostResult.wait` blocks on its event)."""
+        the result's :meth:`HostResult.wait` blocks on its event). ``mark``
+        is recorded right behind the copy, ahead of that event, so the wait
+        completes it too."""
         if not self._cuda:
             return HostResult(t, None, None)
         f = Field("out", tuple(t.shape), t.dtype)
@@ -245,6 +248,8 @@ class StageEntry:
             self._outs.append(out)
         dst = _typed(out.buf, f, 0)
         dst.copy_(t, non_blocking=True)
+        if mark is not None:
+            mark.record()
         out.event = torch.cuda.Event()
         out.event.record()
         out.held = True

@@ -14,11 +14,14 @@ The profiled window is ``Engine.run`` alone: engine construction (weights
 drawn on the device) and warmup (the graphs' captures) stay outside, so the
 busy time and the run's wall clock cover the same span.
 Prints one JSON object: the device seconds summed over the profiled run's
-kernels and copies; the device's idle share against that run's wall time
-and against the unprofiled warm run's (the profiler slows the host, not
-the device); device time by group — the port's kernels, matrix products,
-device<->host copies, everything else — and by kernel name; and the host
-split, ``warmup_s`` and the graph replays of the profiled serve.
+kernels and copies (self time: concurrent kernels count twice, so no idle
+share is derived from it); the profiled run's device time by stage and the
+device's gaps between iterations from the engine's ``iter_log`` (CUDA
+events: ``refresh_dev_s``, ``reuse_dev_s``, ``logit_dev_s``,
+``gap_dev_s``) and the host's landing of the ids (``land_s``); device time
+by group — the port's kernels, matrix products, device<->host copies,
+everything else — and by kernel name; and the host split, ``warmup_s``
+and the graph replays of the profiled serve.
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ def _profiled_run(box: dict):
             torch.cuda.synchronize()
             box["wall"] = time.perf_counter() - t0
         box["prof"] = prof
+        box["rows"] = list(self.stats.iter_log)
         return out
     Engine.run = wrapped
     try:
@@ -100,15 +104,18 @@ def profile_serve(arch: str, n: int, seed: int = 0,
         groups[group_of(name)] += ms
     busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    rows = box["rows"]
+    total = lambda key: sum(r[key] or 0.0 for r in rows)  # noqa: E731
     return dict(
         arch=arch, system=system, card=torch.cuda.get_device_name(0),
         n_requests=n,
         iterations=res["iterations"], committed_tokens=res["committed_tokens"],
         profiled_wall_s=wall, device_busy_s=busy_s,
-        device_idle_share=1.0 - busy_s / wall,
+        stage_dev_s={k: total(f"{k}_dev_s")
+                     for k in ("refresh", "reuse", "logit")},
+        gap_dev_s=total("gap_dev_s"), land_s=total("land_s"),
         unprofiled_wall_clock_s=warm["wall_clock_s"],
         unprofiled_wall_tok_s=warm["wall_tok_s"],
-        unprofiled_idle_share=1.0 - busy_s / warm["wall_clock_s"],
         host_plan_s=res["host_plan_s"], host_fill_s=res["host_fill_s"],
         sync_wait_s=res["sync_wait_s"], warmup_s=res["warmup_s"],
         unprofiled_host_fill_s=warm["host_fill_s"],

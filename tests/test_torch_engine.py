@@ -38,7 +38,7 @@ from repro_torch.core.scheduler import (RequestLevelScheduler,
                                         make_scheduler as tmake_scheduler)
 from repro_torch.launch.serve import run_serve as trun_serve
 from repro_torch.params import from_jax
-from torch_testing import cached
+from torch_testing import ITER_LOG_DROP, cached
 
 HOST_TIMES = {"host_plan_s", "host_fill_s", "sync_wait_s",
               "overlapped_host_s"}
@@ -113,7 +113,7 @@ def _serve_both(jserve, tserve, requests=None, check_deferred=True,
             continue
         want, got = getattr(js, f.name), getattr(ts, f.name)
         if f.name == "iter_log":
-            drop = {"plan_s", "fill_s", "sync_s"}
+            drop = ITER_LOG_DROP
             want = [{k: v for k, v in r.items() if k not in drop}
                     for r in want]
             got = [{k: v for k, v in r.items() if k not in drop}

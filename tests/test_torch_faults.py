@@ -35,7 +35,7 @@ from repro_torch.core.engine import Engine as TEngine
 from repro_torch.core.request import State
 from repro_torch.params import from_jax
 from test_torch_engine import HOST_TIMES, JAX_ONLY
-from torch_testing import cached
+from torch_testing import ITER_LOG_DROP, cached
 
 # the reference's chaos geometry (tests/test_faults.py BASE)
 BASE = dict(max_num_batched_tokens=512, max_num_logits=64, block_size=8,
@@ -83,7 +83,7 @@ def _serve(engine_cls, mod, cfg, params, serve, spec, n):
         v = getattr(stats, f.name)
         if f.name == "iter_log":
             v = [{k: x for k, x in r.items()
-                  if k not in ("plan_s", "fill_s", "sync_s")} for r in v]
+                  if k not in ITER_LOG_DROP} for r in v]
         counters[f.name] = v
     return dict(
         reqs=[(r.rid, r.state.value, r.tokens.copy(),

@@ -15,7 +15,8 @@ launch path differs), and the graphed engine builds nothing after warmup.
 The same holds under a seeded fault plan (a retried stage replays once),
 with prefix sharing (copy-on-write promotes queued on the serving stream
 ahead of the replays) and with int8 slots. The device bill re-sizes a
-serve whose graph pool overruns its budget.
+serve whose graph pool overruns its budget. Each ``iter_log`` row's device
+times, from CUDA events around the stages, tile the run.
 """
 import torch_testing  # noqa: F401  (the thread cap, before anything builds)
 
@@ -30,6 +31,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.baselines import system_profiles
 from repro_torch.core.budgeting import GUARD_BAND, MemoryPlan
+from repro_torch.core import engine as engine_mod
 from repro_torch.core.engine import Engine
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.graphs import Field, StageGraphs
@@ -300,3 +302,40 @@ def test_device_bill_of_an_eager_serve_measures_the_logit_peak(cuda):
     assert bill.graph_pool_bytes == 0 and bill.staging_bytes > 0
     assert bill.activation_bytes == \
         plan.activation_bytes - plan.logit_bytes + peak
+
+
+@pytest.mark.parametrize("system", ["dllm-serve", "sparse-dllm"])
+def test_stage_device_times_tile_the_run(cuda, monkeypatch, system):
+    """Each ``iter_log`` row's CUDA-event times: a stage that ran has
+    positive device time and one that did not reads 0.0 (the padded
+    Refresh's chunks add up), the stages fit inside the iteration's span,
+    and the iterations' spans and the gaps between them tile the run from
+    the first stage's start to the last copy's end. The events are taken
+    fresh here (never from the free list), so the first and the last stay
+    readable after the run."""
+    taken = []
+
+    def take(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        taken.append(ev)
+        return ev
+    monkeypatch.setattr(engine_mod._StageClock, "take", take)
+    cfg = reduced(get_config("llada-8b"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    _, _, st, _ = _run(cfg, _serve(system), params, graphs=True, n=8)
+    rows = list(st.iter_log)
+    assert len(rows) > 4 and any(r["n_refresh"] for r in rows)
+    # cudaEventElapsedTime resolves about half a microsecond a reading
+    tick = 1e-6
+    for i, r in enumerate(rows):
+        for n, key in (("n_refresh", "refresh_dev_s"),
+                       ("n_reuse", "reuse_dev_s")):
+            assert (r[key] > 0.0) if r[n] else (r[key] == 0.0), (i, key)
+        assert r["logit_dev_s"] > 0.0
+        stages = r["refresh_dev_s"] + r["reuse_dev_s"] + r["logit_dev_s"]
+        assert stages <= r["iter_dev_s"] + 3 * tick, i
+        assert (r["gap_dev_s"] is None) == (i == 0), i
+    tiled = sum(r["iter_dev_s"] + (r["gap_dev_s"] or 0.0) for r in rows)
+    whole = taken[0].elapsed_time(taken[-1]) / 1e3
+    assert tiled == pytest.approx(whole, rel=0.01)

@@ -64,7 +64,7 @@ from repro_torch.models.hybrid import HybridCache
 from repro_torch.models.sparse_select import PackedKV
 from repro_torch.params import from_jax
 from test_torch_engine import HOST_TIMES, JAX_ONLY, PORT_ONLY
-from torch_testing import cached
+from torch_testing import ITER_LOG_DROP, cached
 
 # the reference's end-to-end geometry (tests/test_kv_share.py SERVE)
 SERVE = dict(max_num_batched_tokens=512, max_num_logits=64, block_size=8,
@@ -313,7 +313,7 @@ def _serve(engine_cls, cfg, params, serve, n=8, seed=3):
         v = getattr(stats, f.name)
         if f.name == "iter_log":
             v = [{k: x for k, x in r.items()
-                  if k not in ("plan_s", "fill_s", "sync_s")} for r in v]
+                  if k not in ITER_LOG_DROP} for r in v]
         counters[f.name] = v
     if isinstance(eng.pool.cache, dict) and "scale" in eng.pool.cache:
         pool = [np.asarray(x) for x in jax.tree.leaves(eng.pool.cache)] \

@@ -47,7 +47,7 @@ from repro_torch.core.kv_pool import tree_leaves
 from repro_torch.core.request import State
 from repro_torch.data.workloads import make_trace, trace_prompts
 from repro_torch.params import from_jax
-from torch_testing import cached
+from torch_testing import ITER_LOG_DROP, cached
 
 HOST_TIMES = {"host_plan_s", "host_fill_s", "sync_wait_s",
               "overlapped_host_s"}
@@ -78,7 +78,7 @@ def _stats_rows(stats, skip):
             continue
         v = getattr(stats, f.name)
         if f.name == "iter_log":
-            drop = {"plan_s", "fill_s", "sync_s"}
+            drop = ITER_LOG_DROP
             v = [{k: x for k, x in r.items() if k not in drop} for r in v]
         out[f.name] = v
     return out

@@ -33,7 +33,7 @@ from repro_torch.core.engine import Engine as TEngine
 from repro_torch.launch import serve as tlaunch
 from repro_torch.params import from_jax
 from test_torch_engine import HOST_TIMES, JAX_ONLY, PORT_ONLY
-from torch_testing import cached
+from torch_testing import ITER_LOG_DROP, cached
 
 BASE = dict(max_num_batched_tokens=512, max_num_logits=64, block_size=8,
             steps_per_block=8, max_seq_len=128, max_slots=8,
@@ -63,7 +63,7 @@ def _record(reqs, stats, vtime):
         v = getattr(stats, f.name)
         if f.name == "iter_log":
             v = [{k: x for k, x in r.items()
-                  if k not in ("plan_s", "fill_s", "sync_s")} for r in v]
+                  if k not in ITER_LOG_DROP} for r in v]
         counters[f.name] = v
     return dict(reqs=rows, stats=counters, vtime=vtime)
 

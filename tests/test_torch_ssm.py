@@ -48,6 +48,7 @@ from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.sparse_select import PackedKV
 from repro_torch.params import from_jax
+from torch_testing import ITER_LOG_DROP
 
 ARCH = "mamba2-130m"
 SB, S_MAX, RETAIN = 8, 64, 32
@@ -308,7 +309,7 @@ def engines_match(arch, n_req=4):
             continue
         want, got = getattr(js, f.name), getattr(ts, f.name)
         if f.name == "iter_log":
-            drop = {"plan_s", "fill_s", "sync_s"}
+            drop = ITER_LOG_DROP
             want = [{k: v for k, v in r.items() if k not in drop}
                     for r in want]
             got = [{k: v for k, v in r.items() if k not in drop}

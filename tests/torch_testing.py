@@ -15,6 +15,10 @@ this module before they build anything.
   on what determines it: arch, overrides, serve config, requests, seed.
   Under ``--dist loadfile`` a file's cases share one worker, hence its
   cache.
+* **Row keys left out of parity.** :data:`ITER_LOG_DROP` names the
+  ``iter_log`` row keys that the parity cases drop from both packages'
+  rows: the host's and the device's clocks, and the port's own counters
+  that the reference's rows lack.
 * **Shard checks.** :func:`shard_check` runs ``python -m
   repro_torch.launch.shard_check`` on two gloo ranks of the CPU and holds
   its record to the tool's law (the mesh files share it).
@@ -63,6 +67,15 @@ def cached(key, compute: Callable[[], object]):
         _CACHE[k] = compute()
     return _CACHE[k]
 
+
+# iter_log row keys of the wall clock (host spans and their Unix-ns
+# starts), of the card's timing events, and the port's deferred-step and
+# idle-lap counters, which the reference's rows do not carry
+ITER_LOG_DROP = frozenset({
+    "plan_s", "fill_s", "sync_s", "land_s",
+    "plan_ns", "fill_ns", "sync_ns", "land_ns",
+    "refresh_dev_s", "reuse_dev_s", "logit_dev_s", "iter_dev_s",
+    "gap_dev_s", "deferred", "idle_laps"})
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
