@@ -535,6 +535,75 @@ def check_flash_varlen_cross(dev, g, cfg, serve, retain, causal=False,
         ms_by_splits=sweep)
 
 
+def check_flash_varlen_cross_pool(dev, g, cfg, R, Sb=32, Cr=1024, S1=37):
+    """Row 2 read in place, at a served Reuse's shape (R blocks of Sb
+    against Cr retained keys a slot, bfloat16, one layer's pool of S1
+    rows): the kernel against its plain version, its time against the
+    chain it replaces (one layer's share of the gather, the ``[cache ;
+    block]`` concatenation and head-major reshape of k, v, pos and valid,
+    then the cross kernel: ``chain_ms``), its bound (one read of the
+    retained and block K/V, positions and validity, Q, and the float32
+    output's write) and the split sweep at its tile list."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_varlen as FV
+    K, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    bf, Tq = torch.bfloat16, R * Sb
+    rnd = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=dev).to(bf)
+    q = rnd(K, Tq * G, dh)
+    k, v = rnd(Tq, K, dh), rnd(Tq, K, dh)
+    kp, vp = rnd(S1, K, Cr, dh), rnd(S1, K, Cr, dh)
+    pp = torch.randint(0, 2048, (S1, K, Cr), generator=g, device=dev,
+                       dtype=torch.int32)
+    vl = torch.rand((S1, K, Cr), generator=g, device=dev) < 0.9
+    slots = torch.randperm(S1 - 1, device=dev, generator=g)[:R]
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=dev).repeat(R) + 1024
+    q_seg = torch.arange(R, dtype=torch.int32, device=dev).repeat_interleave(
+        Sb)
+    args = (q, k, v, kp, vp, pp, vl, slots, q_pos, q_seg)
+    call = lambda: FV.flash_varlen_cross_pool_call(*args)  # noqa: E731
+
+    def chain():
+        kk, vv, kv_pos, kv_valid, kv_seg = FV.pool_stream(
+            k, v, kp, vp, pp, vl, slots, q_pos, q_seg)
+        return FV.flash_varlen_cross_call(q, kk, vv, q_pos, kv_pos, q_seg,
+                                          kv_seg, kv_valid)
+
+    def plain():
+        kk, vv, kv_pos, kv_valid, kv_seg = FV.pool_stream(
+            k, v, kp, vp, pp, vl, slots, q_pos, q_seg)
+        return FV.varlen_attention_plain(q, kk, vv, q_pos, q_seg, kv_pos,
+                                         kv_seg, kv_valid, False)
+    out, ref, old = call(), plain(), chain()
+    err = (out - ref).abs().max().item()
+    chain_err = (old - ref).abs().max().item()
+    log(f"  flash_varlen_cross_pool bf16 {cfg.name} R={R} Sb={Sb} Cr={Cr} "
+        f"K={K} G={G} dh={dh}: max_abs_err={err:.3g} (tol 2e-2), the "
+        f"gathered chain's {chain_err:.3g}")
+    assert err < 2e-2, err
+    ops = 4.0 * R * Sb * (Cr + Sb) * cfg.n_heads * dh
+    moved = (R * K * Cr * (2 * dh * 2 + 4 + 1) + nbytes(k, v, q, q_pos, q_seg)
+             + q.numel() * 4)
+    b, by = bound(ops, moved, bf)
+    nt = -(-Cr // FV.BK) + -(-Sb // FV.BK)
+    splits = FV.kv_splits(q.shape[1], K, R * nt * FV.BK,
+                          build.sm_count(dev), dh=dh)
+    sweep = [[s, time_ms(lambda s=s: FV.flash_varlen_cross_pool_call(
+        *args, splits=s), queued=True)]
+        for s in sorted({1, 2, 3, 4, splits, 2 * splits})]
+    dev_ms = time_ms(call, queued=True)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_varlen.cu",
+        replaces="src/repro/kernels/flash_varlen.py:220 (with the gather "
+                 "and concatenation before it)",
+        max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain, iters=2),
+        bound_ms=b, bound_by=by, library_ms=None, device_ms=dev_ms,
+        chain_ms=time_ms(chain), chain_device_ms=time_ms(chain, queued=True),
+        splits=splits, tb_s=moved / dev_ms / 1e9, host_us=host_us(call),
+        ms_by_splits=sweep)
+
+
 def check_head_score(dev, g, cfg, serve, small=True,
                      lens=(256, 250, 240, 230)):
     """Row 3 against its plain version: float32 (GQA Rq = 16, dh = 64, a
@@ -1131,8 +1200,11 @@ def kernel_counts():
 
 
 BASELINE_KERNELS = ("packed_flash_attention", "fused_logit_argmax")
-DENSE_KERNELS = ("flash_varlen", "flash_varlen_cross", "head_score_varlen",
-                 "fused_logit_argmax")
+# the packed Reuse reads the pool in place (flash_varlen_cross_pool) where
+# its rows lie whole and unquantized on the device; int8 slots and a mesh's
+# sharded pool gather them for flash_varlen_cross (path_kernels)
+DENSE_KERNELS = ("flash_varlen", "flash_varlen_cross_pool",
+                 "head_score_varlen", "fused_logit_argmax")
 PATH_KERNELS = {
     ("llada-8b", "dllm-serve"): DENSE_KERNELS,
     ("qwen2.5-14b", "dllm-serve"): DENSE_KERNELS,
@@ -1158,6 +1230,18 @@ PATH_KERNELS = {
     ("musicgen-medium", "fast-dllm"): BASELINE_KERNELS,
     ("internvl2-76b", "dllm-serve"): DENSE_KERNELS,
 }
+
+
+def path_kernels(arch, system, kv_quant="none"):
+    """The kernels a served path launches: an int8 pool's Reuse gathers its
+    rows and runs row 2 on the gathered stream."""
+    names = PATH_KERNELS[(arch, system)]
+    if kv_quant != "none":
+        names = tuple("flash_varlen_cross" if n == "flash_varlen_cross_pool"
+                      else n for n in names)
+    return names
+
+
 # depth cuts of the archs whose weights do not fit the card: phi3.5-moe's
 # 32 layers are ~83.7 GB of bfloat16 weights (24: ~62.9 GB), qwen3-moe's
 # 94 ~470 GB (8: ~42.3 GB), internvl2-76b's 80 ~141 GB (24: ~45.3 GB)
@@ -1269,8 +1353,12 @@ def serve_full(arch, system, n_req, serve_kw, card, hbm_gb,
     assert res["compiles_post_warmup"] == 0, res["compile_counts"]
     assert sum(replays.values()) >= res["iterations"], replays
     assert bill["fits"], bill
-    for name in PATH_KERNELS[(arch, system)]:
+    for name in path_kernels(arch, system, kw.get("kv_quant", "none")):
         assert counts[name][0] > 0, f"{tag}: {name} never launched"
+    if "flash_varlen_cross_pool" in path_kernels(arch, system,
+                                                 kw.get("kv_quant", "none")):
+        # read in place: the pool is never gathered after warmup
+        assert counts["kv_pool_gather"][0] == 0, (tag, counts)
     for name, (_, plain) in counts.items():
         assert plain == 0, f"{tag}: {plain} plain-version calls of {name}"
     return res, {n: launches for n, (launches, _) in counts.items()}, peak
@@ -1441,8 +1529,8 @@ def multipliers(serve_kw, card, hbm_gb, launches):
                 "sharing": c["shared_hits"] > 0,
                 "int8": c["finished"] == 8}[feature], (feature, c)
 
-    def count(tag, got):
-        for name in PATH_KERNELS[("llada-8b", "dllm-serve")]:
+    def count(tag, got, kv_quant="none"):
+        for name in path_kernels("llada-8b", "dllm-serve", kv_quant):
             launches[name][f"llada-8b dllm-serve {tag}"] = got[name]
 
     # every request arrives before the first plan, so twins are admitted
@@ -1454,7 +1542,7 @@ def multipliers(serve_kw, card, hbm_gb, launches):
     count("sharing", got)
     res, got, _ = serve_full("llada-8b", "dllm-serve", 8, serve_kw, card,
                              hbm_gb, tag="llada-8b_int8", kv_quant="int8")
-    count("int8", got)
+    count("int8", got, "int8")
     base = dataclasses.replace(
         system_profiles(ServeConfig(max_refresh_per_iter=4,
                                     **serve_kw))["dllm-serve"],
@@ -1481,7 +1569,7 @@ def multipliers(serve_kw, card, hbm_gb, launches):
         res, got, peak = serve_full("llada-8b", "dllm-serve", 8, serve_kw,
                                     card, 24, tag=tag, max_slots=64,
                                     kv_quant=quant)
-        count(f"uncapped at 24 GB, kv {quant}", got)
+        count(f"uncapped at 24 GB, kv {quant}", got, quant)
         bill = res["device_bill"]
         log(json.dumps(dict(phase="multipliers", serve=tag,
                             plan_slots=res["plan_slots_phys"],
@@ -2387,13 +2475,14 @@ def mesh_phase(dev, serve, card, launches, results):
     phi2 = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
                                n_layers=2, dtype="float32")
     scan = ("ssm_segment_scan", "fused_logit_argmax")
+    MESH_KERNELS = DENSE_KERNELS + ("flash_varlen_cross",)
     for arch, cfg, mesh, varlen, kernels in (
-            ("llada-8b", llada8, (1, 2), True, DENSE_KERNELS),
-            ("llada-8b", llada8, (2, 1), True, DENSE_KERNELS),
+            ("llada-8b", llada8, (1, 2), True, MESH_KERNELS),
+            ("llada-8b", llada8, (2, 1), True, MESH_KERNELS),
             ("llada-8b", llada8, (1, 2), False, BASELINE_KERNELS),
             ("mamba2-130m", mamba32, (1, 2), True, scan),
-            ("phi3.5-moe-42b-a6.6b", phi2, (1, 2), True, DENSE_KERNELS),
-            ("phi3.5-moe-42b-a6.6b", phi2, (2, 1), True, DENSE_KERNELS),
+            ("phi3.5-moe-42b-a6.6b", phi2, (1, 2), True, MESH_KERNELS),
+            ("phi3.5-moe-42b-a6.6b", phi2, (2, 1), True, MESH_KERNELS),
             ("mamba2-130m", mamba32, (2, 1, 1), True, scan)):
         t0 = time.perf_counter()
         gc.collect()
@@ -2426,8 +2515,12 @@ def mesh_phase(dev, serve, card, launches, results):
         assert rec["ok"], (tag, rec["diffs"])
         runs = [rec["one_device_launches"]] + rec["rank_launches"]
         for name in kernels:
-            assert all(r[name][0] > 0 for r in runs), (tag, name, runs)
-            launches[name][tag] = sum(r[name][0] for r in runs)
+            # the one-device serve reads its Reuse in place; the ranks'
+            # pools are sharded, so they gather for row 2's stream
+            who = {"flash_varlen_cross_pool": runs[:1],
+                   "flash_varlen_cross": runs[1:]}.get(name, runs)
+            assert all(r[name][0] > 0 for r in who), (tag, name, runs)
+            launches[name][tag] = sum(r[name][0] for r in who)
         assert all(c[1] == 0 for r in runs for c in r.values()), runs
         if arch == "llada-8b" and mesh == (1, 2) and varlen:
             t0 = time.perf_counter()
@@ -2499,9 +2592,11 @@ def mesh_1x1_graphed(dev, serve):
 
 def assert_no_kernel(counts, tag):
     """The training path runs no hand kernel (the reference's runs no
-    Pallas kernel): no wrapper launched, none ran its plain version."""
+    Pallas kernel): no wrapper launched, none ran its plain version, and
+    the slot pool gathered nothing (ten counters: nine wrappers', the
+    pool's gathers)."""
     assert all(c == (0, 0) for c in counts.values()), (tag, counts)
-    assert len(counts) == 8, sorted(counts)
+    assert len(counts) == 10, sorted(counts)
 
 
 def train_reduced(dev, arch, **overrides):
@@ -2822,6 +2917,12 @@ def main(argv) -> int:
         dev, g, zamba, serve, causal=True, small=False)
     results["flash_varlen_cross"]["zamba2-7b"] = check_flash_varlen_cross(
         dev, g, zamba, serve, retain, causal=True, small=False)
+    # row 2 read in place at the benchmark's Reuse (28 blocks of 32 against
+    # 1,024 retained keys): llada-8b's MHA, qwen2.5-14b's G = 5
+    results["flash_varlen_cross_pool"] = check_flash_varlen_cross_pool(
+        dev, g, llada, R=28)
+    results["flash_varlen_cross_pool"][qwen14.name] = \
+        check_flash_varlen_cross_pool(dev, g, qwen14, R=28, S1=73)
     results["head_score_varlen"]["zamba2-7b"] = check_head_score(
         dev, g, zamba, serve, small=False)
     # the dense archs: gemma-2b's head_dim 256 on one KV head (G = 8),
@@ -2893,7 +2994,8 @@ def main(argv) -> int:
             rate = "".join(f" {k}={x[k]:.4f}" for k in (
                 "device_ms", "cold_device_ms", "library_device_ms",
                 "library_cold_device_ms", "tflop_s", "w_tb_s", "tb_s",
-                "host_us", "ops_device_ms", "ops_host_us") if k in x)
+                "host_us", "ops_device_ms", "ops_host_us", "chain_ms",
+                "chain_device_ms") if k in x)
             rate += "".join(f" {k}={x[k]}" for k in ("splits", "ms_by_splits")
                             if k in x)
             log(f"  {name}{shape}: kernel_ms={x['ms']:.4f} "

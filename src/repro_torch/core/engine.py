@@ -95,7 +95,8 @@ to the copy's end) and ``gap_dev_s`` (the previous iteration's copy to
 this one's first stage), read at the sync, which already waits for them;
 off the card they are None. The engine opens no profiler range: a range
 is mirrored on the device's timeline and would count as device work in a
-trace.
+trace. ``reuse_in_place`` counts the Reuse rows whose kernel read their
+retained KV in place from the slot pool (0 where the stage gathers them).
 
 ``clock="modeled"`` advances a virtual device clock by the reference's cost
 model (:class:`DeviceModel`) — a parity device, so the port's ``vtime``
@@ -492,6 +493,13 @@ class Engine:
                            sharing=serve.prefix_sharing,
                            kv_quant=serve.kv_quant, mesh=self.mesh,
                            spec=pool_spec, pad_slots=self._pool_pad)
+        # the packed Reuse's kernel reads each request's retained KV in
+        # place from the pool (no gather) where the pool holds attention KV
+        # in rows whole and unquantized on this device; int8 pools, pools
+        # sharded over a mesh and the scan and hybrid families gather
+        self._reuse_in_place = (self._use_packed and serve.use_flash_kernel
+                                and cfg.family in BB.ATTN_FAMILIES
+                                and self.pool.rows_in_place)
         # the modeled clock's credit for the mesh, the reference's: the
         # model axis splits the share of the weights it really shards (1.0
         # when nothing divides), the data axis carries mesh_data replica
@@ -566,8 +574,9 @@ class Engine:
     def _make(self, name: str, key: tuple):
         """Static input fields and function of one (stage, bucket). The
         Refresh entries end in the slot pool's scatter and the Reuse entries
-        begin with its gather, so the captured caches never leave the
-        graph; only block hidden rows and the decode outputs are static
+        begin with its gather (the packed one, where it can, reads the pool
+        in place instead), so the captured caches never leave the graph;
+        only block hidden rows and the decode outputs are static
         outputs."""
         S, Sb = self.serve.max_seq_len, self.serve.block_size
         F = self._fe_len
@@ -618,8 +627,13 @@ class Engine:
             stage = (BB.serve_reuse_packed if name == "reuse_packed"
                      else BB.serve_reuse)
             kv_quant = self.serve.kv_quant
+            in_place = name == "reuse_packed" and self._reuse_in_place
 
             def fn(x):
+                if in_place:
+                    # the kernel reads the slots' pool rows where they lie
+                    return stage(P, cfg, x["btok"], x["bpos"],
+                                 T.PoolRows(pool.cache, x["slots"]), ctx)
                 # the KV-load dequantization point (int8 pools): inside the
                 # entry, so the dequantized caches are transient
                 cache = OPS.dequantize_gathered(pool.gather(x["slots"]),
@@ -1018,6 +1032,7 @@ class Engine:
         log_row = dict(
             t=now, q_tokens=plan.query_tokens,
             n_refresh=len(plan.refresh), n_reuse=len(plan.reuse),
+            reuse_in_place=len(plan.reuse) if self._reuse_in_place else 0,
             n_logits=N,
             refresh_tokens_real=iter_real, refresh_tokens_exec=iter_exec,
             reuse_tokens_real=r_real, reuse_tokens_exec=r_exec,

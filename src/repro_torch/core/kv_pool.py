@@ -8,9 +8,13 @@ request slot: a ``PackedKV`` (``k/v [L, slots+1, K, retain, dh]``,
 ``max_slots``, is scratch for padding rows. Refresh
 writes a freshly packed cache into its requests' slots in place
 (``index_copy_``, the form the reference's donated scatter takes here);
-Reuse gathers the slots of its sub-batch. Both stay on the device, and
-both run inside the captured stage entries: the host only rewrites the
-slot-index tensor an entry takes.
+Reuse gathers the slots of its sub-batch, or, where the pool's rows lie
+whole and unquantized on this device (:attr:`KVPool.rows_in_place`), the
+packed Reuse's kernel reads them where they lie by slot index. Both stay
+on the device, and both run inside the captured stage entries: the host
+only rewrites the slot-index tensor an entry takes. :data:`GATHERS` counts
+the gathers (``launches``, one a call), replays of a captured entry
+included.
 
 Slot lifecycle: :meth:`take` / :meth:`free` keep a free-set plus a per-slot
 generation counter; ``free`` bumps the generation so a stale holder is
@@ -64,7 +68,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.share_ledger import ShareLedger
+from repro_torch.kernels import build
 from repro_torch.launch.mesh import axis_size, data_axes
+
+# gathers of slot rows, counted like a kernel's launches (a captured stage
+# entry's replays add the gathers its capture made)
+GATHERS = build.counter("kv_pool_gather")
 
 
 def tree_leaves(tree) -> list:
@@ -253,6 +262,14 @@ class KVPool:
         return self._n_loc + 1 if self._dsplit else self.max_slots + 1
 
     @property
+    def rows_in_place(self) -> bool:
+        """Whether a stage can read the pool's rows where they lie: each row
+        whole on this device (no data-parallel share of the slots, nothing
+        cut over ``model``) and stored unquantized. Otherwise the stage
+        takes :meth:`gather`'s rows (an int8 pool dequantizes them)."""
+        return self.kv_quant == "none" and not self._dsplit and not self._cut
+
+    @property
     def gathered_dtypes(self):
         """Pre-quantization leaf dtypes for ``dequantize_gathered`` (None
         until the pool exists, or when storage is exact)."""
@@ -292,6 +309,7 @@ class KVPool:
         """The rows of ``slots`` (physical rows: see :meth:`resolve`); the
         quantized view ``{"data", "scale"}`` under int8; on a mesh, this
         rank's shard of each."""
+        GATHERS.launches += 1
         idx = self._index(slots)
         if self.mesh is None:
             return tree_map(lambda t: t.index_select(1, idx), self.cache)

@@ -40,6 +40,10 @@ SIGNATURES = {
     # kv_head_stride dh dtype | scale softcap | causal window is_local splits
     # | stream
     "repro_flash_varlen": [P] * 10 + [I] * 8 + [F, F] + [I] * 4 + [P],
+    # q kb vb kp vp o q_pos q_seg pool_pos pool_valid slots ws | K RG G Tq
+    # Sb Cr S1 dh dtype | scale softcap | causal window is_local splits |
+    # stream
+    "repro_flash_varlen_pool": [P] * 12 + [I] * 9 + [F, F] + [I] * 4 + [P],
     # q k seg out | R K Rq T dh | k_head_stride k_token_stride | dtype |
     # stream
     "repro_head_score_varlen": [P] * 4 + [I] * 5 + [L] * 2 + [I, P],

@@ -47,8 +47,14 @@
 // A problem (the Prob parameter) supplies the key window, a key's datum and
 // validity, a row's datum and a row-key mask functor; with the TMA maps'
 // row strides and a Job (the stream, the rows, the output) that is all
-// another attention kernel needs.
+// another attention kernel needs. A problem whose keys lie in more than one
+// tensor (Prob::TILED, flash_varlen.cu's in-place Reuse) gives its window
+// as a run of tiles instead, and for each tile the map (of two) and the
+// coordinates to load it from, and each key's datum, validity and whether
+// the tile holds it.
 #pragma once
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -112,6 +118,27 @@ struct Job {
   float* ml;
 };
 
+// Whether a problem addresses its keys by tile (Prob::TILED = true):
+//   int2 key_window(job, lane)  the tiles [t0, t1) of the job's rows
+//   int3 tile_at(bh, tile)      (map 0 or 1, then the map's coordinates
+//                               after the column) of the tile's BK keys
+//   void key_meta(bh, tile, i, Key& datum, int& valid, bool& in)
+//                               key i of the tile; `in` false past the
+//                               tile's last key (its bias is -inf)
+// rather than by one run [lo, hi) of a single stream's keys.
+template <class P, class = void>
+struct tiled_keys : std::false_type {};
+template <class P>
+struct tiled_keys<P, std::void_t<decltype(P::TILED)>>
+    : std::integral_constant<bool, P::TILED> {};
+
+// The BK-key tiles of a published window
+template <class Prob>
+__device__ __forceinline__ int window_tiles(int2 w) {
+  if constexpr (tiled_keys<Prob>::value) return w.y > w.x ? w.y - w.x : 0;
+  else return w.y > w.x ? (w.y - w.x + BK - 1) / BK : 0;
+}
+
 // Two neighbouring keys' data, read in one shared-memory access.
 template <class KD>
 struct alignas(2 * sizeof(KD)) KeyPair {
@@ -119,7 +146,8 @@ struct alignas(2 * sizeof(KD)) KeyPair {
 };
 
 // The body of one CTA. tq, tk, tv are 3-d TMA maps (dh, rows or keys,
-// stream) with boxes (64, BM or BK, 1).
+// stream) with boxes (64, BM or BK, 1); for a TILED problem tk and tv point
+// at two maps each, whose boxes hold BK keys of 64 columns.
 // Prob: float scale, softcap; types Key (a key's datum), Row (a row's);
 //   int2 key_window(job, lane)  (the keys [lo, hi) of the job's rows,
 //                            found by the producer warp's 32 lanes together;
@@ -174,24 +202,31 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       for (int a = 0; a < NA; ++a)
         tma_load_3d(sQ + a * L::Q_ATOM, tq, qbar, a * 64, job.row0, bh);
     }
+    constexpr bool TILED = tiled_keys<Prob>::value;
     const int2 w = p.key_window(job, lane);
     const int lo = w.x, hi = w.y;
     if (lane == 0) {
       *win = w;
       mbar_arrive(qbar);            // release: the consumers read *win
     }
-    const int nkv = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+    const int nkv = window_tiles<Prob>(w);
     // a tile's key metadata, loaded into registers (keys at or past hi read
     // key hi - 1) while the ring waits; the bias (0 valid, NEG2 invalid,
     // -inf at or past hi) is formed when the stage is written
     int mv[BK / 32];
     Key md[BK / 32];
+    bool kin[BK / 32];
     auto fetch = [&](int it) {
 #pragma unroll
       for (int x = 0; x < BK / 32; ++x) {
-        const int key = min(lo + it * BK + lane + 32 * x, hi - 1);
-        md[x] = p.key_datum(bh, key);
-        mv[x] = p.key_valid(bh, key);
+        if constexpr (TILED) {
+          p.key_meta(bh, lo + it, lane + 32 * x, md[x], mv[x], kin[x]);
+        } else {
+          const int key = lo + it * BK + lane + 32 * x;
+          kin[x] = key < hi;
+          md[x] = p.key_datum(bh, min(key, hi - 1));
+          mv[x] = p.key_valid(bh, min(key, hi - 1));
+        }
       }
     };
     if (nkv > 0) fetch(0);
@@ -200,17 +235,19 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_tx(full(s), L::K_STAGE + L::V_STAGE);
+        int3 at = make_int3(0, lo + it * BK, bh);   // map, coordinates
+        if constexpr (TILED) at = p.tile_at(bh, lo + it);
         for (int a = 0; a < NA; ++a)
-          tma_load_3d(sK + s * L::K_STAGE + a * L::KV_ATOM, tk, full(s),
-                      a * 64, lo + it * BK, bh);
+          tma_load_3d(sK + s * L::K_STAGE + a * L::KV_ATOM, tk + at.x,
+                      full(s), a * 64, at.y, at.z);
         for (int a = 0; a < NAV; ++a)
-          tma_load_3d(sV + s * L::V_STAGE + a * L::KV_ATOM, tv, full(s),
-                      job.col0 + a * 64, lo + it * BK, bh);
+          tma_load_3d(sV + s * L::V_STAGE + a * L::KV_ATOM, tv + at.x,
+                      full(s), job.col0 + a * 64, at.y, at.z);
       }
 #pragma unroll
       for (int x = 0; x < BK / 32; ++x) {
-        const bool in = lo + it * BK + lane + 32 * x < hi;
-        bias[s * BK + lane + 32 * x] = in ? (mv[x] ? 0.f : NEG2) : -INFINITY;
+        bias[s * BK + lane + 32 * x] =
+            kin[x] ? (mv[x] ? 0.f : NEG2) : -INFINITY;
         kdat[s * BK + lane + 32 * x] = md[x];
       }
       mbar_arrive(full(s));
@@ -226,8 +263,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;  // log2 units
     const Row ia = p.row_info(bh, ra), ib = p.row_info(bh, rb);
     mbar_wait(qbar, 0);             // Q is in, the window published
-    const int2 w = *win;
-    const int nkv = w.y > w.x ? (w.y - w.x + BK - 1) / BK : 0;
+    const int nkv = window_tiles<Prob>(*win);
     if (nkv > 0) {
       uint32_t pp[BK / 16][4];  // the previous tile's P: A operand of its P·V
       const uint32_t q_wg = sQ + wg * 64 * 128;
@@ -311,7 +347,8 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
           xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, off));
           xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, off));
         }
-        // The window's first tile holds key lo < hi, whose logit is finite
+        // The window's first tile holds a key (key lo < hi; a TILED
+        // problem's tiles each hold their first), whose logit is finite
         // (-1e30 at worst), so the max is finite from the first tile on and
         // ma - na is never -inf - -inf.
         const float na = fmaxf(ma, xa), nb = fmaxf(mb, xb);

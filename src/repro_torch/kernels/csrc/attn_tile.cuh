@@ -137,6 +137,23 @@ __device__ __forceinline__ void load_kv(const Tile<T, DH>& t, const T* k,
   }
 }
 
+// Load `nk` rows of K and V, row i at k + i·stride and v + i·stride (a
+// strided source: one head of a token-major [T, K, DH] stream); rows past
+// nk are zero-filled, as in load_kv.
+template <typename T, int DH>
+__device__ __forceinline__ void load_kv_rows(const Tile<T, DH>& t, const T* k,
+                                             const T* v, size_t stride,
+                                             int nk, int tid) {
+  constexpr int BK = kv_tile<DH>();
+  const T zero = from_f32<T>(0.f);
+  for (int i = tid; i < BK * DH; i += NTHREADS) {
+    const int r = i / DH, c = i % DH;
+    const bool in = r < nk;
+    t.Ks[i] = in ? k[r * stride + c] : zero;
+    t.Vs[i] = in ? v[r * stride + c] : zero;
+  }
+}
+
 // One KV tile of the online softmax, scores already in Ss. Warp w owns rows
 // [16w, 16w + 16), BK / 32 keys a lane. logit(r, c, z) returns the logit of
 // row r against key c given its scaled, softcapped score z: z itself, -1e30

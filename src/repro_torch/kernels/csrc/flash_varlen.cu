@@ -42,6 +42,24 @@
 // float32 inputs (a parity path on the card: reduced configs, TF32 off) run
 // on attn_tile.cuh's tile (products on the CUDA cores in float32, one CTA
 // per 64 rows, no split), dispatched by dtype in repro_flash_varlen.
+//
+// repro_flash_varlen_pool is the packed Reuse's cross attention read in
+// place: the same function as the cross kernel over the stream [pool row
+// slots[r] ; block r] of each segment r, with no such stream built. Its
+// keys come from two tensors as they lie: layer l's slot pool (k/v [S1, K,
+// Cr, dh], pos/valid [S1, K, Cr]) at the segment's row, and the live
+// block's K/V as the projection wrote them, token-major [R·Sb, K, dh]
+// (segment r is tokens [r·Sb, (r+1)·Sb), valid, at the queries' positions).
+// Each segment is a fixed run of tiles, ceil(Cr / BK) of its pool row and
+// then ceil(Sb / BK) of its block, so no tile straddles two sources: a row
+// tile's window is the tile runs of its first through its last segment,
+// with no search, and split-KV cuts that tile list evenly. On the Hopper
+// tile pool tiles load through a 3-d map (dh, Cr, S1·K) at (slot·K + head)
+// and block tiles through a 3-d map (dh, K, R·Sb) over the strided heads;
+// the producer warp reads the slot index and the keys' positions and
+// validity beside the TMA. Keys past a tile's source (Cr or Sb) get a
+// -inf bias, so the ragged ends need no alignment. The maps hold the
+// pool's fixed addresses, which a captured graph replays.
 
 #include "attn_sm90.cuh"
 #include "attn_tile.cuh"
@@ -353,6 +371,258 @@ struct LaunchSm90 {
   }
 };
 
+// ---- the in-place Reuse: keys from the slot pool and the live block ----
+
+struct PoolParams {
+  const void* q;                // [K, RG, dh]
+  const void* kb;               // [R·Sb, K, dh] the live blocks' keys
+  const void* vb;
+  const void* kp;               // [S1, K, Cr, dh] layer l's slot pool
+  const void* vp;
+  float* o;                     // [K, RG, dh]
+  const int* q_pos;             // [R·Sb]
+  const int* q_seg;             // [R·Sb], constant over each segment
+  const int* pool_pos;          // [S1, K, Cr]
+  const uint8_t* pool_valid;    // [S1, K, Cr]
+  const long long* slots;       // [R] the pool row of each segment
+  int RG, G, K, Sb, Cr, S1;
+  float scale, softcap;
+  int causal, window, is_local;
+};
+
+// float32: one CTA of 64 rows walks the tile runs of its rows' segments.
+template <typename T, int DH>
+__global__ void __launch_bounds__(NTHREADS)
+pool_attention_kernel(PoolParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Tile<T, DH> t(smem);
+  constexpr int BK = kv_tile<DH>();
+  int* row_pos = t.row_i0;
+  int* row_seg = t.row_i1;
+  int* key_pos = t.key_i0;
+  int* key_seg = t.key_i1;
+  int* key_ok = t.key_i2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int head = blockIdx.y;
+  const int row0 = blockIdx.x * BQ;
+  const int nrows = min(BQ, p.RG - row0);
+  const T* q = static_cast<const T*>(p.q) + ((size_t)head * p.RG + row0) * DH;
+  for (int i = tid; i < BQ; i += NTHREADS) {
+    if (i < nrows) {
+      const int tq = (row0 + i) / p.G;
+      row_pos[i] = p.q_pos[tq];
+      row_seg[i] = p.q_seg[tq];
+    } else {
+      row_pos[i] = 0;
+      row_seg[i] = -2;          // matches no key (keys carry >= -1)
+    }
+  }
+  init_rows<T, DH>(t, q, nrows, tid);
+  __syncthreads();
+
+  const int ntc = (p.Cr + BK - 1) / BK, nt = ntc + (p.Sb + BK - 1) / BK;
+  const int r0 = row0 / p.G / p.Sb, r1 = (row0 + nrows - 1) / p.G / p.Sb;
+  for (int u = r0 * nt; u < (r1 + 1) * nt; ++u) {
+    const int r = u / nt, j = u - r * nt;
+    const int seg = p.q_seg[r * p.Sb];
+    const T *k, *v;
+    const int* kpos;
+    const uint8_t* kok = nullptr;   // the block's keys are all valid
+    size_t stride;
+    int nk;
+    if (j < ntc) {
+      const size_t at = ((size_t)p.slots[r] * p.K + head) * p.Cr +
+                        (size_t)j * BK;
+      k = static_cast<const T*>(p.kp) + at * DH;
+      v = static_cast<const T*>(p.vp) + at * DH;
+      stride = DH;
+      nk = min(BK, p.Cr - j * BK);
+      kpos = p.pool_pos + at;
+      kok = p.pool_valid + at;
+    } else {
+      const int t0 = r * p.Sb + (j - ntc) * BK;
+      const size_t at = ((size_t)t0 * p.K + head) * DH;
+      k = static_cast<const T*>(p.kb) + at;
+      v = static_cast<const T*>(p.vb) + at;
+      stride = (size_t)p.K * DH;
+      nk = min(BK, p.Sb - (j - ntc) * BK);
+      kpos = p.q_pos + t0;
+    }
+    load_kv_rows<T, DH>(t, k, v, stride, nk, tid);
+    for (int c = tid; c < BK; c += NTHREADS) {
+      const bool in = c < nk;
+      key_pos[c] = in ? kpos[c] : 0;
+      key_seg[c] = in ? seg : -1;
+      key_ok[c] = in ? (kok ? (int)kok[c] : 1) : 0;
+    }
+    __syncthreads();
+    scores<T, DH>(t.Qs, t.Ks, t.Ss, tid);
+    __syncthreads();
+    softmax_tile<BK>(t.Ss, t.Ps, t.row_m, t.row_l, t.row_a, p.scale, p.softcap,
+                    warp, lane, [&](int rr, int c, float zz) {
+      bool ok = key_ok[c] && key_seg[c] == row_seg[rr];
+      if (p.causal) ok = ok && row_pos[rr] >= key_pos[c];
+      if (p.window && p.is_local)
+        ok = ok && abs(row_pos[rr] - key_pos[c]) <= p.window;
+      return ok ? zz : -1e30f;
+    });
+    __syncthreads();
+    accumulate_pv<T, DH>(t.Ps, t.Vs, t.Os, t.row_a, tid);
+    __syncthreads();
+  }
+
+  float* o = p.o + ((size_t)head * p.RG + row0) * DH;
+  for (int i = tid; i < nrows * DH; i += NTHREADS)
+    o[i] = t.Os[i] / fmaxf(t.row_l[i / DH], 1e-30f);
+}
+
+template <typename T, int DH>
+struct LaunchPool {
+  static cudaError_t run(const PoolParams& p, int, float*, cudaStream_t s) {
+    return launch_tile<T, DH>(pool_attention_kernel<T, DH>,
+                              dim3((p.RG + BQ - 1) / BQ, p.K), p, s);
+  }
+};
+
+// The Hopper problem: VarlenProb's rows and mask, keys by tile. Segment r
+// is tiles [r·nt, (r+1)·nt): nt_c of pool row slots[r], then the block's.
+template <int MASK>
+struct PoolProb : VarlenProb<MASK> {
+  static constexpr bool TILED = true;
+  using Key = typename VarlenProb<MASK>::Key;
+  const int* pool_pos;
+  const uint8_t* pool_valid;
+  const long long* slots;
+  int K, Sb, Cr, nt_c, nt;
+
+  // the tile runs of the segments from the tile's first row's to its
+  // last's, then split blockIdx.z's even share of them
+  __device__ int2 key_window(const repro::sm90::Job& job, int) const {
+    const int last = min(job.row0 + repro::sm90::BM, this->RG) - 1;
+    const int r0 = job.row0 / this->G / Sb, r1 = last / this->G / Sb;
+    const int n = (r1 - r0 + 1) * nt, z = blockIdx.z;
+    return make_int2(r0 * nt + z * n / this->splits,
+                     r0 * nt + (z + 1) * n / this->splits);
+  }
+  // map 0 (the pool: key, slot·K + head) or 1 (the block: head, token)
+  __device__ int3 tile_at(int head, int u) const {
+    const int r = u / nt, j = u - r * nt;
+    if (j < nt_c)
+      return make_int3(0, j * repro::sm90::BK, (int)slots[r] * K + head);
+    return make_int3(1, head, r * Sb + (j - nt_c) * repro::sm90::BK);
+  }
+  __device__ void key_meta(int head, int u, int i, Key& d, int& valid,
+                           bool& in) const {
+    const int r = u / nt, j = u - r * nt;
+    int pos;
+    if (j < nt_c) {
+      const int c = j * repro::sm90::BK + i;
+      in = c < Cr;
+      const size_t at = ((size_t)slots[r] * K + head) * Cr + min(c, Cr - 1);
+      pos = pool_pos[at];
+      valid = pool_valid[at];
+    } else {
+      const int c = (j - nt_c) * repro::sm90::BK + i;
+      in = c < Sb;
+      pos = this->q_pos[r * Sb + min(c, Sb - 1)];
+      valid = 1;
+    }
+    const int seg = this->q_seg[r * Sb];
+    if constexpr (VarlenProb<MASK>::POS) d = make_int2(seg, pos);
+    else d = seg;
+  }
+};
+
+// K's and V's two maps each: [0] the pool's, [1] the block's
+struct PoolMaps {
+  CUtensorMap k[2], v[2];
+};
+
+template <int DH, int MASK>
+__global__ void __launch_bounds__(repro::sm90::NTHREADS, 1)
+pool_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ PoolMaps kv,
+                           const PoolProb<MASK> p, float* o, float* part) {
+  using L = repro::sm90::Smem<DH, typename PoolProb<MASK>::Key>;
+  repro::sm90::Job job;
+  job.bh = blockIdx.y;
+  job.row0 = blockIdx.x / L::DSPLIT * repro::sm90::BM;
+  job.col0 = blockIdx.x % L::DSPLIT * L::NPV;
+  job.rows = p.RG;
+  const size_t stream = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  if (p.splits == 1) {
+    job.o = o + stream * p.RG * DH;
+    job.ml = nullptr;
+  } else {
+    job.o = part + stream * p.RG * DH;
+    job.ml = part + (size_t)p.splits * gridDim.y * p.RG * DH +
+             stream * p.RG * 2;
+  }
+  repro::sm90::attention_cta<DH>(&tq, kv.k, kv.v, p, job);
+}
+
+template <int DH, int MASK>
+cudaError_t launch_pool_sm90(const PoolParams& p, int splits, float* ws,
+                             cudaStream_t s) {
+  namespace H = repro::sm90;
+  const int R = p.RG / p.G / p.Sb;
+  CUtensorMap tq;
+  PoolMaps kv;
+  cudaError_t e = H::tma_map_3d(&tq, p.q, DH, p.RG, p.K, H::BM);
+  if (e == cudaSuccess)
+    e = H::tma_map_3d(&kv.k[0], p.kp, DH, p.Cr, p.S1 * p.K, H::BK);
+  if (e == cudaSuccess)
+    e = H::tma_map_3d(&kv.v[0], p.vp, DH, p.Cr, p.S1 * p.K, H::BK);
+  // the block's [R·Sb, K, dh] keys as boxes of one head and BK tokens:
+  // coordinates (column, head, token)
+  if (e == cudaSuccess)
+    e = H::tma_map(&kv.k[1], p.kb, DH, p.K, R * p.Sb, DH, (size_t)p.K * DH,
+                   1, H::BK);
+  if (e == cudaSuccess)
+    e = H::tma_map(&kv.v[1], p.vb, DH, p.K, R * p.Sb, DH, (size_t)p.K * DH,
+                   1, H::BK);
+  if (e != cudaSuccess) return e;
+  PoolProb<MASK> r;
+  r.scale = p.scale; r.softcap = p.softcap;
+  r.q_pos = p.q_pos; r.q_seg = p.q_seg;
+  r.kv_pos = nullptr; r.kv_seg = nullptr; r.kv_valid = nullptr;
+  r.RG = p.RG; r.G = p.G; r.Tkv = 0; r.kv_head_stride = 0;
+  r.splits = splits;
+  r.causal = p.causal; r.window = p.window; r.is_local = p.is_local;
+  r.pool_pos = p.pool_pos; r.pool_valid = p.pool_valid; r.slots = p.slots;
+  r.K = p.K; r.Sb = p.Sb; r.Cr = p.Cr;
+  r.nt_c = (p.Cr + H::BK - 1) / H::BK;
+  r.nt = r.nt_c + (p.Sb + H::BK - 1) / H::BK;
+  using L = H::Smem<DH, typename PoolProb<MASK>::Key>;
+  auto kern = pool_attention_kernel_sm90<DH, MASK>;
+  static unsigned smem_set = 0;
+  e = H::allow_dynamic_smem(kern, L::total, &smem_set);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((p.RG + H::BM - 1) / H::BM * L::DSPLIT, p.K, splits),
+         H::NTHREADS, L::total, s>>>(tq, kv, r, p.o, ws);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+struct LaunchPoolSm90 {
+  static cudaError_t run(const PoolParams& p, int splits, float* ws,
+                         cudaStream_t s) {
+    const bool win = p.window && p.is_local;
+    cudaError_t e =
+        win ? launch_pool_sm90<DH, ANY>(p, splits, ws, s)
+        : p.causal ? launch_pool_sm90<DH, CAUSAL>(p, splits, ws, s)
+                   : launch_pool_sm90<DH, SEG>(p, splits, ws, s);
+    if (e != cudaSuccess) return e;
+    if (splits > 1) {
+      const int rows = p.K * p.RG;
+      varlen_merge_kernel<<<(rows + 7) / 8, 256, 0, s>>>(ws, p.o, rows, DH,
+                                                         splits);
+    }
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 // splits: CTAs per row tile along the keys (bfloat16 only; 1 for float32);
@@ -383,6 +653,43 @@ extern "C" int repro_flash_varlen(
     e = dispatch_dh<LaunchSm90, bf16>(dh, p, K, splits, w, s);
   else if (dtype == repro::kF32)
     e = dispatch_dh<Launch, float>(dh, p, K, splits, w, s);
+  else e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The packed Reuse's cross attention read in place (the header's second
+// part): q [K, RG, dh]; kb/vb [Tq, K, dh] (Tq = R·Sb); kp/vp [S1, K, Cr,
+// dh] and pool_pos/pool_valid [S1, K, Cr] of one layer; slots [R] int64.
+// splits and ws as for repro_flash_varlen.
+extern "C" int repro_flash_varlen_pool(
+    const void* q, const void* kb, const void* vb, const void* kp,
+    const void* vp, void* o, const void* q_pos, const void* q_seg,
+    const void* pool_pos, const void* pool_valid, const void* slots,
+    void* ws, int K, int RG, int G, int Tq, int Sb, int Cr, int S1, int dh,
+    int dtype, float scale, float softcap, int causal, int window,
+    int is_local, int splits, void* stream) {
+  if (splits < 1 || (splits > 1 && (dtype != repro::kBF16 || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (Sb < 1 || Cr < 1 || Tq % Sb || RG != Tq * G)
+    return (int)cudaErrorInvalidValue;
+  PoolParams p;
+  p.q = q; p.kb = kb; p.vb = vb; p.kp = kp; p.vp = vp;
+  p.o = static_cast<float*>(o);
+  p.q_pos = static_cast<const int*>(q_pos);
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.pool_pos = static_cast<const int*>(pool_pos);
+  p.pool_valid = static_cast<const uint8_t*>(pool_valid);
+  p.slots = static_cast<const long long*>(slots);
+  p.RG = RG; p.G = G; p.K = K; p.Sb = Sb; p.Cr = Cr; p.S1 = S1;
+  p.scale = scale; p.softcap = softcap;
+  p.causal = causal; p.window = window; p.is_local = is_local;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  cudaError_t e;
+  if (dtype == repro::kBF16)
+    e = dispatch_dh<LaunchPoolSm90, bf16>(dh, p, splits, w, s);
+  else if (dtype == repro::kF32)
+    e = dispatch_dh<LaunchPool, float>(dh, p, splits, w, s);
   else e = cudaErrorInvalidValue;
   return (int)e;
 }

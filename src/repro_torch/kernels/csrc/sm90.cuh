@@ -386,20 +386,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 [streams][rows][inner] tensor as boxes of (64 inner elements,
-// box_rows, 1), 128-byte swizzle; out-of-bounds rows and columns read as
-// zeros. TMA needs a 16-byte aligned base and rows.
-inline cudaError_t tma_map_3d(CUtensorMap* map, const void* ptr, int inner,
-                              int rows, int streams, int box_rows) {
+// A bf16 3-d tensor of (inner, d1, d2) elements, d1 and d2 steps of s1 and
+// s2 elements, as boxes of (64 inner elements, b1, b2), 128-byte swizzle;
+// out-of-bounds elements read as zeros. TMA needs a 16-byte aligned base
+// and steps.
+inline cudaError_t tma_map(CUtensorMap* map, const void* ptr, int inner,
+                           int d1, int d2, size_t s1, size_t s2, int b1,
+                           int b2) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
-  if ((reinterpret_cast<uintptr_t>(ptr) & 15) || (inner % 8))
+  if ((reinterpret_cast<uintptr_t>(ptr) & 15) || (s1 % 8) || (s2 % 8))
     return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)streams};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)b1, (cuuint32_t)b2};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(ptr), dims, strides, box, estr,
@@ -408,6 +409,14 @@ inline cudaError_t tma_map_3d(CUtensorMap* map, const void* ptr, int inner,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 [streams][rows][inner] tensor as boxes of (64 inner elements,
+// box_rows, 1): TMA coordinates (column, row, stream).
+inline cudaError_t tma_map_3d(CUtensorMap* map, const void* ptr, int inner,
+                              int rows, int streams, int box_rows) {
+  return tma_map(map, ptr, inner, rows, streams, inner, (size_t)rows * inner,
+                 box_rows, 1);
 }
 
 // cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once a device for the

@@ -22,6 +22,13 @@ causal / sliding-window (``is_local`` layers) tests pass. Masked logits are
 float32. Rows whose keys are all masked (padding rows) are junk in both
 implementations and depend on tile geometry.
 
+``flash_varlen_cross_pool_call`` is the packed Reuse's cross attention read
+in place: the function of ``flash_varlen_cross_call`` over each segment's
+``[pool row ; live block]`` stream, with the keys taken where they lie (one
+layer's slot pool by slot index, the block's K/V token-major as the
+projection wrote them), so no gathered, concatenated or head-major copy is
+made.
+
 Each wrapper runs its plain PyTorch version only for CPU tensors; on a CUDA
 tensor it launches the kernel or raises.
 """
@@ -37,6 +44,7 @@ PAD_SEG = 1 << 30
 
 SELF = build.counter("flash_varlen")
 CROSS = build.counter("flash_varlen_cross")
+POOL = build.counter("flash_varlen_cross_pool")
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 BM, BK = 128, 64      # the bfloat16 tile: query rows a CTA, keys a KV tile
 # V's columns a bfloat16 CTA computes: Smem::NPV in csrc/attn_sm90.cuh, so
@@ -216,3 +224,100 @@ def flash_varlen_cross_call(q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
             softcap=softcap, causal=causal, window=window)
     return _launch(CROSS, q, k, v, q_pos, q_seg, kv_pos, kv_seg, kv_valid,
                    k.shape[1], is_local, softcap, causal, window)
+
+
+def pool_stream(k, v, k_pool, v_pool, pos_pool, valid_pool, slots, q_pos,
+                q_seg):
+    """The head-major ``[pool row ; live block]`` stream of every segment
+    that the in-place kernel reads without building: (k, v [K, Tkv, dh],
+    kv_pos, kv_valid [K, Tkv], kv_seg [Tkv]), Tkv = R·(Cr + Sb)."""
+    R = slots.shape[0]
+    Sb = q_pos.shape[0] // R
+    K, dh = k.shape[1], k.shape[2]
+    Cr = k_pool.shape[2]
+
+    def stream(cache, block):                      # [R, K, Cr + Sb, ...]
+        both = torch.cat([cache.index_select(0, slots), block], dim=2)
+        return both.transpose(0, 1).reshape((K, R * (Cr + Sb))
+                                            + tuple(both.shape[3:]))
+    blk = lambda t: t.reshape(R, Sb, K, dh).transpose(1, 2)  # noqa: E731
+    bpos = q_pos.reshape(R, 1, Sb).expand(R, K, Sb).to(pos_pool.dtype)
+    live = torch.ones((R, K, Sb), dtype=torch.bool, device=k.device)
+    kv_seg = q_seg.reshape(R, Sb)[:, 0].repeat_interleave(Cr + Sb)
+    return (stream(k_pool, blk(k)), stream(v_pool, blk(v)),
+            stream(pos_pool, bpos), stream(valid_pool, live), kv_seg)
+
+
+def flash_varlen_cross_pool_call(q, k, v, k_pool, v_pool, pos_pool,
+                                 valid_pool, slots, q_pos, q_seg,
+                                 is_local: bool = False, *,
+                                 softcap: float = 0.0, causal: bool = False,
+                                 window: int = 0,
+                                 splits: int | None = None):
+    """Packed Reuse queries against each segment's pool row and live block,
+    read in place.
+
+    q [K, Tq·G, dh] (Tq = R·Sb, segment r = tokens [r·Sb, (r+1)·Sb)); k/v
+    [Tq, K, dh] the live blocks' keys and values, token-major; k_pool/v_pool
+    [S1, K, Cr, dh] and pos_pool/valid_pool [S1, K, Cr] one layer's slot
+    pool; slots [R] int64, segment r's pool row; q_pos/q_seg [Tq] int32,
+    q_seg constant over a segment. A row of segment r attends to pool row
+    ``slots[r]``'s Cr keys of its KV head (their positions and validity)
+    and to segment r's Sb block keys (valid, at positions q_pos): the
+    function of :func:`flash_varlen_cross_call` on :func:`pool_stream`.
+    ``splits`` (bfloat16 only) overrides :func:`kv_splits`."""
+    if q.device.type == "cpu":
+        POOL.plain_calls += 1
+        kk, vv, kv_pos, kv_valid, kv_seg = pool_stream(
+            k, v, k_pool, v_pool, pos_pool, valid_pool, slots, q_pos, q_seg)
+        return varlen_attention_plain(
+            q, kk, vv, q_pos, q_seg, kv_pos, kv_seg, kv_valid, is_local,
+            softcap=softcap, causal=causal, window=window)
+    name = POOL.name
+    K, RG, dh = q.shape
+    Tq, R = q_seg.shape[0], slots.shape[0]
+    S1, Cr = k_pool.shape[0], k_pool.shape[2]
+    build.require_cuda(name, q, k, v, k_pool, v_pool, pos_pool, valid_pool,
+                       slots, q_pos, q_seg)
+    if not (q.dtype == k.dtype == v.dtype == k_pool.dtype == v_pool.dtype):
+        raise TypeError(f"{name}: q/k/v and pool dtypes differ")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+    if R == 0 or Tq % R or RG % Tq or k.shape != (Tq, K, dh) or \
+            v.shape != k.shape or k_pool.shape != (S1, K, Cr, dh) or \
+            v_pool.shape != k_pool.shape or \
+            pos_pool.shape != (S1, K, Cr) or \
+            valid_pool.shape != pos_pool.shape or Cr == 0:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} k_pool{tuple(k_pool.shape)} "
+                         f"pos_pool{tuple(pos_pool.shape)} R={R} Tq={Tq}")
+    for t in (q_pos, q_seg, pos_pool):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: positions/segments must be int32")
+    if valid_pool.dtype != torch.bool or slots.dtype != torch.int64:
+        raise TypeError(f"{name}: valid_pool must be bool, slots int64")
+    Sb = Tq // R
+    if q.dtype == torch.bfloat16:
+        build.require_tma(name, q, k, v, k_pool, v_pool)
+        if splits is None:
+            nt = -(-Cr // BK) + -(-Sb // BK)
+            splits = kv_splits(RG, K, R * nt * BK, build.sm_count(q.device),
+                               dh=dh)
+    elif splits not in (None, 1):
+        raise ValueError(f"{name}: only the bfloat16 kernel splits the keys")
+    splits = splits or 1
+    o = torch.empty((K, RG, dh), dtype=torch.float32, device=q.device)
+    ws = (torch.empty((splits * K * RG * (dh + 2),), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    code = build.library().repro_flash_varlen_pool(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), o.data_ptr(), q_pos.data_ptr(), q_seg.data_ptr(),
+        pos_pool.data_ptr(), valid_pool.data_ptr(), slots.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        K, RG, RG // Tq, Tq, Sb, Cr, S1, dh, build.dtype_code(q),
+        float(dh ** -0.5), float(softcap), int(causal), int(window),
+        int(bool(is_local)), splits,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(code, name)
+    POOL.launches += 1
+    return o

@@ -124,6 +124,29 @@ def flash_varlen_cross_attention(q, k, v, *, q_seg, q_pos, kv_seg, kv_pos,
     return out.to(q.dtype)
 
 
+def flash_varlen_cross_pool_attention(q, k, v, *, k_pool, v_pool, pos_pool,
+                                      valid_pool, slots, q_seg, q_pos,
+                                      window: int = 0, is_local: bool = False,
+                                      softcap: float = 0.0,
+                                      causal: bool = False):
+    """Packed-Reuse cross attention read in place (no mesh: the engine
+    takes it only for a pool whose rows this device holds whole). q
+    [Tq, H, dh] packed block queries; k/v [Tq, K, dh] the blocks' own keys
+    and values; k_pool/v_pool [S1, K, Cr, dh], pos_pool/valid_pool
+    [S1, K, Cr] one layer's slot pool; slots [R] each segment's pool row;
+    q_seg/q_pos [Tq] -> [Tq, H, dh]."""
+    Tq, H, dh = q.shape
+    K = k.shape[1]
+    G = H // K
+    qr = q.reshape(Tq, K, G, dh).permute(1, 0, 2, 3).reshape(K, Tq * G, dh)
+    out = FV.flash_varlen_cross_pool_call(
+        qr.contiguous(), k.contiguous(), v.contiguous(), k_pool, v_pool,
+        pos_pool, valid_pool, slots, _i32(q_pos), _i32(q_seg), is_local,
+        softcap=softcap, causal=causal, window=window)
+    out = out.reshape(K, Tq, G, dh).permute(1, 0, 2, 3).reshape(Tq, H, dh)
+    return out.to(q.dtype)
+
+
 def packed_flash_attention_stats(qr, k_all, v_all, ok, *,
                                  softcap: float = 0.0):
     """Raw flash statistics for the exact split-attention merge of the

@@ -266,9 +266,11 @@ def serve_reuse_packed(params, cfg: ModelConfig, flat_tokens, flat_positions,
     """Token-packed Reuse: the R active blocks as one ``[R·Sb]`` query
     stream against their gathered slot caches (SSM blocks decode
     recurrently from their cached states; hybrids add the causal shared
-    block). Returns the flat ``[Tq, D]`` final-normed hidden stream the
-    logit stage consumes. A frontend arch's blocks are text; their
-    positions count the prefix."""
+    block), or, for an attention family, against their rows of the slot
+    pool read in place (``cache`` a :class:`transformer.PoolRows`). Returns
+    the flat ``[Tq, D]`` final-normed hidden stream the logit stage
+    consumes. A frontend arch's blocks are text; their positions count the
+    prefix."""
     Sb = serve.block_size
     Tq = flat_tokens.shape[0]
     R = Tq // Sb

@@ -18,8 +18,10 @@ Token-packed paths:
   through the layer stack; self-attention in the varlen kernel, then
   head-centric select/pack of each request's retained KV, per layer.
 * :func:`forward_block_packed` — **Reuse**: the iteration's active blocks
-  as one ``[R·Sb]`` query stream against their gathered
-  ``[retain ; live block]`` caches, in the varlen cross kernel.
+  as one ``[R·Sb]`` query stream against their ``[retain ; live block]``
+  caches, in the varlen cross kernel: read in place from the slot pool by
+  slot index where the engine passes :class:`PoolRows`, else from gathered
+  caches.
 
 On the card, the padded Refresh attention (without ``use_flash_refresh``)
 and the live-block half of the split Reuse run as plain PyTorch, because
@@ -37,7 +39,7 @@ the ``T`` each stage runs (the engine's buckets), as in the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -67,6 +69,14 @@ class ServeContext:
     # ``packed_kv``: the data axes at batch 1, ``model`` where the KV heads
     # do not divide it); () where it is whole
     kv_split: tuple = ()
+
+
+class PoolRows(NamedTuple):
+    """The packed Reuse's retained KV where it lies: the slot pool's cache
+    (fields [L, S1, K, retain(, dh)]) and each request's pool row (int64
+    [R]), which row 2's in-place kernel reads by slot index."""
+    cache: PackedKV
+    slots: torch.Tensor
 
 
 def _check_kernel_path(serve: ServeContext, device) -> None:
@@ -392,12 +402,20 @@ def forward_full_packed(stack, cfg: ModelConfig, x, positions, seg_ids,
 
 
 def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
-                         cache: PackedKV, *, serve: ServeContext):
+                         cache, *, serve: ServeContext):
     """Token-packed Reuse over the layer stack. xb [R, Sb, D];
-    block_positions [R, Sb]; cache fields [L, R, K, retain(, dh)]. Without
+    block_positions [R, Sb]; cache a gathered ``PackedKV`` (fields
+    [L, R, K, retain(, dh)]) or the requests' :class:`PoolRows`, which the
+    kernel reads in place (``use_flash_kernel`` only). Without
     ``use_flash_kernel`` each layer runs the split-attention fallback over
     the same R requests (CPU only)."""
     _check_kernel_path(serve, xb.device)
+    slots = None
+    if isinstance(cache, PoolRows):
+        if not serve.use_flash_kernel:
+            raise ValueError("the in-place Reuse is the kernel's: "
+                             "use_flash_kernel=False takes gathered caches")
+        cache, slots = cache
     R, Sb, _ = xb.shape
     cos, sin = L.rope_tables(block_positions, cfg.resolved_head_dim,
                              cfg.rope_theta)
@@ -405,14 +423,14 @@ def forward_block_packed(stack, cfg: ModelConfig, xb, block_positions,
     Cr = cache.k.shape[3]
     ar = torch.arange(R, dtype=torch.int32, device=xb.device)
     q_seg = ar.repeat_interleave(Sb)
-    kv_seg = ar.repeat_interleave(Cr + Sb)
+    kv_seg = ar.repeat_interleave(Cr + Sb) if slots is None else None
     for l in range(cfg.n_layers):
         p = layer_params(stack, l)
         if serve.use_flash_kernel:
             xb = _reuse_attention_layer_flat(
                 p, xb, cfg, cos, sin, block_positions, flags[l], cache.k[l],
                 cache.v[l], cache.pos[l], cache.valid[l], q_seg, kv_seg,
-                kv_split=serve.kv_split)
+                kv_split=serve.kv_split, slots=slots)
         else:
             xb = reuse_attention_layer(
                 p, xb, cfg, cos, sin, block_positions, flags[l], cache.k[l],
@@ -428,10 +446,13 @@ def _reuse_attention_layer_flat(p, x, cfg: ModelConfig, cos, sin,
                                 block_positions, is_local: bool, ck, cv,
                                 cpos, cvalid, q_seg, kv_seg,
                                 mask_mode: str = "bidirectional",
-                                kv_split: tuple = ()):
+                                kv_split: tuple = (), slots=None):
     """One packed-Reuse attention sublayer as a single flat varlen dispatch.
 
-    x [R, Sb, D]; ck/cv [R, K, Cr, dh] gathered slot caches. The KV stream
+    x [R, Sb, D]. With ``slots`` (int64 [R]), ck/cv [S1, K, Cr, dh] and
+    cpos/cvalid [S1, K, Cr] are the layer's slot pool: the kernel reads
+    each request's row and its live block's K/V where they lie. Otherwise
+    ck/cv [R, K, Cr, dh] are gathered slot caches, and the KV stream
     interleaves each request's retained cache with its live block KV, so
     requests stay contiguous (segment-ascending). One pass over the whole
     retained length: a cut one is refused (:func:`_whole_retained`)."""
@@ -441,6 +462,15 @@ def _reuse_attention_layer_flat(p, x, cfg: ModelConfig, cos, sin,
     h = L.rms_norm(x, p["attn_norm"], cfg.rms_eps)
     q, k, v = _qkv(p, h, cfg, cos, sin)
     H = q.shape[2]
+    if slots is not None:
+        out = ops.flash_varlen_cross_pool_attention(
+            q.reshape(R * Sb, H, dh), k.reshape(R * Sb, K, dh),
+            v.reshape(R * Sb, K, dh), k_pool=ck, v_pool=cv, pos_pool=cpos,
+            valid_pool=cvalid, slots=slots, q_seg=q_seg,
+            q_pos=block_positions.reshape(-1), window=cfg.sliding_window,
+            is_local=is_local, causal=mask_mode == "causal",
+            softcap=cfg.attn_softcap)
+        return x + _attn_out(out.reshape(R, Sb, H, dh), p["wo"], cfg)
     kb = k.transpose(1, 2)                                  # [R, K, Sb, dh]
     vb = v.transpose(1, 2)
     bpos_hm = block_positions[:, None].expand(R, K, Sb)

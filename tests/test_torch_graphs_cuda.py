@@ -35,6 +35,7 @@ from repro_torch.core import engine as engine_mod
 from repro_torch.core.engine import Engine
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.graphs import Field, StageGraphs
+from repro_torch.core.kv_pool import KVPool
 from repro_torch.data.workloads import PrefixSpec, make_trace, trace_prompts
 from repro_torch.kernels import build
 from repro_torch.params import init_params, param_bytes
@@ -231,6 +232,37 @@ def test_graphs_equal_eager_int8_slots(cuda, sharing):
     serve = _serve("dllm-serve", kv_quant="int8", prefix_sharing=sharing)
     st = _compare("llada-8b", serve, shared=sharing)
     assert st.packed_reuse_calls > 0
+
+
+def test_packed_reuse_reads_the_pool_in_place(cuda, monkeypatch):
+    """A served packed run takes the in-place Reuse: every ``iter_log``
+    row's ``reuse_in_place`` counts its Reuse rows, the slot pool is never
+    gathered after warmup (a replay counts the gathers its capture made),
+    and the ids are the gathered path's (the same engine with the pool's
+    in-place reads refused). An int8 pool still gathers."""
+    cfg = reduced(get_config("llada-8b"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    serve = _serve("dllm-serve")
+    eng, reqs, st, counts = _run(cfg, serve, params, graphs=True)
+    assert st.packed_reuse_calls > 0
+    assert all(r["reuse_in_place"] == r["n_reuse"] for r in st.iter_log)
+    assert sum(r["reuse_in_place"] for r in st.iter_log) > 0
+    assert counts["kv_pool_gather"] == (0, 0)
+    assert counts["flash_varlen_cross_pool"][0] > 0
+    assert counts.get("flash_varlen_cross", (0, 0)) == (0, 0)
+    with monkeypatch.context() as m:
+        m.setattr(KVPool, "rows_in_place", property(lambda self: False))
+        _, gathered, gst, gcounts = _run(cfg, serve, params, graphs=True)
+    for a, b in zip(reqs, gathered):
+        assert np.array_equal(a.tokens, b.tokens), a.rid
+    assert all(r["reuse_in_place"] == 0 for r in gst.iter_log)
+    assert gcounts["kv_pool_gather"][0] == gst.packed_reuse_calls > 0
+    assert gcounts["flash_varlen_cross"][0] > 0
+    serve = _serve("dllm-serve", kv_quant="int8")
+    _, _, qst, qcounts = _run(cfg, serve, params, graphs=True)
+    assert all(r["reuse_in_place"] == 0 for r in qst.iter_log)
+    assert qcounts["kv_pool_gather"][0] == qst.packed_reuse_calls > 0
 
 
 def test_device_bill_resizes_an_overrunning_serve(cuda):

@@ -107,6 +107,73 @@ def test_flash_varlen_cross_plain_matches_jax(H, K, flags):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+def _pool_case(rng, G, dh, K=2, R=4, Sb=4, Cr=10, S1=4):
+    """A packed Reuse read in place: R segments of Sb block tokens whose
+    pool rows are ``slots`` = [2, 0, 2, scratch] (two segments sharing
+    row 2, the last a padding row on the zeroed, invalid scratch row), and
+    the ``[pool row ; block]`` stream of each segment built by hand."""
+    H, Tq = K * G, R * Sb
+    q = rng.standard_normal((Tq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((Tq, K, dh)).astype(np.float32)
+    v = rng.standard_normal((Tq, K, dh)).astype(np.float32)
+    kp = rng.standard_normal((S1, K, Cr, dh)).astype(np.float32)
+    vp = rng.standard_normal((S1, K, Cr, dh)).astype(np.float32)
+    pp = rng.integers(0, 30, (S1, K, Cr)).astype(np.int32)
+    vl = rng.random((S1, K, Cr)) < 0.7
+    kp[-1], vp[-1], pp[-1], vl[-1] = 0, 0, 0, False
+    slots = np.array([2, 0, 2, S1 - 1], np.int64)
+    q_seg = np.repeat(np.arange(R, dtype=np.int32), Sb)
+    q_pos = (np.tile(np.arange(Sb), R) + 20).astype(np.int32)
+    ks, vs, ps, oks = [], [], [], []
+    for r, s in enumerate(slots):
+        blk = slice(r * Sb, (r + 1) * Sb)
+        ks.append(np.concatenate([kp[s], k[blk].transpose(1, 0, 2)], 1))
+        vs.append(np.concatenate([vp[s], v[blk].transpose(1, 0, 2)], 1))
+        ps.append(np.concatenate([pp[s], np.broadcast_to(q_pos[blk],
+                                                         (K, Sb))], 1))
+        oks.append(np.concatenate([vl[s], np.ones((K, Sb), bool)], 1))
+    stream = dict(k=np.concatenate(ks, 1), v=np.concatenate(vs, 1),
+                  kv_pos=np.concatenate(ps, 1),
+                  kv_valid=np.concatenate(oks, 1),
+                  kv_seg=np.repeat(np.arange(R, dtype=np.int32), Cr + Sb))
+    pool = dict(k_pool=kp, v_pool=vp, pos_pool=pp, valid_pool=vl,
+                slots=slots)
+    return q, k, v, q_seg, q_pos, pool, stream
+
+
+@pytest.mark.parametrize("G,dh,flags", [
+    (1, 128, dict()), (5, 128, dict()), (1, 128, dict(causal=True)),
+    (5, 128, dict(window=3, is_local=True)), (5, 128, dict(softcap=20.0)),
+    (1, 256, dict()), (5, 256, dict(softcap=20.0, window=3, is_local=True)),
+])
+def test_flash_varlen_cross_pool_plain_matches_gathered_stream(G, dh, flags):
+    """The in-place Reuse entry's plain version on the pool (padding rows
+    on the scratch row, two segments sharing one row) equals row 2's plain
+    version on the ``[pool row ; block]`` stream built by hand, and through
+    it the JAX package's ``flash_varlen_cross_attention``."""
+    rng = np.random.default_rng(3)
+    q, k, v, q_seg, q_pos, pool, st = _pool_case(rng, G, dh)
+    kw = dict(softcap=flags.get("softcap", 0.0),
+              causal=flags.get("causal", False),
+              window=flags.get("window", 0),
+              is_local=flags.get("is_local", False))
+    build.reset_counters()
+    out = tops.flash_varlen_cross_pool_attention(
+        _t(q), _t(k), _t(v), q_seg=_t(q_seg), q_pos=_t(q_pos),
+        **{n: _t(a) for n, a in pool.items()}, **kw)
+    assert build.COUNTERS["flash_varlen_cross_pool"].plain_calls == 1
+    want = tops.flash_varlen_cross_attention(
+        _t(q), _t(st["k"]), _t(st["v"]), q_seg=_t(q_seg), q_pos=_t(q_pos),
+        kv_seg=_t(st["kv_seg"]), kv_pos=_t(st["kv_pos"]),
+        kv_valid=_t(st["kv_valid"]), **kw)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    ref = jops.flash_varlen_cross_attention(
+        jnp.asarray(q), jnp.asarray(st["k"]), jnp.asarray(st["v"]),
+        q_seg=q_seg, q_pos=q_pos, kv_seg=st["kv_seg"], kv_pos=st["kv_pos"],
+        kv_valid=st["kv_valid"], q_tile=4, kv_tile=14, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
 @pytest.mark.parametrize("RG,K,Tkv,name", [
     (96, 32, 1632, "llada-8b Reuse (R=12 Sb=8 Cr=128)"),
     (192, 32, 1632, "llada-8b Reuse at G=2"),

@@ -246,6 +246,105 @@ def test_flash_varlen_cross_llada_reuse_shape_matches_plain(cuda, G, causal):
     assert (out - ref).abs().max().item() < 2e-2
 
 
+def _pool_inputs(dev, g, R, Sb, Cr, K, G, dh, dtype, S1=None):
+    """The in-place Reuse's inputs: R segments of Sb block tokens (keys
+    token-major, at positions 200 + i) whose pool rows repeat one row
+    (sharing) and end on the scratch row S1 - 1 (zeroed, invalid: a
+    padding row); pool keys at random positions, 60% valid."""
+    S1 = S1 or R + 1
+    Tq = R * Sb
+    rnd = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=dev).to(dtype)
+    q = rnd(K, Tq * G, dh)
+    k, v = rnd(Tq, K, dh), rnd(Tq, K, dh)
+    kp, vp = rnd(S1, K, Cr, dh), rnd(S1, K, Cr, dh)
+    pp = torch.randint(0, 300, (S1, K, Cr), generator=g, device=dev,
+                       dtype=torch.int32)
+    vl = torch.rand((S1, K, Cr), generator=g, device=dev) < 0.6
+    kp[-1], vp[-1], pp[-1], vl[-1] = 0, 0, 0, False
+    slots = torch.randperm(S1 - 1, generator=torch.Generator().manual_seed(
+        R))[:R].to(dev)
+    slots[R // 2] = slots[0]
+    slots[-1] = S1 - 1
+    q_pos = torch.arange(Sb, dtype=torch.int32, device=dev).repeat(R) + 200
+    q_seg = torch.arange(R, dtype=torch.int32,
+                         device=dev).repeat_interleave(Sb)
+    return q, k, v, kp, vp, pp, vl, slots, q_pos, q_seg
+
+
+def _pool_plain(args, local=False, **kw):
+    q, k, v, kp, vp, pp, vl, slots, q_pos, q_seg = args
+    kk, vv, kv_pos, kv_valid, kv_seg = FV.pool_stream(k, v, kp, vp, pp, vl,
+                                                      slots, q_pos, q_seg)
+    return FV.varlen_attention_plain(q, kk, vv, q_pos, q_seg, kv_pos, kv_seg,
+                                     kv_valid, local, **kw)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G,dh", [(1, 16), (2, 64), (1, 128), (1, 112),
+                                  (5, 128), (8, 256)])
+@pytest.mark.parametrize("flags", [dict(), dict(softcap=20.0),
+                                   dict(causal=True),
+                                   dict(window=30, local=True)])
+def test_flash_varlen_cross_pool_matches_plain(cuda, dtype, tol, G, dh,
+                                               flags):
+    """The in-place Reuse kernel against its plain version: ragged pool
+    rows (Cr = 100, no multiple of the tiles) and blocks (Sb = 8), a shared
+    row and a padding row on the scratch row, at the chooser's splits."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    args = _pool_inputs(cuda, g, R=5, Sb=8, Cr=100, K=2, G=G, dh=dh,
+                        dtype=dtype)
+    kw = {n: a for n, a in flags.items() if n != "local"}
+    local = flags.get("local", False)
+    out = FV.flash_varlen_cross_pool_call(*args, local, **kw)
+    ref = _pool_plain(args, local, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("splits", [2, 8, 30])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 112), (5, 128), (8, 256)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_varlen_cross_pool_bf16_splits_match_plain(cuda, splits, G, dh,
+                                                         causal):
+    """Forced split counts over the tile runs (3 + 1 tiles a segment): 30
+    splits leave shares empty, whose (0, -inf, 0) partials fold to
+    nothing."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    args = _pool_inputs(cuda, g, R=3, Sb=8, Cr=150, K=2, G=G, dh=dh,
+                        dtype=torch.bfloat16)
+    out = FV.flash_varlen_cross_pool_call(*args, causal=causal,
+                                          splits=splits)
+    ref = _pool_plain(args, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("R,K,G,dh,splits", [
+    (28, 32, 1, 128, None),       # llada-8b's Reuse at the cells' retain
+    (28, 8, 5, 128, None),        # qwen2.5-14b's GQA
+    (12, 1, 8, 256, None),        # gemma-2b: one KV head, dh 256
+    (12, 1, 8, 256, 1),
+    (12, 1, 8, 256, 40),          # more splits than a row tile's 17 tiles
+])
+def test_flash_varlen_cross_pool_serving_shapes_match_plain(cuda, R, K, G,
+                                                            dh, splits):
+    """The serving shapes: blocks of 32 against 1,024 retained keys a slot
+    (16 pool tiles and one block tile a segment), bfloat16, in a pool of
+    37 rows."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    args = _pool_inputs(cuda, g, R=R, Sb=32, Cr=1024, K=K, G=G, dh=dh,
+                        dtype=torch.bfloat16, S1=37)
+    out = FV.flash_varlen_cross_pool_call(*args, splits=splits)
+    ref = _pool_plain(args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() < 2e-2
+
+
 @pytest.mark.parametrize("splits", [None, 1])
 def test_gemma_2b_geometry_bf16_matches_plain(cuda, splits):
     """Rows 1-3 in bfloat16 at gemma-2b's heads: one KV head (K = 1) for

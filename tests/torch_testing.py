@@ -69,13 +69,14 @@ def cached(key, compute: Callable[[], object]):
 
 
 # iter_log row keys of the wall clock (host spans and their Unix-ns
-# starts), of the card's timing events, and the port's deferred-step and
-# idle-lap counters, which the reference's rows do not carry
+# starts), of the card's timing events, and the port's deferred-step,
+# idle-lap and in-place Reuse row counters, which the reference's rows do
+# not carry
 ITER_LOG_DROP = frozenset({
     "plan_s", "fill_s", "sync_s", "land_s",
     "plan_ns", "fill_ns", "sync_ns", "land_ns",
     "refresh_dev_s", "reuse_dev_s", "logit_dev_s", "iter_dev_s",
-    "gap_dev_s", "deferred", "idle_laps"})
+    "gap_dev_s", "deferred", "idle_laps", "reuse_in_place"})
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
