@@ -35,18 +35,68 @@ A control computes every linear layer and the head from inputs rounded to
 a lower precision (``precision``): bfloat16, or float8 e4m3 with a scale a
 row of activations and a column of weights; attention and the norms stay
 float32.
+
+The harness also reads two declarations of the family from here:
+:func:`layout`, every leaf the reference reads with the law it is drawn
+by, and :func:`token_params`, what one Refresh or Reuse token multiplies.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 FP8_MAX = 448.0
+
+
+def layout(model: dict) -> List[Tuple[str, tuple, float]]:
+    """(path, shape, std) of every leaf, in draw order: ``embed/table [V,
+    D]``, ``embed/lm_head [D, V]``, ``final_norm [D]`` and under
+    ``stack/``: ``attn_norm``, ``mlp_norm [L, D]``; ``wq [L, D, H, dh]``;
+    ``wk``, ``wv [L, D, K, dh]``; ``wo [L, H, dh, D]``; ``bq [L, H, dh]``,
+    ``bk``, ``bv [L, K, dh]`` with a QKV bias; ``w_gate``, ``w_up [L, D,
+    F]``; ``w_down [L, F, D]``. Matrices and biases are N(0, 0.02); norm
+    scales (the ``1 + scale`` convention) are drawn too, N(0, 0.05), so
+    the check sees every leaf."""
+    L, D, F, V = (model["n_layers"], model["d_model"], model["d_ff"],
+                  model["vocab_size"])
+    H, K = model["n_heads"], model["n_kv_heads"]
+    dh = model.get("head_dim") or D // H
+    out = [("embed/table", (V, D), 0.02),
+           ("embed/lm_head", (D, V), 0.02),
+           ("final_norm", (D,), 0.05),
+           ("stack/attn_norm", (L, D), 0.05),
+           ("stack/mlp_norm", (L, D), 0.05),
+           ("stack/wq", (L, D, H, dh), 0.02),
+           ("stack/wk", (L, D, K, dh), 0.02),
+           ("stack/wv", (L, D, K, dh), 0.02),
+           ("stack/wo", (L, H, dh, D), 0.02)]
+    if model.get("qkv_bias"):
+        out += [("stack/bq", (L, H, dh), 0.02),
+                ("stack/bk", (L, K, dh), 0.02),
+                ("stack/bv", (L, K, dh), 0.02)]
+    out += [("stack/w_gate", (L, D, F), 0.02),
+            ("stack/w_up", (L, D, F), 0.02),
+            ("stack/w_down", (L, F, D), 0.02)]
+    return out
+
+
+def token_params(model: dict) -> int:
+    """Parameters a token's pass through the layer stack multiplies: the
+    attention projections (and their biases), the gated MLP and the two
+    norms of every layer, and the final norm. The embedding lookup is no
+    product and the head is counted apart (``flops.logit_flops``)."""
+    L, D, F = model["n_layers"], model["d_model"], model["d_ff"]
+    H, K = model["n_heads"], model["n_kv_heads"]
+    dh = model.get("head_dim") or D // H
+    attn = D * H * dh + 2 * D * K * dh + H * dh * D
+    if model.get("qkv_bias"):
+        attn += H * dh + 2 * K * dh
+    return L * (attn + 3 * D * F + 2 * D) + D
 
 
 @dataclass

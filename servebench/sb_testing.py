@@ -46,10 +46,12 @@ def tiny_config(dtype: str = "bfloat16", limit: float = 0.012,
 
 
 def make_root(tmp: Path, config: dict = None, mix: dict = None,
-              extra_metrics: dict = None, per_layer: list = None) -> Path:
+              extra_metrics: dict = None, per_layer: list = None,
+              references: dict = None) -> Path:
     """A scratch checkout: ``BENCHMARK.json`` with one cell ``tiny.cell``,
     its configuration and mix files, the repo's metric readers and
-    references (linked), and any ``extra_metrics`` (name -> source)."""
+    references (linked), and any ``extra_metrics`` and ``references``
+    (name -> source)."""
     sb = tmp / "servebench"
     (sb / "configs").mkdir(parents=True, exist_ok=True)
     (sb / "traffic").mkdir(exist_ok=True)
@@ -58,10 +60,15 @@ def make_root(tmp: Path, config: dict = None, mix: dict = None,
         dst = sb / "metrics" / f.name
         if not dst.exists():
             os.symlink(f, dst)
-    if not (sb / "references").exists():
-        os.symlink(HERE / "references", sb / "references")
+    (sb / "references").mkdir(exist_ok=True)
+    for f in (HERE / "references").glob("*.py"):
+        dst = sb / "references" / f.name
+        if not dst.exists():
+            os.symlink(f, dst)
     for name, src in (extra_metrics or {}).items():
         (sb / "metrics" / f"{name}.py").write_text(src)
+    for name, src in (references or {}).items():
+        (sb / "references" / f"{name}.py").write_text(src)
     (sb / "configs" / "tiny.json").write_text(
         json.dumps(config or tiny_config()))
     (sb / "traffic" / "tiny.json").write_text(json.dumps(mix or TINY_MIX))
@@ -88,3 +95,17 @@ def run_tiny(root: Path, seed: int = 2 ** 31 + 5, seconds: float = 30.0,
     cell = spec.load_cell("tiny.cell", root)
     return execute.execute(cell, seed, seconds, trace, torch.device("cpu"),
                            time.perf_counter(), log=lambda *a: None)
+
+
+def serve_tiny(root: Path, seed: int = 2 ** 31 + 5,
+               seconds: float = 30.0):
+    """One window of ``tiny.cell`` served on the CPU through the harness's
+    session, the program's state freed and no check run: its ``Run``."""
+    import torch
+
+    from sbench import session, spec
+    cell = spec.load_cell("tiny.cell", root)
+    sess = session.Session(cell, seed, torch.device("cpu"))
+    w = sess.window(seed, seconds)
+    sess.close()
+    return w.run

@@ -1,28 +1,34 @@
 """Operations and bytes the yardstick counts, from the configuration's
-sizes and the engine's counters."""
+sizes and the engine's counters.
+
+What one Refresh or Reuse token multiplies is the configuration's
+reference's to declare (``token_params(model)``): a dense stack's
+projections, a mixture's router and the experts a token is routed to, a
+hybrid's shared block once a call of it. It is read once at set-up
+(:func:`token_params`) and carried by the run; nothing here knows a
+family. The head is counted apart, the same for every family.
+"""
 from __future__ import annotations
 
+from pathlib import Path
 
-def non_embedding_params(model: dict) -> int:
-    """Parameters a token's pass through the layer stack multiplies: the
-    attention projections (and their biases), the gated MLP and the two
-    norms of every layer, and the final norm. The embedding lookup is no
-    product and the head is counted by :func:`logit_flops`."""
-    L, D, F = model["n_layers"], model["d_model"], model["d_ff"]
-    H, K = model["n_heads"], model["n_kv_heads"]
-    dh = model.get("head_dim") or D // H
-    attn = D * H * dh + 2 * D * K * dh + H * dh * D
-    if model.get("qkv_bias"):
-        attn += H * dh + 2 * K * dh
-    return L * (attn + 3 * D * F + 2 * D) + D
+from sbench import spec
 
 
-def step_flops(model: dict, row: dict) -> float:
+def token_params(config: dict, root: Path) -> int:
+    """Parameters a Refresh or Reuse token's pass through the layer stack
+    multiplies, as the configuration's reference counts them."""
+    ref = spec.reference(config["reference"], root)
+    return int(ref.token_params(config["model"]))
+
+
+def step_flops(model: dict, row: dict, token_params: int) -> float:
     """One engine iteration's model FLOPs from its ``iter_log`` row: two a
-    parameter a real Refresh or Reuse token, and the head's 2·D·V a real
-    logit row. Attention's scores are left out (a lower bound)."""
+    parameter a real Refresh or Reuse token multiplies, and the head's
+    2·D·V a real logit row. Attention's scores are left out (a lower
+    bound)."""
     tokens = row["refresh_tokens_real"] + row["reuse_tokens_real"]
-    return (2.0 * non_embedding_params(model) * tokens
+    return (2.0 * token_params * tokens
             + logit_flops(model, row["logit_tokens_real"]))
 
 

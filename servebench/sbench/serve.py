@@ -6,7 +6,9 @@ on (``use_flash_kernel``, ``logit_mode="fused"``), the pipelined loop, the
 wall clock and the captured stage graphs; the offline profiler
 (``profile_slots``) sizes the slots at the card's memory under the
 configuration's cap, and ``fit_to_budget`` builds, warms (every stage
-entry captured) and bills the engine, on the benchmark's weights.
+entry captured) and bills the engine, on the benchmark's weights: the
+drawn tree as the configuration's reference lays it out, each group of it
+a ``Group``, so any family's nesting builds.
 
 The window: every request is submitted with its due time and
 ``Engine.run`` is called once (an open loop on the run's wall clock). The
@@ -121,9 +123,13 @@ def build(config: dict, params: dict, device: torch.device, seed: int,
     serve = serve_config(config)
     gib = card_gib(config, device)
     plan, serve = profile_slots(cfg, serve, serve.max_slots, gib)
-    tree = Group({"embed": Group(params["embed"]),
-                  "final_norm": params["final_norm"],
-                  "stack": Group(params["stack"])})
+
+    def groups(node: dict) -> Group:
+        # each dict of the drawn tree a Group, at whatever depth the
+        # layout declares
+        return Group({n: groups(v) if isinstance(v, dict) else v
+                      for n, v in node.items()})
+    tree = groups(params)
 
     def make(serve, _params=None):
         eng = Engine(cfg, serve, params=tree, seed=seed, clock="wall",

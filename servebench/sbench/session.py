@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from sbench import serve, spec, trace as tracing, traffic, weights
+from sbench import flops, serve, spec, trace as tracing, traffic, weights
 
 
 @dataclass
@@ -33,6 +33,7 @@ class Run:
     mask_id: int
     peak: Optional[dict]     # the card's published peaks (None off it)
     trace: Optional[tracing.TraceData] = None
+    token_params: Optional[int] = None   # the reference's count a token
 
 
 @dataclass
@@ -56,7 +57,10 @@ class Session:
         self.mask_id = self.model["vocab_size"] - 1
         self.kind = (torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu")
-        self.params = weights.make(self.model, seed, device)
+        self.layout = weights.layout(cell.config, cell.root)
+        self.token_params = flops.token_params(cell.config, cell.root)
+        self.params = weights.make(self.layout, self.model["dtype"], seed,
+                                   device)
         self.drawn = seed
         self.stamps = serve.Stamps()
         self.built = serve.build(cell.config, self.params, device, seed,
@@ -69,7 +73,7 @@ class Session:
     def draw(self, seed: int) -> None:
         """The weights of ``seed``, in place."""
         if seed != self.drawn:
-            weights.draw(self.params, self.model, seed)
+            weights.draw(self.params, self.layout, seed)
             self.drawn = seed
 
     def window(self, seed: int, seconds: float, mix: Optional[dict] = None,
@@ -117,7 +121,8 @@ class Session:
         waiting = sum(1 for r in eng.scheduler.waiting if r.arrival < seconds)
         run = Run(self.cell.name, self.cell.config, seconds, setup_s,
                   self.stamps.events, reqs, list(eng.stats.iter_log),
-                  self.built.slots, self.mask_id, None)
+                  self.built.slots, self.mask_id, None,
+                  token_params=self.token_params)
         return Window(seed, run, failed, int(mem), self.stamps.samples,
                       waiting, prof)
 

@@ -8,6 +8,16 @@ and traffic mix and every metric. Each configuration is
 each configuration names its plain reference,
 ``servebench/references/<reference>.py``. A later cell, configuration, mix
 or metric is a new file and a new entry: nothing here changes.
+
+The reference is where a model family lives. Besides the replay the check
+calls (``hidden_at``, ``Head``), it declares ``layout(model)``, the
+``(path, shape, std)`` of every leaf in draw order, which
+:mod:`sbench.weights` draws and :mod:`sbench.serve` hands to the engine
+at whatever nesting the paths give, and ``token_params(model)``, the
+parameters a Refresh or Reuse token multiplies, which ``step_mfu`` counts
+(:mod:`sbench.flops`). So a new family is a configuration file and a
+reference file, with its mixes, metrics and entries: nothing under
+``sbench/`` knows a family.
 """
 from __future__ import annotations
 

@@ -2,70 +2,64 @@
 served in, one call a stacked leaf: the same weights go to the program and
 to the plain reference.
 
-The layout is the dense family's (the port's ``params`` tree): ``embed``
-(``table [V, D]``, ``lm_head [D, V]``), ``final_norm [D]`` and ``stack``
-(``attn_norm``, ``mlp_norm [L, D]``; ``wq [L, D, H, dh]``; ``wk``, ``wv
-[L, D, K, dh]``; ``wo [L, H, dh, D]``; ``bq [L, H, dh]``, ``bk``, ``bv
-[L, K, dh]`` with a QKV bias; ``w_gate``, ``w_up [L, D, F]``; ``w_down
-[L, F, D]``). Matrices are N(0, 0.02); norm scales (the ``1 + scale``
-convention) and biases are drawn too, N(0, 0.05) and N(0, 0.02), so the
-check sees every leaf.
+The layout is the configuration's reference's: its ``layout(model)``
+gives ``(path, shape, std)`` of every leaf in draw order, a path's groups
+joined by ``/`` (``embed/table``, ``stack/wq``, ``stack/mamba/w_z``), at
+any depth. Here only the drawing: one generator from the seed, one
+``normal_`` a leaf in the declared order, in the model's ``dtype``. A new
+family is a reference that declares its layout; nothing here changes.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
 
+from sbench import spec
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-
-def leaves(cfg: dict) -> List[Tuple[str, str, tuple, float]]:
-    """(group, name, shape, std) of every leaf, in draw order."""
-    L, D, F, V = (cfg["n_layers"], cfg["d_model"], cfg["d_ff"],
-                  cfg["vocab_size"])
-    H, K = cfg["n_heads"], cfg["n_kv_heads"]
-    dh = cfg.get("head_dim") or D // H
-    out = [("embed", "table", (V, D), 0.02),
-           ("embed", "lm_head", (D, V), 0.02),
-           ("", "final_norm", (D,), 0.05),
-           ("stack", "attn_norm", (L, D), 0.05),
-           ("stack", "mlp_norm", (L, D), 0.05),
-           ("stack", "wq", (L, D, H, dh), 0.02),
-           ("stack", "wk", (L, D, K, dh), 0.02),
-           ("stack", "wv", (L, D, K, dh), 0.02),
-           ("stack", "wo", (L, H, dh, D), 0.02)]
-    if cfg.get("qkv_bias"):
-        out += [("stack", "bq", (L, H, dh), 0.02),
-                ("stack", "bk", (L, K, dh), 0.02),
-                ("stack", "bv", (L, K, dh), 0.02)]
-    out += [("stack", "w_gate", (L, D, F), 0.02),
-            ("stack", "w_up", (L, D, F), 0.02),
-            ("stack", "w_down", (L, F, D), 0.02)]
-    return out
+Leaves = List[Tuple[str, tuple, float]]
 
 
-def allocate(cfg: dict, device) -> Dict[str, object]:
-    dtype = DTYPES[cfg["dtype"]]
-    tree: Dict[str, object] = {"embed": {}, "stack": {}}
-    for group, name, shape, _ in leaves(cfg):
-        t = torch.empty(shape, dtype=dtype, device=device)
-        (tree[group] if group else tree)[name] = t
+def layout(config: dict, root: Path) -> Leaves:
+    """(path, shape, std) of every leaf, in draw order, as the
+    configuration's reference declares them."""
+    return spec.reference(config["reference"], root).layout(config["model"])
+
+
+def _parent(tree: Dict[str, object], path: str, make: bool = False):
+    *groups, name = path.split("/")
+    for g in groups:
+        tree = tree.setdefault(g, {}) if make else tree[g]
+    return tree, name
+
+
+def leaf(tree: Dict[str, object], path: str) -> torch.Tensor:
+    node, name = _parent(tree, path)
+    return node[name]
+
+
+def allocate(leaves: Leaves, dtype: str, device) -> Dict[str, object]:
+    tree: Dict[str, object] = {}
+    for path, shape, _ in leaves:
+        node, name = _parent(tree, path, make=True)
+        node[name] = torch.empty(shape, dtype=DTYPES[dtype], device=device)
     return tree
 
 
-def draw(tree: Dict[str, object], cfg: dict, seed: int) -> None:
+def draw(tree: Dict[str, object], leaves: Leaves, seed: int) -> None:
     """Fill ``tree`` in place from ``seed``: the same seed gives the same
     weights, whatever the tree held."""
-    dev = tree["embed"]["table"].device
+    dev = leaf(tree, leaves[0][0]).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed) & (2 ** 63 - 1))
-    for group, name, _, std in leaves(cfg):
-        t = (tree[group] if group else tree)[name]
-        t.normal_(0.0, std, generator=gen)
+    for path, _, std in leaves:
+        leaf(tree, path).normal_(0.0, std, generator=gen)
 
 
-def make(cfg: dict, seed: int, device) -> Dict[str, object]:
-    tree = allocate(cfg, device)
-    draw(tree, cfg, seed)
+def make(leaves: Leaves, dtype: str, seed: int, device) -> Dict[str, object]:
+    tree = allocate(leaves, dtype, device)
+    draw(tree, leaves, seed)
     return tree

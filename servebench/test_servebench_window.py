@@ -66,6 +66,7 @@ def test_the_schedule_counts_each_step_and_every_change():
     assert window.commit_count(5, 2) == 3
 
 
+DENSE = spec.reference("dense_diffusion")
 MODEL = {"n_layers": 2, "d_model": 8, "d_ff": 16, "n_heads": 2,
          "n_kv_heads": 1, "head_dim": 4, "vocab_size": 10, "qkv_bias": True}
 PEAK = {"bf16_flops": 1000.0, "hbm_bytes_s": 100.0}
@@ -73,17 +74,21 @@ PEAK = {"bf16_flops": 1000.0, "hbm_bytes_s": 100.0}
 
 def test_non_embedding_params_and_step_flops():
     attn = 8 * 2 * 4 + 2 * 8 * 1 * 4 + 2 * 4 * 8 + 2 * 4 + 2 * 4
-    assert flops.non_embedding_params(MODEL) == 2 * (attn + 3 * 8 * 16 + 16) + 8
+    assert DENSE.token_params(MODEL) == 2 * (attn + 3 * 8 * 16 + 16) + 8
     row = dict(refresh_tokens_real=10, reuse_tokens_real=6,
                logit_tokens_real=3)
-    assert flops.step_flops(MODEL, row) == \
-        2.0 * flops.non_embedding_params(MODEL) * 16 + 2.0 * 3 * 8 * 10
+    assert flops.step_flops(MODEL, row, DENSE.token_params(MODEL)) == \
+        2.0 * DENSE.token_params(MODEL) * 16 + 2.0 * 3 * 8 * 10
+    assert flops.token_params({"reference": "dense_diffusion",
+                               "model": MODEL}, spec.ROOT) == \
+        DENSE.token_params(MODEL)
 
 
 def _run(rows, tr=None, seconds=2.0):
     return session.Run("c", {"model": MODEL,
                              "serve": {"max_num_logits": 4}},
-                       seconds, 1.0, [], [], rows, 3, MASK, PEAK, tr)
+                       seconds, 1.0, [], [], rows, 3, MASK, PEAK, tr,
+                       DENSE.token_params(MODEL))
 
 
 ROWS = [dict(t=0.1, refresh_tokens_real=10, reuse_tokens_real=6,
@@ -97,8 +102,8 @@ ROWS = [dict(t=0.1, refresh_tokens_real=10, reuse_tokens_real=6,
 def test_step_mfu_and_host_readers_take_the_window_rows():
     run = _run(ROWS)
     mfu = spec.metric_reader("step_mfu")(run)
-    assert mfu == pytest.approx(100 * flops.step_flops(MODEL, ROWS[0])
-                                / (2.0 * 1000.0))
+    assert mfu == pytest.approx(100 * flops.step_flops(
+        MODEL, ROWS[0], DENSE.token_params(MODEL)) / (2.0 * 1000.0))
     assert spec.metric_reader("steps_per_iter")(run) == 3
     assert spec.metric_reader("host_ms_per_iter")(run) == pytest.approx(4.0)
     assert spec.metric_reader("slots")(run) == 3
